@@ -1,0 +1,175 @@
+"""Build and load the port's CUDA kernels.
+
+Every ``csrc/*.cu`` file is compiled by ``nvcc`` for ``sm_90a`` into an
+object (one ``nvcc`` per source, all started together), the objects are
+linked into one shared library with a plain C interface, and the library
+is loaded with ``ctypes``.  The build goes into ``build/`` at the root of
+the repository (override with ``REPRO_TORCH_BUILD_DIR``), happens at first
+use, and is keyed on the content of the sources, so an unchanged tree
+never rebuilds and an edited source never loads a stale library.  Each
+build compiles into a directory of its own and renames the finished
+library into place, so processes that build at once do not disturb each
+other.  A failed build raises with ``nvcc``'s output; nothing here falls
+back to anything.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import time
+from pathlib import Path
+from typing import Optional
+
+import torch
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+REPO_ROOT = Path(__file__).resolve().parents[3]
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-Xcompiler", "-fPIC"]
+
+_LIB: Optional[ctypes.CDLL] = None
+_INFO: dict = {}
+
+_PTR = ctypes.c_void_p
+_I64 = ctypes.c_longlong
+_F64 = ctypes.c_double
+_INT = ctypes.c_int
+
+# C signatures (all return the cudaError_t of the launch as int)
+_SIGNATURES = {
+    "heye_slowdown_factors": [_PTR, _PTR, _PTR, _PTR, _PTR, _I64, _INT,
+                              _F64, _PTR],
+    "heye_rate_advance": [_PTR, _PTR, _PTR, _PTR, _PTR, _I64, _F64, _INT,
+                          _PTR],
+    "heye_segment_min": [_PTR, _PTR, _PTR, _PTR, _I64, _PTR],
+    "heye_scan_reduce": [_PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR,
+                         _PTR, _PTR, _I64, _I64, _F64, _PTR],
+}
+
+
+def sources() -> list[Path]:
+    return sorted(CSRC.glob("*.cu"))
+
+
+def _nvcc() -> str:
+    exe = shutil.which("nvcc")
+    if exe is None:
+        cand = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc"
+        if cand.exists():
+            exe = str(cand)
+    if exe is None:
+        raise RuntimeError("nvcc not found: the CUDA kernels of repro_torch "
+                           "can only be built where the CUDA toolkit is "
+                           "installed")
+    return exe
+
+
+def _digest(srcs: list[Path]) -> str:
+    h = hashlib.sha256()
+    h.update(" ".join(NVCC_FLAGS).encode())
+    for s in srcs:
+        h.update(s.name.encode())
+        h.update(s.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def build_dir() -> Path:
+    return Path(os.environ.get("REPRO_TORCH_BUILD_DIR",
+                               REPO_ROOT / "build")).resolve()
+
+
+def build() -> Path:
+    """Compile (if needed) and return the path of the shared library."""
+    srcs = sources()
+    if not srcs:
+        raise RuntimeError(f"no CUDA sources under {CSRC}")
+    out_dir = build_dir() / "repro_torch"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    lib = out_dir / f"libheye_kernels_{_digest(srcs)}.so"
+    if lib.exists():
+        _INFO.setdefault("seconds", 0.0)
+        _INFO.setdefault("cached", True)
+        _INFO["lib"] = str(lib)
+        return lib
+    nvcc = _nvcc()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=out_dir, prefix="objs_") as work:
+        procs = []
+        objs = []
+        for s in srcs:
+            obj = Path(work) / (s.stem + ".o")
+            objs.append(obj)
+            cmd = [nvcc, *NVCC_FLAGS, "-c", str(s), "-o", str(obj)]
+            procs.append((cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                                stderr=subprocess.STDOUT,
+                                                text=True)))
+        log = []
+        failed = []
+        for cmd, p in procs:
+            out, _ = p.communicate()
+            log.append(out)
+            if p.returncode != 0:
+                failed.append((cmd, out))
+        if failed:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(
+                " ".join(c) + "\n" + o for c, o in failed))
+        tmp = Path(work) / lib.name
+        link = [nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp),
+                *(str(o) for o in objs)]
+        r = subprocess.run(link, stdout=subprocess.PIPE,
+                           stderr=subprocess.STDOUT, text=True)
+        if r.returncode != 0:
+            raise RuntimeError("nvcc link failed:\n" + " ".join(link) + "\n"
+                               + r.stdout)
+        os.replace(tmp, lib)
+    _INFO.update(seconds=time.perf_counter() - t0, cached=False,
+                 lib=str(lib),
+                 nvcc_line=" ".join([nvcc, *NVCC_FLAGS, "-c", "csrc/<name>.cu",
+                                     "-o", "<name>.o"]) + "  &&  "
+                 + " ".join([nvcc, *NVCC_FLAGS, "-shared", "-o",
+                             lib.name, "*.o"]),
+                 log="".join(log) + r.stdout)
+    return lib
+
+
+def load() -> ctypes.CDLL:
+    """The loaded kernel library (built at first use)."""
+    global _LIB
+    if _LIB is None:
+        lib = ctypes.CDLL(str(build()))
+        for name, argtypes in _SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = _INT
+        _LIB = lib
+    return _LIB
+
+
+def info() -> dict:
+    """Facts about the last build in this process (seconds, nvcc line)."""
+    return dict(_INFO)
+
+
+def check_launch(err: int, name: str) -> None:
+    """Raise when a kernel launch was refused (the C wrappers return
+    ``cudaGetLastError()`` right after the launch)."""
+    if err != 0:
+        raise RuntimeError(f"CUDA launch of {name} failed: cudaError {err}")
+
+
+def check_tensor(name: str, t: torch.Tensor, dtype, ndim: int, device) -> None:
+    """Raise on anything a kernel wrapper does not take."""
+    if not isinstance(t, torch.Tensor):
+        raise TypeError(f"{name} must be a tensor, got {type(t).__name__}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
+    if t.dim() != ndim:
+        raise ValueError(f"{name} must have {ndim} dims, got {t.dim()}")
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
