@@ -3,15 +3,30 @@
 
     python3 chip_smoke.py            # needs one CUDA card and nvcc
 
-Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``,
-holds each against its plain PyTorch version on the card, then drives
-the port's main path — the offline scheduler session (map -> execute) on
-the Fig. 13 mining fleet — at mult=8 (card vs CPU vs the port's own
-reference event loop) and at full width, mult=128 (8448 PUs, 4608
-tasks).  One JSON object per line; the last line is
-``{"ok": true, "device": {...}}``.  Any failing phase raises, and the
-script exits non-zero without printing a result.  Without a CUDA device
-it fails at once: there is no CPU path.
+Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``
+(one ``nvcc`` per source, all started together) and holds each against
+its plain PyTorch version on the card: the scheduler's B1-B4 and the
+model path's flash attention (B5) and LRU scan (B6).  Then it drives the
+port's two paths through their public entry points:
+
+* ``model_x_smoke``: recurrentgemma-9b ``.smoke()`` in float32, weights
+  made on the card and copied to a CPU model; forward, prefill, 8
+  teacher-forced decode steps and a ``ServeEngine`` run, card (kernels)
+  against CPU (plain versions);
+* ``x8`` / ``x128``: the offline scheduler session (map -> execute) on the
+  Fig. 13 mining fleet at mult=8 (card vs CPU vs the port's own reference
+  event loop) and at full width, mult=128 (8448 PUs, 4608 tasks);
+* ``model_full``: recurrentgemma-9b at full width (38 layers, d=4096,
+  ~8.5 B float32 parameters from a seeded generator): prefill(1, 4096) in
+  float32 through the kernels against the plain route, then prefill(2,
+  4096) + 16 decode steps in bfloat16, timed;
+* ``serve_full``: ``repro_torch.launch.serve`` at full width (tenant
+  placement on the simulated TPU fleet, then 8 requests over 4 slots).
+
+One JSON object per line; the last line is ``{"ok": true, "device":
+{...}}``.  Any failing phase raises, and the script exits non-zero without
+printing a result.  Without a CUDA device it fails at once: there is no CPU
+path.
 """
 from __future__ import annotations
 
@@ -30,17 +45,44 @@ import numpy as np          # noqa: E402
 import torch                # noqa: E402
 
 import repro_torch.core as core                              # noqa: E402
+import repro_torch.launch.serve as serve_launch              # noqa: E402
 from repro_torch import device as rt_device                  # noqa: E402
+from repro_torch.configs import get_config                   # noqa: E402
 from repro_torch.core.workloads import mining_workload       # noqa: E402
 from repro_torch.kernels import (build, slowdown_kernel,     # noqa: E402
                                  timeline_kernel, walk_kernel)
+from repro_torch.kernels import flash_attention as fa_kernel  # noqa: E402
+from repro_torch.kernels import lru_scan as lru_kernel       # noqa: E402
+from repro_torch.models import ParallelCtx, build_model      # noqa: E402
+from repro_torch.models.transformer import tree_map          # noqa: E402
+from repro_torch.serve.engine import Request, ServeEngine    # noqa: E402
 
-# published peaks of one H100 SXM (NVIDIA data sheet): device memory rate
-# and the float64 rate outside the tensor cores
+# published peaks of one H100 SXM (NVIDIA data sheet): device memory rate,
+# the float64 and float32 rates outside the tensor cores, the dense bf16
+# tensor-core rate
 HBM_BYTES_PER_S = 3.35e12
 FP64_FLOPS = 34e12
+FP32_FLOPS = 67e12
+BF16_FLOPS = 989e12
 REL_TOL = 1e-12             # floats against the plain version (decisions exact)
 T_TOL = 1e-9                # finish times: card vs CPU, fused vs reference
+# B5 against its plain version, same inputs.  float32: both sum in float32
+# in another order (observed ~1e-6 at unit scale); x100 logits make every
+# score ~1e4, so a reordering moves it by ~1e-3 (the reference's own
+# kernel test allows 2e-3 there).  bfloat16: both compute in float32 and
+# round the output once, so they differ by at most one bf16 step of the
+# output (2^-7 relative) plus an absolute floor for outputs near 0.
+ATTN_F32_TOL = 1e-4
+ATTN_X100_TOL = 2e-3
+ATTN_BF16_REL, ATTN_BF16_ABS = 2.0 ** -7, 1e-5
+# model_x_smoke: float32 logits (|logit| ~ 2), card kernels vs CPU plain
+# versions, every layer in float32 -> reorderings only
+SMOKE_LOGIT_TOL = 1e-4
+# model_full: float32 prefill over 38 layers, kernel route (online-softmax
+# attention, sequential scan) vs plain route (banded local attention,
+# log-depth associative scan), max |diff| relative to the logits' RMS
+FULL_REL_TOL = 1e-3
+FULL_ARCH = "recurrentgemma-9b"
 
 
 FULL_MULT = 128             # the full-width run: 8448 PUs, 4608 tasks
@@ -275,9 +317,163 @@ def check_scan_reduce(dev, rng) -> dict:
                 other_shapes={"P=8448": shapes["P=8448"]})
 
 
-def bound(nbytes: int, flops: int) -> dict:
+# the model path's shapes: recurrentgemma-9b's local attention layers and
+# RG-LRU blocks at prefill(B=2, S=4096)
+PATH_B, PATH_S = 2, 4096
+
+
+def _attn_inputs(dev, rng, B, S, Hq, Hkv, hd, dtype, scale=1.0):
+    q = rng.standard_normal((B, S, Hq, hd)) * scale
+    k = rng.standard_normal((B, S, Hkv, hd)) * scale
+    v = rng.standard_normal((B, S, Hkv, hd))
+    return [torch.as_tensor(a, dtype=torch.float32, device=dev).to(dtype)
+            for a in (q, k, v)]
+
+
+def _attn_err(got, ref, dtype, tol):
+    """(max abs err, worst ratio of the error to the tolerance)."""
+    g, r = got.double(), ref.double()
+    d = (g - r).abs()
+    if dtype == torch.bfloat16:
+        allowed = ATTN_BF16_REL * r.abs() + ATTN_BF16_ABS
+    else:
+        allowed = torch.full_like(r, tol)
+    return float(d.max()), float((d / allowed).max())
+
+
+def check_flash(dev, rng) -> dict:
+    """B5 on the card against its plain version: MHA / GQA / MQA, hd 16,
+    64, 128 and 256, causal only, windows (shorter than the 32-key tile,
+    S > window), softcap, x100 logits, non-causal, S that no tile
+    divides; float32 and bfloat16."""
+    cases = [
+        # (B, S, Hq, Hkv, hd, kwargs, logit scale)
+        (1, 256, 4, 4, 64, {}, 1.0),
+        (2, 320, 8, 2, 64, {}, 1.0),
+        (1, 512, 16, 1, 256, {}, 1.0),
+        (1, 512, 4, 1, 256, {"window": 16}, 1.0),
+        (1, 1024, 4, 1, 256, {"window": 300}, 1.0),
+        (1, 256, 4, 2, 64, {"softcap": 50.0}, 1.0),
+        (1, 384, 4, 2, 128, {"softcap": 30.0, "window": 100}, 1.0),
+        (2, 40, 4, 1, 16, {"window": 16}, 1.0),
+        (1, 200, 4, 2, 32, {"causal": False}, 1.0),
+        (1, 256, 2, 2, 64, {}, 100.0),
+    ]
+    worst = {"float32": 0.0, "bfloat16": 0.0}
+    worst_ratio = 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        for B, S, Hq, Hkv, hd, kw, scale in cases:
+            q, k, v = _attn_inputs(dev, rng, B, S, Hq, Hkv, hd, dtype, scale)
+            got = fa_kernel.flash_attention(q, k, v, **kw)
+            ref = fa_kernel.flash_attention_plain(q, k, v, **kw)
+            torch.cuda.synchronize()
+            if got.dtype != dtype or not torch.isfinite(got).all():
+                raise AssertionError(f"flash_attention {dtype} {kw}: wrong "
+                                     "dtype or non-finite output")
+            tol = ATTN_X100_TOL if scale > 1.0 else ATTN_F32_TOL
+            e, ratio = _attn_err(got, ref, dtype, tol)
+            name = str(dtype).split(".")[-1]
+            worst[name] = max(worst[name], e)
+            if not ratio <= 1.0:
+                raise AssertionError(
+                    f"flash_attention {name} B={B} S={S} Hq={Hq} Hkv={Hkv} "
+                    f"hd={hd} {kw} x{scale}: max err {e} over its tolerance")
+            worst_ratio = max(worst_ratio, ratio)
+    # the path's shape, the serving dtype
+    B, S, Hq, Hkv, hd, window = PATH_B, PATH_S, 16, 1, 256, 2048
+    q, k, v = _attn_inputs(dev, rng, B, S, Hq, Hkv, hd, torch.bfloat16)
+    got = fa_kernel.flash_attention(q, k, v, window=window)
+    ref = fa_kernel.flash_attention_plain(q, k, v, window=window)
+    torch.cuda.synchronize()
+    e, ratio = _attn_err(got, ref, torch.bfloat16, 0.0)
+    if not ratio <= 1.0:
+        raise AssertionError(f"flash_attention at the path's shape: {e}")
+    worst["bfloat16"] = max(worst["bfloat16"], e)
+    ms = time_ms(lambda: fa_kernel.flash_attention(q, k, v, window=window),
+                 10, 2)
+    plain = time_ms(lambda: fa_kernel.flash_attention_plain(
+        q, k, v, window=window), 3, 1)
+    # the one PyTorch call computing the same function (the same boolean
+    # mask, kv heads expanded as views); timed here, used nowhere in the port
+    mask = fa_kernel.attention_mask(S, True, window, dev)
+    qt = q.transpose(1, 2)
+    kt = k.transpose(1, 2).expand(B, Hq, S, hd)
+    vt = v.transpose(1, 2).expand(B, Hq, S, hd)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+
+    def lib_call():
+        return sdpa(qt, kt, vt, attn_mask=mask, scale=1.0 / hd ** 0.5)
+    lib_out = lib_call().transpose(1, 2)
+    torch.cuda.synchronize()
+    lib_err = float((lib_out.double() - ref.double()).abs().max())
+    if not lib_err < 0.1:
+        raise AssertionError(f"the SDPA yardstick computes something else "
+                             f"(max err {lib_err})")
+    lib = time_ms(lib_call, 10, 2)
+    pos = np.arange(S)
+    live = int(np.minimum(pos + 1, window).sum())      # (i, j) pairs per (b, h)
+    flops = 4 * hd * live * B * Hq
+    nbytes = 2 * (2 * B * S * Hq * hd + 2 * B * S * Hkv * hd)
+    return dict(name="flash_attention", route="cuda",
+                source="src/repro_torch/kernels/csrc/flash_attention.cuh",
+                replaces="src/repro/kernels/flash_attention.py:95",
+                shape=f"B={B} S={S} Hq={Hq} Hkv={Hkv} hd={hd} "
+                      f"window={window} bf16",
+                max_abs_err=max(worst.values()),
+                max_abs_err_by_dtype=worst,
+                worst_err_over_tolerance=worst_ratio,
+                tolerance=(f"float32 {ATTN_F32_TOL} abs ({ATTN_X100_TOL} at "
+                           f"x100 logits); bfloat16 {ATTN_BF16_REL}*|plain| + "
+                           f"{ATTN_BF16_ABS}"),
+                ms=ms, plain_ms=plain, **bound(nbytes, flops, BF16_FLOPS),
+                library_ms=lib,
+                library_call="torch.nn.functional.scaled_dot_product_attention",
+                library_max_abs_err=lib_err, flops=flops)
+
+
+def check_lru(dev, rng) -> dict:
+    """B6 on the card against its plain version, bit for bit: a in (0, 1)
+    with a = 0 and a = 1 columns, shapes no block divides."""
+    worst = 0.0
+    for B, S, W in ((1, 64, 128), (2, 256, 256), (1, 128, 100), (3, 96, 64),
+                    (2, 77, 33)):
+        a = rng.uniform(0.0, 1.0, (B, S, W))
+        a[..., 0] = 0.0
+        a[..., 1] = 1.0
+        b = rng.standard_normal((B, S, W))
+        a, b = (torch.as_tensor(x, dtype=torch.float32, device=dev)
+                for x in (a, b))
+        got = lru_kernel.lru_scan(a, b)
+        ref = lru_kernel.lru_scan_plain(a, b)
+        torch.cuda.synchronize()
+        e = max_err(got, ref)[0]
+        if e != 0.0:
+            raise AssertionError(f"lru_scan ({B},{S},{W}) differs from its "
+                                 f"plain version by {e} (bit-equal expected)")
+        worst = max(worst, e)
+    B, S, W = PATH_B, PATH_S, 4096
+    a, b = (torch.as_tensor(x, dtype=torch.float32, device=dev)
+            for x in (rng.uniform(0.899, 0.999, (B, S, W)),
+                      rng.standard_normal((B, S, W))))
+    got = lru_kernel.lru_scan(a, b)
+    ref = lru_kernel.lru_scan_plain(a, b)
+    torch.cuda.synchronize()
+    if max_err(got, ref)[0] != 0.0:
+        raise AssertionError("lru_scan at the path's shape is not bit-equal")
+    ms = time_ms(lambda: lru_kernel.lru_scan(a, b), 20, 3)
+    plain = time_ms(lambda: lru_kernel.lru_scan_plain(a, b), 2, 1)
+    return dict(name="lru_scan", route="cuda",
+                source="src/repro_torch/kernels/csrc/lru_scan.cu",
+                replaces="src/repro/kernels/lru_scan.py:45",
+                shape=f"B={B} S={S} W={W} fp32", max_abs_err=worst,
+                tolerance="bit-equal", ms=ms, plain_ms=plain,
+                **bound(3 * B * S * W * 4, 2 * B * S * W, FP32_FLOPS),
+                library_ms=None)
+
+
+def bound(nbytes: int, flops: int, peak: float = FP64_FLOPS) -> dict:
     tb = nbytes / HBM_BYTES_PER_S * 1e3
-    to = flops / FP64_FLOPS * 1e3
+    to = flops / peak * 1e3
     return dict(bound_ms=max(tb, to),
                 bound_by="bytes" if tb >= to else "operations")
 
@@ -285,9 +481,16 @@ def bound(nbytes: int, flops: int) -> dict:
 # ---------------------------------------------------------------------------
 # the main path
 # ---------------------------------------------------------------------------
+SCHED_KERNELS = ("slowdown_factors", "rate_advance", "rate_advance_settle",
+                 "segment_min", "scan_reduce")
+MODEL_KERNELS = ("flash_attention", "lru_scan")
+
+
 def reset_counts() -> None:
     slowdown_kernel.launches = 0
     walk_kernel.launches = 0
+    fa_kernel.launches = 0
+    lru_kernel.launches = 0
     for k in timeline_kernel.launches:
         timeline_kernel.launches[k] = 0
     rt_device.reset_sync_count()
@@ -298,7 +501,9 @@ def read_counts() -> dict:
             "rate_advance": timeline_kernel.launches["rate_advance"],
             "rate_advance_settle": timeline_kernel.launches["settle"],
             "segment_min": timeline_kernel.launches["segment_min"],
-            "scan_reduce": walk_kernel.launches}
+            "scan_reduce": walk_kernel.launches,
+            "flash_attention": fa_kernel.launches,
+            "lru_scan": lru_kernel.launches}
 
 
 def run_session(mult: int, device, seed: int):
@@ -379,8 +584,8 @@ def session_full(seed: int) -> tuple[dict, dict]:
                              "have no mapping")
     if st.unmapped:
         raise AssertionError(f"x{mult}: {len(st.unmapped)} tasks unmapped")
-    for name, n in counts.items():
-        if n <= 0:
+    for name in SCHED_KERNELS:
+        if counts[name] <= 0:
             raise AssertionError(f"x{mult}: kernel {name} was never launched "
                                  "on the main path")
     pct = st.latency_percentiles(cfg, (50.0, 99.0))
@@ -392,6 +597,203 @@ def session_full(seed: int) -> tuple[dict, dict]:
                 qos_failures=st.qos_failures(cfg), launches=counts,
                 device_to_host_syncs=syncs,
                 peak_device_bytes=torch.cuda.max_memory_allocated()), counts
+
+
+# ---------------------------------------------------------------------------
+# the model path
+# ---------------------------------------------------------------------------
+def _logit_err(a: torch.Tensor, b: torch.Tensor) -> float:
+    return float((a.detach().cpu().double() - b.detach().cpu().double())
+                 .abs().max())
+
+
+def model_x_smoke(seed: int) -> dict:
+    """recurrentgemma-9b smoke in float32: the card (kernels) against the
+    CPU (the kernels' plain versions) on the same weights and tokens."""
+    cfg = get_config(FULL_ARCH).smoke()
+    ctx = ParallelCtx(compute_dtype=torch.float32)
+    gm = build_model(cfg, ctx)
+    gparams = gm.init(torch.Generator(device=gm.device).manual_seed(seed))
+    cm = build_model(cfg, ctx, device="cpu")
+    cparams = tree_map(lambda t: t.cpu(), gparams)
+    rng = np.random.default_rng(seed)
+    B, S, P, n_dec = 2, 40, 29, 8          # S, P > window 16; no tile divides
+    toks = rng.integers(0, cfg.vocab, (B, S))
+    errs = {"forward": 0.0, "prefill": 0.0, "decode": 0.0}
+    reset_counts()
+    runs = {}
+    for name, m, prm in (("cuda", gm, gparams), ("cpu", cm, cparams)):
+        fwd, _ = m.forward(prm, {"tokens": toks})
+        cache = m.init_cache(B, S, dtype=torch.float32)
+        pre, cache = m.prefill(prm, {"tokens": toks[:, :P]}, cache)
+        steps = []
+        for t in range(P, P + n_dec):
+            lt, cache = m.decode_step(prm, cache, toks[:, t:t + 1],
+                                      np.full((B,), t))
+            steps.append(lt)
+        if name == "cuda":
+            torch.cuda.synchronize()
+            counts = read_counts()
+        runs[name] = (fwd, pre, steps)
+    (gf, gp, gs), (cf, cp, cs) = runs["cuda"], runs["cpu"]
+    errs["forward"] = _logit_err(gf, cf)
+    errs["prefill"] = _logit_err(gp, cp)
+    errs["decode"] = max(_logit_err(a, b) for a, b in zip(gs, cs))
+    for k, e in errs.items():
+        if not e <= SMOKE_LOGIT_TOL:
+            raise AssertionError(f"model_x_smoke {k}: card vs CPU logits "
+                                 f"differ by {e} > {SMOKE_LOGIT_TOL}")
+    for name in MODEL_KERNELS:
+        if counts[name] <= 0:
+            raise AssertionError(f"model_x_smoke: {name} never launched")
+    # the same requests through ServeEngine on both
+    prompts = [rng.integers(0, cfg.vocab, size=int(rng.integers(2, 7)))
+               for _ in range(6)]
+    served = []
+    for m, prm in ((gm, gparams), (cm, cparams)):
+        eng = ServeEngine(m, prm, max_slots=3, max_len=24)
+        done = eng.run([Request(i, p, max_new=5)
+                        for i, p in enumerate(prompts)])
+        served.append(({r.rid: r.out for r in done}, eng.admitted_total,
+                       eng.slot_rejections))
+    if served[0] != served[1]:
+        raise AssertionError(f"model_x_smoke: ServeEngine tokens differ: "
+                             f"card {served[0]} cpu {served[1]}")
+    return dict(config=cfg.name, batch=B, seq=S, prefill=P, decode_steps=n_dec,
+                max_abs_logit_err=errs, tolerance=SMOKE_LOGIT_TOL,
+                served_tokens_identical=True, served=len(served[0][0]),
+                launches={k: counts[k] for k in MODEL_KERNELS})
+
+
+def model_full(seed: int) -> tuple[dict, dict]:
+    """recurrentgemma-9b at full width: the float32 kernel route against the
+    plain route, then the bfloat16 serving dtype timed."""
+    cfg = get_config(FULL_ARCH)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    mk = build_model(cfg, ParallelCtx(compute_dtype=torch.float32))
+    dev = mk.device
+    params = mk.init(torch.Generator(device=dev).manual_seed(seed))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in _leaves(params))
+    rng = np.random.default_rng(seed)
+    S = PATH_S
+    toks1 = torch.as_tensor(rng.integers(0, cfg.vocab, (1, S)), device=dev)
+    mp = build_model(cfg, ParallelCtx(compute_dtype=torch.float32,
+                                      use_kernels=False))
+    last = {}
+    for name, m in (("kernels", mk), ("plain", mp)):
+        cache = m.init_cache(1, S, dtype=torch.float32)
+        last[name], cache = m.prefill(params, {"tokens": toks1}, cache)
+        del cache
+    torch.cuda.synchronize()
+    lk, lp = last["kernels"], last["plain"]
+    if not (torch.isfinite(lk).all() and torch.isfinite(lp).all()):
+        raise AssertionError("model_full: non-finite float32 logits")
+    rms = float(lp.double().pow(2).mean().sqrt())
+    err = _logit_err(lk, lp)
+    if not err <= FULL_REL_TOL * rms:
+        raise AssertionError(f"model_full: float32 kernel vs plain route "
+                             f"differ by {err} (logit RMS {rms})")
+    del last, lk, lp
+
+    # the serving dtype: bfloat16 compute, kernels on, bfloat16 cache
+    mb = build_model(cfg)
+    B, n_dec = PATH_B, 16
+    toks2 = torch.as_tensor(rng.integers(0, cfg.vocab, (B, S)), device=dev)
+
+    def prefill():
+        cache = mb.init_cache(B, S + n_dec)
+        return mb.prefill(params, {"tokens": toks2}, cache)
+    prefill()                                      # warm: cuBLAS, allocator
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    logits, cache = prefill()
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    counts = read_counts()
+    want = {"flash_attention": sum(m["kind"] == "local" for m in _metas(mb)),
+            "lru_scan": sum(m["kind"] == "rglru" for m in _metas(mb))}
+    for name, n in want.items():
+        if counts[name] != n:
+            raise AssertionError(f"model_full: {name} launched "
+                                 f"{counts[name]} times per prefill, "
+                                 f"expected {n}")
+    finite = torch.isfinite(logits).all()
+    tok = logits.argmax(-1)[:, None]
+    t0 = time.perf_counter()
+    for i in range(n_dec):              # next token chosen on the device
+        logits, cache = mb.decode_step(params, cache, tok,
+                                       torch.full((B,), S + i, device=dev))
+        finite &= torch.isfinite(logits).all()
+        tok = logits.argmax(-1)[:, None]
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t0
+    if not bool(finite):
+        raise AssertionError("model_full: non-finite bfloat16 logits")
+    peak = torch.cuda.max_memory_allocated()
+    del params, cache, logits
+    torch.cuda.empty_cache()
+    return dict(config=cfg.name, params=n_params, init_s=init_s,
+                fp32_check=dict(batch=1, seq=S, max_abs_logit_err=err,
+                                logit_rms=rms, rel_err=err / rms,
+                                tolerance_rel_to_rms=FULL_REL_TOL,
+                                tf32=torch.backends.cuda.matmul.allow_tf32),
+                bf16=dict(batch=B, seq=S, prefill_s=prefill_s,
+                          prefill_tok_per_s=B * S / prefill_s,
+                          decode_steps=n_dec, decode_s=decode_s,
+                          decode_tok_per_s=B * n_dec / decode_s),
+                launches_per_prefill={k: counts[k] for k in MODEL_KERNELS},
+                peak_device_bytes=peak), counts
+
+
+def _leaves(tree) -> list:
+    out = []
+    tree_map(out.append, tree)
+    return out
+
+
+def _metas(model) -> tuple:
+    sm = model.sm
+    return sm.metas * sm.n_super + sm.rem_metas
+
+
+def serve_full(seed: int) -> dict:
+    """``repro_torch.launch.serve`` at full width, no --smoke: tenant
+    placement on the simulated fleet (scheduler kernels), then 8 requests
+    over 4 slots.  The engine prefills by decoding, as the reference does,
+    so it reaches neither model kernel."""
+    import contextlib
+    import io
+    args = serve_launch.parse_args(
+        ["--arch", FULL_ARCH, "--requests", "8", "--slots", "4",
+         "--max-len", "64"])
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        report = serve_launch.run(args)
+    counts = read_counts()
+    if len(report.done) != args.requests or any(
+            len(r.out) != args.max_new for r in report.done):
+        raise AssertionError(f"serve_full: {len(report.done)} of "
+                             f"{args.requests} requests answered in full")
+    for name in ("scan_reduce", "slowdown_factors"):
+        if counts[name] <= 0:
+            raise AssertionError(f"serve_full: {name} never launched")
+    pct = core.percentiles(report.latencies, (50.0, 99.0))
+    torch.cuda.empty_cache()
+    return dict(config=FULL_ARCH, requests=len(report.done),
+                tokens=report.tokens, seconds=report.seconds,
+                tok_per_s=report.tokens / report.seconds,
+                p50_latency_s=pct[50.0], p99_latency_s=pct[99.0],
+                tokens_decoded=report.tokens_decoded,
+                placements=report.placements, launches=counts,
+                peak_device_bytes=torch.cuda.max_memory_allocated(),
+                driver_output=out.getvalue().splitlines()[:3])
 
 
 def _device_busy(mult: int, seed: int, activities) -> tuple[float, float, list]:
@@ -453,6 +855,72 @@ def profile(seed: int, out: str) -> None:
     print(buf.getvalue()[:6000], flush=True)
 
 
+def profile_model(seed: int, out: str) -> None:
+    """Where the model path's time goes at full width, bf16: the untraced
+    wall of one prefill(2, 4096) and of 8 decode steps, then the same work
+    under a CUDA-only torch.profiler trace (device time by kernel, device
+    kernels launched); the busy share is device time over the untraced
+    wall.  Prints one line per phase and writes the tables under ``out``."""
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as tprofile
+    os.makedirs(out, exist_ok=True)
+    cfg = get_config(FULL_ARCH)
+    m = build_model(cfg)
+    params = m.init(torch.Generator(device=m.device).manual_seed(seed))
+    rng = np.random.default_rng(seed)
+    B, S, n_dec = PATH_B, PATH_S, 8
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab, (B, S)), device=m.device)
+
+    def prefill():
+        cache = m.init_cache(B, S + 2 * n_dec)
+        return m.prefill(params, {"tokens": toks}, cache)
+
+    def decode(state, start):
+        logits, cache = state
+        tok = logits.argmax(-1)[:, None]
+        for i in range(n_dec):
+            logits, cache = m.decode_step(
+                params, cache, tok, torch.full((B,), start + i, device=m.device))
+            tok = logits.argmax(-1)[:, None]
+        return logits, cache
+
+    state = prefill()                                  # warm
+    decode(state, S)
+    torch.cuda.synchronize()
+    walls = {}
+    t0 = time.perf_counter()
+    state = prefill()
+    torch.cuda.synchronize()
+    walls["prefill"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    decode(state, S)
+    torch.cuda.synchronize()
+    walls["decode"] = time.perf_counter() - t0
+    for name in ("prefill", "decode"):
+        with tprofile(activities=[ProfilerActivity.CUDA]) as prof:
+            if name == "prefill":
+                state = prefill()
+            else:
+                decode(state, S + n_dec)
+            torch.cuda.synchronize()
+        rows = prof.key_averages()
+        dev_t = [getattr(r, "self_device_time_total", 0.0) for r in rows]
+        busy = sum(dev_t) / 1e6
+        n_kern = sum(r.count for r, t in zip(rows, dev_t) if t > 0)
+        top = sorted(zip(rows, dev_t), key=lambda x: -x[1])
+        path = os.path.join(out, f"model_{name}_kernels.txt")
+        with open(path, "w") as fh:
+            fh.write(prof.key_averages().table(
+                sort_by="self_device_time_total", row_limit=40))
+        steps = 1 if name == "prefill" else n_dec
+        emit(f"profile_model_{name}", dict(
+            batch=B, seq=S, steps=steps, untraced_wall_s=walls[name],
+            device_busy_s=busy, device_busy_share=busy / walls[name],
+            device_kernels=n_kern, device_kernels_per_step=n_kern / steps,
+            top_device=[(r.key[:60], r.count, t / 1e3) for r, t in top[:12]],
+            written=path))
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--seed", type=int, default=0)
@@ -461,14 +929,24 @@ def main() -> None:
                          "busy share at mult=8 and at full width from "
                          "torch.profiler, host profile at full width) into "
                          "--out; prints no ok line")
+    ap.add_argument("--profile-model", action="store_true",
+                    help="instead of the checks: profile the model path at "
+                         "full width (bf16 prefill and decode: device busy "
+                         "share, kernels by device time) into --out; prints "
+                         "no ok line")
     ap.add_argument("--out", default="profile_out",
-                    help="directory for --profile's files")
-    ap.add_argument("--stop-after", choices=("kernels", "x8"), default=None,
+                    help="directory for the profiles' files")
+    ap.add_argument("--stop-after", default=None,
+                    choices=("kernels", "model_x_smoke", "x8", "x128",
+                             "model_full"),
                     help="debugging: end (without the ok line) after a phase")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA device: "
                          "torch.cuda.is_available() is False")
+    # float32 means float32: no TF32 in matmuls or convolutions
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
     dev = torch.device("cuda", 0)
     smi = subprocess.run(
@@ -488,6 +966,13 @@ def main() -> None:
     if args.profile:
         profile(args.seed, args.out)
         raise SystemExit("profiling run: no result line")
+    if args.profile_model:
+        profile_model(args.seed, args.out)
+        raise SystemExit("profiling run: no result line")
+
+    def stop(phase: str) -> None:
+        if args.stop_after == phase:
+            raise SystemExit(f"stopped after the {phase} phase (debugging)")
 
     rng = np.random.default_rng(args.seed)
     kernels = [check_slowdown(dev, rng), *check_rate_advance(dev, rng),
@@ -498,20 +983,29 @@ def main() -> None:
                 f"kernel {k['name']} disagrees with its plain version: "
                 f"rel err {k['max_rel_err']}")
         k["tolerance"] = f"decisions exact, floats <= {REL_TOL} relative"
+    # B5 and B6 raise inside their checks, against their own tolerances
+    kernels += [check_flash(dev, rng), check_lru(dev, rng)]
 
     emit("kernels_checked", {k["name"]: dict(
-        max_abs_err=k["max_abs_err"], max_rel_err=k["max_rel_err"],
-        ms=k["ms"], plain_ms=k["plain_ms"]) for k in kernels})
-    if args.stop_after == "kernels":
-        raise SystemExit("stopped after the kernels phase (debugging)")
+        max_abs_err=k["max_abs_err"], tolerance=k["tolerance"], ms=k["ms"],
+        plain_ms=k["plain_ms"]) for k in kernels})
+    stop("kernels")
+    emit("model_x_smoke", model_x_smoke(args.seed))
+    stop("model_x_smoke")
     emit("session_x8", session_x8(args.seed))
-    if args.stop_after == "x8":
-        raise SystemExit("stopped after the x8 phase (debugging)")
+    stop("x8")
     full, counts = session_full(args.seed)
     emit(f"session_x{FULL_MULT}", full)
+    stop("x128")
+    mfull, mcounts = model_full(args.seed)
+    emit("model_full", mfull)
+    stop("model_full")
+    emit("serve_full", serve_full(args.seed))
 
+    # launches: each kernel's count from the run of its own path
     for k in kernels:
-        k["launches"] = counts[k["name"]]
+        k["launches"] = (mcounts if k["name"] in MODEL_KERNELS
+                         else counts)[k["name"]]
     emit("total", dict(seconds=time.perf_counter() - t_start))
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -10,7 +10,7 @@ package's ``core``):
   Traverser / Timeline / TaskPrediction          — contention intervals (§3.4)
   Orchestrator / build_orchestrators / ActiveLedger — Alg. 1 (§3.5)
   SchedulerSession                               — batch-first mapping API
-  build_testbed                                  — topology (Fig. 4)
+  build_testbed / build_tpu_fleet                — topology (Fig. 4, TPU fleet)
   Runtime / policies                             — experiment harness (§5)
 """
 from .compiled import CompiledHWGraph
@@ -26,7 +26,8 @@ from .slowdown import (DecoupledSlowdown, NoSlowdown, SlowdownParams,
                        heye_params, truth_params)
 from .task import Task, TaskGraph
 from .topology import (EDGE_FPS, Testbed, build_edge_device, build_server,
-                       build_testbed, make_task, vr_mining_profile)
+                       build_testbed, build_tpu_fleet, make_task,
+                       vr_mining_profile)
 from .traverser import TaskPrediction, Timeline, Traverser
 from .workloads import (MINING_DEADLINE, mining_workload, vr_frame,
                         vr_workload)

@@ -335,3 +335,66 @@ def make_task(kind: str, origin: Optional[str] = None,
     t.release_time = release_time
     t.attrs["irregularity"] = TASK_IRREGULARITY.get(kind, 1.0)
     return t
+
+
+# ---------------------------------------------------------------------------
+# TPU fleet (the hardware-adaptation target)
+# ---------------------------------------------------------------------------
+# Attributes of the *simulated* TPU v5e chips H-EYE places tenants on (the
+# reference's fleet, copied unchanged).  They describe nodes of the modelled
+# fleet only; they are not measurements of this port or of any device it
+# runs on.
+TPU_V5E = {"peak_flops": 197e12, "mem_bw": 819e9, "link_bw": 50e9,
+           "hbm_bytes": 16e9}
+
+
+def build_tpu_fleet(n_pods: int = 2, hosts_per_pod: int = 16,
+                    chips_per_host: int = 16,
+                    dcn_bw: float = 25 * GB, dcn_lat: float = 1e-4,
+                    ici_bw: float = 50 * GB, ici_lat: float = 1e-6,
+                    device: DeviceLike = None) -> Testbed:
+    """pods -> hosts -> chips. ICI links chip<->chip in a ring per host plus
+    host<->host rings in the pod (coarse torus abstraction); DCN fabric is an
+    ABSTRACT node exactly like the paper's unknown WAN.
+
+    ``device``: where everything compiled from the graph lives, as for
+    :func:`build_testbed`."""
+    g = HWGraph(device=resolve_device(device))
+    g.add_node(Node("fleet", NodeKind.GROUP, attrs={"orc_level": "root"}))
+    g.add_node(Node("dcn", NodeKind.ABSTRACT, parent="fleet"))
+    pods: list[str] = []
+    for p in range(n_pods):
+        pod = f"pod{p}"
+        g.add_node(Node(pod, NodeKind.GROUP, parent="fleet",
+                        attrs={"orc_level": "cluster"}))
+        pods.append(pod)
+        host_names = []
+        for h in range(hosts_per_pod):
+            host = f"{pod}.host{h}"
+            g.add_node(Node(host, NodeKind.GROUP, parent=pod,
+                            attrs={"orc_level": "device"}))
+            host_names.append(host)
+            prev_chip = None
+            for c in range(chips_per_host):
+                chip = ProcessingUnit(f"{host}.chip{c}", model=None,
+                                      max_tenancy=2, parent=host,
+                                      attrs={"pu_class": "tpu_v5e",
+                                             "pu_class_kind": "tpu",
+                                             **TPU_V5E})
+                g.add_node(chip)
+                hbm = g.add_node(Node(f"{host}.chip{c}.hbm", NodeKind.STORAGE,
+                                      parent=host, attrs={"rclass": "hbm"}))
+                g.add_edge(chip.name, hbm.name, bandwidth=TPU_V5E["mem_bw"],
+                           latency=1e-7)
+                if prev_chip is not None:
+                    g.add_edge(prev_chip, chip.name, bandwidth=ici_bw,
+                               latency=ici_lat, name=f"ici_{chip.name}")
+                prev_chip = chip.name
+        for i, host in enumerate(host_names):     # host ring over ICI
+            nxt = host_names[(i + 1) % len(host_names)]
+            g.add_edge(host, nxt, bandwidth=ici_bw * chips_per_host / 4,
+                       latency=ici_lat, name=f"ici_{host}")
+            g.add_edge(host, "dcn", bandwidth=dcn_bw, latency=dcn_lat,
+                       name=f"dcn_{host}")
+    return Testbed(graph=g, edges=[], servers=pods, edge_kind={},
+                   server_kind={p: "tpu_pod" for p in pods})

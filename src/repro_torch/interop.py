@@ -14,6 +14,8 @@ imports the reference and therefore lives with the tests, not here).
 * :func:`snapshot_from_numpy` — a ``CompiledHWGraph`` whose PU-space and
   NCR tensors are loaded from arrays instead of being recomputed.
 * :func:`ledger_from_numpy` — an ``ActiveLedger`` loaded from columns.
+* :func:`params_from_numpy` — a model's parameter tree (the reference's
+  layout, superblocks stacked) from numpy leaves.
 
 Every function takes ``device=`` with the package's rule: CUDA unless
 ``"cpu"`` is asked for, and an exception when CUDA is absent.
@@ -32,6 +34,7 @@ from .core.orchestrator import ActiveLedger
 from .core.predict import ProfiledModel
 from .core.task import Task, TaskGraph
 from .device import BOOL, FLOAT, INT, DeviceLike, resolve_device
+from .models import transformer as tf
 
 
 def graph_from_spec(spec: dict, device: DeviceLike = None) -> HWGraph:
@@ -186,3 +189,45 @@ def ledger_from_numpy(columns: dict, device: DeviceLike = None,
         led._pu_dev.update(comp._pu_device_name)
         led._fill_pu_idx(comp)
     return led
+
+
+def params_from_numpy(cfg, tree: dict, device: DeviceLike = None) -> dict:
+    """The port's parameters for ``cfg`` from the reference's parameter
+    tree with numpy leaves (``jax.tree.map(np.asarray, params)``): the same
+    dicts and tuples, ``{"blocks": tuple of P dicts with a leading n_super
+    axis, "rem": tuple}`` under ``"stack"``, each leaf a float32 tensor on
+    ``device``.  Raises ``ValueError`` where the tree's layout does not
+    match ``cfg``'s stack."""
+    dev = resolve_device(device)
+    sm = tf.stack_meta(cfg)
+    stack = tree["stack"]
+    blocks, rem = stack["blocks"], stack["rem"]
+    n_blocks = sm.P if sm.n_super > 0 else 0
+    if len(blocks) != n_blocks or len(rem) != sm.remainder:
+        raise ValueError(f"stack layout: {len(blocks)} stacked / {len(rem)} "
+                         f"remainder layers, expected {n_blocks} / "
+                         f"{sm.remainder} for {cfg.name}")
+
+    def mixer(meta: dict) -> str:
+        return "rglru" if meta["kind"] == "rglru" else "attn"
+
+    for metas, layers, lead in ((sm.metas, blocks, sm.n_super),
+                                (sm.rem_metas, rem, None)):
+        for meta, layer in zip(metas, layers):
+            tf.check_ported(meta)
+            if mixer(meta) not in layer:
+                raise ValueError(f"a {meta['kind']} layer without "
+                                 f"{mixer(meta)!r} parameters")
+            if lead is not None:
+                tf.tree_map(lambda a: _check_lead(a, lead), layer)
+
+    def leaf(a) -> torch.Tensor:
+        return torch.tensor(np.asarray(a, dtype=np.float32), device=dev)
+
+    return tf.tree_map(leaf, tree)
+
+
+def _check_lead(a, n_super: int) -> None:
+    if np.shape(a)[:1] != (n_super,):
+        raise ValueError(f"stacked leaf of shape {np.shape(a)}: expected a "
+                         f"leading axis of {n_super} superblocks")

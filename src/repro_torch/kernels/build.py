@@ -1,11 +1,12 @@
 """Build and load the port's CUDA kernels.
 
 Every ``csrc/*.cu`` file is compiled by ``nvcc`` for ``sm_90a`` into an
-object (one ``nvcc`` per source, all started together), the objects are
-linked into one shared library with a plain C interface, and the library
-is loaded with ``ctypes``.  The build goes into ``build/`` at the root of
-the repository (override with ``REPRO_TORCH_BUILD_DIR``), happens at first
-use, and is keyed on the content of the sources, so an unchanged tree
+object (one ``nvcc`` per source, all started together; the ``csrc/*.cuh``
+headers are included by them), the objects are linked into one shared
+library with a plain C interface, and the library is loaded with
+``ctypes``.  The build goes into ``build/`` at the root of the repository
+(override with ``REPRO_TORCH_BUILD_DIR``), happens at first use, and is
+keyed on the content of the sources and headers, so an unchanged tree
 never rebuilds and an edited source never loads a stale library.  Each
 build compiles into a directory of its own and renames the finished
 library into place, so processes that build at once do not disturb each
@@ -38,6 +39,7 @@ _PTR = ctypes.c_void_p
 _I64 = ctypes.c_longlong
 _F64 = ctypes.c_double
 _INT = ctypes.c_int
+_F32 = ctypes.c_float
 
 # C signatures (all return the cudaError_t of the launch as int)
 _SIGNATURES = {
@@ -48,11 +50,18 @@ _SIGNATURES = {
     "heye_segment_min": [_PTR, _PTR, _PTR, _PTR, _I64, _PTR],
     "heye_scan_reduce": [_PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR,
                          _PTR, _PTR, _I64, _I64, _F64, _PTR],
+    "heye_lru_scan": [_PTR, _PTR, _PTR, _I64, _I64, _I64, _PTR],
+    "heye_flash_attention": [_PTR, _PTR, _PTR, _PTR, _INT, _INT, _INT, _INT,
+                             _INT, _INT, _INT, _INT, _F32, _F32, _PTR],
 }
 
 
 def sources() -> list[Path]:
     return sorted(CSRC.glob("*.cu"))
+
+
+def headers() -> list[Path]:
+    return sorted(CSRC.glob("*.cuh"))
 
 
 def _nvcc() -> str:
@@ -89,7 +98,7 @@ def build() -> Path:
         raise RuntimeError(f"no CUDA sources under {CSRC}")
     out_dir = build_dir() / "repro_torch"
     out_dir.mkdir(parents=True, exist_ok=True)
-    lib = out_dir / f"libheye_kernels_{_digest(srcs)}.so"
+    lib = out_dir / f"libheye_kernels_{_digest(srcs + headers())}.so"
     if lib.exists():
         _INFO.setdefault("seconds", 0.0)
         _INFO.setdefault("cached", True)

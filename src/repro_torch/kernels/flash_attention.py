@@ -1,0 +1,114 @@
+"""Flash attention (online softmax), forward: causal, optional sliding
+``window``, optional logit ``softcap``, GQA / MQA, fp32 math.
+
+Replaces the TPU kernel ``repro/kernels/flash_attention.py:95``
+(``flash_attention_bhsd`` / ``_attn_kernel``, wrapper ``flash_attention``
+:141, reached through ``repro/kernels/ops.py:21``).  Here the kernel is
+CUDA C++ (``csrc/flash_attention.cuh``, compiled once per head dim in
+``csrc/flash_attention_hd*.cu``, entry point ``csrc/flash_attention.cu``):
+one thread block per (b, h) and 64-row query tile, a loop over 32-key kv
+tiles with the online-softmax state in registers and the kv tile in shared
+memory, on CUDA cores.  It
+reads the model's (B, S, H, hd) layout directly, maps query head h to kv
+head ``h // (Hq // Hkv)`` without repeating k/v, and skips only kv tiles
+that are masked for every row of the query tile.  It is bound by
+operations: live (q, k) pairs x 4*hd flops.
+
+Shapes: q (B, S, Hq, hd), k and v (B, S, Hkv, hd), float32 or bfloat16
+(all three the same), out (B, S, Hq, hd) in ``q.dtype``; ``Hkv`` divides
+``Hq``.  **Any S is taken**: the kernel masks the ragged last tile, where
+the reference kernel raises ``ValueError`` for an S its block size does
+not divide.  The kernel is built for hd in :data:`KERNEL_HEAD_DIMS`.
+
+``flash_attention`` is the wrapper ``models/layers.py`` calls: the plain
+version for CPU tensors, the kernel for CUDA tensors (or an exception;
+there is no fallback).
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+
+from . import build
+
+NEG_INF = -2.0 ** 30            # the reference's finite mask value
+KERNEL_HEAD_DIMS = (16, 32, 64, 128, 256)
+
+launches = 0          # kernel launches made by the wrapper (not the plain path)
+
+
+def attention_mask(S: int, causal: bool, window: Optional[int],
+                   device) -> torch.Tensor:
+    """(S, S) bool: True where query i may attend key j."""
+    pos = torch.arange(S, device=device)
+    mask = torch.ones((S, S), dtype=torch.bool, device=device)
+    if causal:
+        mask &= pos[None, :] <= pos[:, None]
+    if window is not None:
+        mask &= pos[None, :] > pos[:, None] - window
+    return mask
+
+
+def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          *, causal: bool = True, window: Optional[int] = None,
+                          softcap: Optional[float] = None) -> torch.Tensor:
+    """Plain PyTorch version: masked softmax attention, all math fp32, the
+    masked scores set to the finite ``NEG_INF``; out in ``q.dtype``."""
+    B, S, Hq, hd = q.shape
+    rep = Hq // k.shape[2]
+    qf = q.float()
+    kf = k.float().repeat_interleave(rep, dim=2)
+    vf = v.float().repeat_interleave(rep, dim=2)
+    s = torch.einsum("bqhd,bkhd->bhqk", qf, kf) * (1.0 / math.sqrt(hd))
+    if softcap is not None:
+        s = softcap * torch.tanh(s / softcap)
+    mask = attention_mask(S, causal, window, q.device)
+    s = torch.where(mask, s, torch.full_like(s, NEG_INF))
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bhqk,bkhd->bqhd", p, vf).to(q.dtype)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: Optional[int] = None,
+                    softcap: Optional[float] = None) -> torch.Tensor:
+    """(B,S,Hq,hd) x (B,S,Hkv,hd) -> (B,S,Hq,hd); see the module docstring."""
+    dev = q.device
+    if q.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"q must be float32 or bfloat16, got {q.dtype}")
+    build.check_tensor("q", q, q.dtype, 4, dev)
+    build.check_tensor("k", k, q.dtype, 4, dev)
+    build.check_tensor("v", v, q.dtype, 4, dev)
+    B, S, Hq, hd = q.shape
+    Hkv = k.shape[2]
+    if (k.shape != v.shape or k.shape[0] != B or k.shape[1] != S
+            or k.shape[3] != hd or Hkv == 0 or Hq % Hkv):
+        raise ValueError("shape mismatch: q %s k %s v %s" % (
+            tuple(q.shape), tuple(k.shape), tuple(v.shape)))
+    if window is not None and window < 1:
+        raise ValueError(f"window must be >= 1, got {window}")
+    if dev.type == "cpu":
+        return flash_attention_plain(q, k, v, causal=causal, window=window,
+                                     softcap=softcap)
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    if hd not in KERNEL_HEAD_DIMS:
+        raise ValueError(f"head dim {hd} not in the kernel's {KERNEL_HEAD_DIMS}")
+    if B * Hq > 65535:
+        raise ValueError(f"B*Hq = {B * Hq} exceeds the kernel's grid")
+    global launches
+    out = torch.empty_like(q)
+    if out.numel() == 0:
+        return out
+    lib = build.load()
+    with torch.cuda.device(dev):
+        err = lib.heye_flash_attention(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            B, S, Hq, Hkv, hd, int(q.dtype == torch.bfloat16), int(causal),
+            int(window) if window is not None else 0,
+            1.0 / math.sqrt(hd), float(softcap) if softcap is not None else 0.0,
+            torch.cuda.current_stream().cuda_stream)
+    build.check_launch(err, "flash_attention")
+    launches += 1
+    return out

@@ -1,0 +1,283 @@
+"""Decoder stack assembly on PyTorch, with the reference's parameter and
+cache layout.
+
+Layers are grouped into *superblocks* of P = lcm(|pattern|, moe_every)
+layers so every superblock is structurally identical; parameters are
+stacked over superblocks (a leading ``n_super`` axis on every leaf of
+``{"blocks": tuple of P dicts, "rem": tuple}``, exactly as in the
+reference), and ``n_layers % P`` trailing layers form an unrolled
+remainder.  The reference scans the stack; the port runs eagerly and loops
+over superblocks, indexing views of the stacked parameters and caches.
+
+Each sublayer is pre-norm residual:
+    x += mix(norm(x))        mix in {attention, RG-LRU}
+    x += mlp(norm(x))
+
+Three entry points share the layer code:
+    apply_stack(...)                   training (no cache)
+    apply_stack(..., cache=...)        prefill (fills the decode cache)
+    apply_stack_decode(...)            one-token decode
+Caches are updated **in place** (the reference returns updated copies).
+
+Not ported yet: RWKV6 layers, MoE layers, enc-dec cross-attention and
+encoder (``"enc"``) stacks -- each raises ``NotImplementedError``, so no
+config that needs them builds.
+"""
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+from typing import Any, Callable, Optional
+
+import torch
+
+from . import recurrent as rec
+from .layers import (ParallelCtx, attention_decode, attention_layer,
+                     init_attention, init_attn_cache, init_mlp, init_norm,
+                     mlp, rms_norm)
+
+PORTED_KINDS = ("global", "local", "rglru")
+
+
+def _lcm(a: int, b: int) -> int:
+    return a * b // math.gcd(a, b)
+
+
+def superblock_len(cfg) -> int:
+    p = len(cfg.layer_pattern)
+    if cfg.n_experts > 0:
+        p = _lcm(p, cfg.moe_every)
+    return p
+
+
+def layer_meta(cfg, i: int) -> dict:
+    return {"kind": cfg.kind_of_layer(i), "moe": cfg.is_moe_layer(i),
+            "cross": cfg.cross_attn and cfg.is_encdec}
+
+
+def check_ported(meta: dict) -> None:
+    """Raise ``NotImplementedError`` for a layer the port cannot run yet."""
+    if meta["kind"] not in PORTED_KINDS:
+        raise NotImplementedError(
+            f"layer kind {meta['kind']!r} is not ported yet (ported: "
+            f"{', '.join(PORTED_KINDS)})")
+    if meta["moe"]:
+        raise NotImplementedError("MoE layers are not ported yet")
+    if meta["cross"]:
+        raise NotImplementedError("cross-attention is not ported yet")
+
+
+# ---------------------------------------------------------------------------
+# trees of tensors (dicts / tuples), as the reference's pytrees
+# ---------------------------------------------------------------------------
+def tree_map(fn: Callable, tree, *rest):
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return tuple(tree_map(fn, v, *(r[i] for r in rest))
+                     for i, v in enumerate(tree))
+    return fn(tree, *rest)
+
+
+def _index(tree, i: int):
+    """Views of superblock ``i`` of a stacked tree."""
+    return tree_map(lambda t: t[i], tree)
+
+
+# ---------------------------------------------------------------------------
+# per-layer init
+# ---------------------------------------------------------------------------
+def init_layer(gen: torch.Generator, cfg, meta: dict, device=None) -> dict:
+    check_ported(meta)
+    p: dict[str, Any] = {"norm1": init_norm(cfg.d_model, device),
+                         "norm2": init_norm(cfg.d_model, device)}
+    if meta["kind"] == "rglru":
+        p["rglru"] = rec.init_rglru(gen, cfg, device)
+    else:
+        p["attn"] = init_attention(gen, cfg, device)
+    p["mlp"] = init_mlp(gen, cfg, device=device)
+    return p
+
+
+def init_layer_cache(cfg, meta: dict, B: int, S: int,
+                     dtype: torch.dtype = torch.bfloat16, device=None) -> dict:
+    check_ported(meta)
+    kind = meta["kind"]
+    if kind == "rglru":
+        return {"rec": rec.init_rglru_cache(cfg, B, dtype, device)}
+    return {"attn": init_attn_cache(cfg, B, S, kind, dtype, device)}
+
+
+# ---------------------------------------------------------------------------
+# cache write helpers (prefill)
+# ---------------------------------------------------------------------------
+def _write_attn_cache(entry: dict, k: torch.Tensor, v: torch.Tensor,
+                      kind: str) -> dict:
+    """Write S prefilled (roped) k/v into a decode cache buffer, in place.
+
+    Global: positions [0, S) go to slots [0, S).  Local: the buffer is a
+    rolling window (slot = pos % C) so the last C entries land rolled by S%C.
+    """
+    S = k.shape[1]
+    C = entry["k"].shape[1]
+    if kind == "local" and S >= C:
+        entry["k"].copy_(torch.roll(k[:, -C:], S % C, dims=1))
+        entry["v"].copy_(torch.roll(v[:, -C:], S % C, dims=1))
+        return entry
+    n = min(S, C)
+    entry["k"][:, :n] = k[:, :n].to(entry["k"].dtype)
+    entry["v"][:, :n] = v[:, :n].to(entry["v"].dtype)
+    return entry
+
+
+# ---------------------------------------------------------------------------
+# per-layer apply
+# ---------------------------------------------------------------------------
+def apply_layer(p, x, cfg, ctx: ParallelCtx, meta: dict,
+                positions: torch.Tensor, cache: Optional[dict] = None):
+    """Training/prefill.  Returns (x, aux_loss, cache_or_None); the cache,
+    when given, is filled in place."""
+    kind = meta["kind"]
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    h = rms_norm(x, p["norm1"], cfg.norm_eps)
+    if kind in ("global", "local"):
+        if cache is not None:
+            o, k, v = attention_layer(p["attn"], h, cfg, ctx, kind, positions,
+                                      return_kv=True)
+            _write_attn_cache(cache["attn"], k, v, kind)
+        else:
+            o = attention_layer(p["attn"], h, cfg, ctx, kind, positions)
+    elif kind == "rglru":
+        if cache is not None:
+            o, st = rec.rglru_layer(p["rglru"], h, cfg, ctx, return_cache=True)
+            cache["rec"]["h"].copy_(st["h"])
+            cache["rec"]["conv"].copy_(st["conv"])
+        else:
+            o = rec.rglru_layer(p["rglru"], h, cfg, ctx)
+    else:
+        check_ported(meta)
+    x = x + o
+    h = rms_norm(x, p["norm2"], cfg.norm_eps)
+    x = x + mlp(p["mlp"], h, cfg, ctx)
+    return x, aux, cache
+
+
+def apply_layer_decode(p, x, cache, cfg, ctx: ParallelCtx, meta: dict,
+                       positions: torch.Tensor):
+    kind = meta["kind"]
+    h = rms_norm(x, p["norm1"], cfg.norm_eps)
+    if kind in ("global", "local"):
+        o, _ = attention_decode(p["attn"], h, cache["attn"], cfg, ctx, kind,
+                                positions)
+    elif kind == "rglru":
+        o, _ = rec.rglru_decode(p["rglru"], h, cache["rec"], cfg, ctx)
+    else:
+        check_ported(meta)
+    x = x + o
+    h = rms_norm(x, p["norm2"], cfg.norm_eps)
+    return x + mlp(p["mlp"], h, cfg, ctx), cache
+
+
+# ---------------------------------------------------------------------------
+# stack = loop(superblocks) + unrolled remainder
+# ---------------------------------------------------------------------------
+@dataclass(frozen=True)
+class StackMeta:
+    P: int
+    n_super: int
+    remainder: int
+    metas: tuple           # per-sublayer meta dicts, len P
+    rem_metas: tuple
+
+
+def stack_meta(cfg, n_layers: Optional[int] = None,
+               pattern_override: Optional[tuple] = None) -> StackMeta:
+    n = n_layers if n_layers is not None else cfg.n_layers
+    if pattern_override is not None:
+        P = len(pattern_override)
+        if P > n:
+            P = n
+        n_super, rem = n // P, n % P
+        metas = tuple({"kind": pattern_override[j], "moe": False,
+                       "cross": False} for j in range(P))
+        rem_metas = tuple({"kind": pattern_override[j], "moe": False,
+                           "cross": False} for j in range(rem))
+        return StackMeta(P, n_super, rem, metas, rem_metas)
+    P = superblock_len(cfg)
+    if P > n:
+        P = n
+    n_super = n // P
+    rem = n - n_super * P
+    metas = tuple(layer_meta(cfg, j) for j in range(P))
+    rem_metas = tuple(layer_meta(cfg, n_super * P + j) for j in range(rem))
+    return StackMeta(P=P, n_super=n_super, remainder=rem, metas=metas,
+                     rem_metas=rem_metas)
+
+
+def init_stack(gen: torch.Generator, cfg, sm: StackMeta, device=None) -> dict:
+    """Stacked superblock parameters + the remainder.  Each superblock is
+    drawn and copied into preallocated stacks, so the peak is the model
+    plus one superblock (stacking at the end would hold two copies)."""
+    stacked: Any = ()
+    for s in range(sm.n_super):
+        layers = tuple(init_layer(gen, cfg, sm.metas[j], device)
+                       for j in range(sm.P))
+        if s == 0:
+            stacked = tree_map(
+                lambda t: t.new_empty((sm.n_super,) + tuple(t.shape)), layers)
+        tree_map(lambda buf, t: buf[s].copy_(t), stacked, layers)
+        del layers
+    rem = tuple(init_layer(gen, cfg, sm.rem_metas[j], device)
+                for j in range(sm.remainder))
+    return {"blocks": stacked, "rem": rem}
+
+
+def init_stack_cache(cfg, sm: StackMeta, B: int, S: int,
+                     dtype: torch.dtype = torch.bfloat16, device=None) -> dict:
+    stacked: Any = ()
+    if sm.n_super > 0:
+        per_sb = tuple(init_layer_cache(cfg, sm.metas[j], B, S, dtype, device)
+                       for j in range(sm.P))
+        stacked = tree_map(
+            lambda x: torch.zeros((sm.n_super,) + tuple(x.shape),
+                                  dtype=x.dtype, device=x.device), per_sb)
+    rem = tuple(init_layer_cache(cfg, sm.rem_metas[j], B, S, dtype, device)
+                for j in range(sm.remainder))
+    return {"blocks": stacked, "rem": rem}
+
+
+def apply_stack(stack_params, x, cfg, ctx: ParallelCtx, sm: StackMeta,
+                positions, cache: Optional[dict] = None):
+    """Training (cache=None) or prefill (cache filled in place).  Returns
+    (x, aux_total, cache_or_None)."""
+    fill = cache is not None
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for s in range(sm.n_super):
+        p_sb = _index(stack_params["blocks"], s)
+        c_sb = _index(cache["blocks"], s) if fill else None
+        for j in range(sm.P):
+            x, a, _ = apply_layer(p_sb[j], x, cfg, ctx, sm.metas[j], positions,
+                                  c_sb[j] if fill else None)
+            aux = aux + a
+    for j in range(sm.remainder):
+        x, a, _ = apply_layer(stack_params["rem"][j], x, cfg, ctx,
+                              sm.rem_metas[j], positions,
+                              cache["rem"][j] if fill else None)
+        aux = aux + a
+    return x, aux, cache
+
+
+def apply_stack_decode(stack_params, x, cache, cfg, ctx: ParallelCtx,
+                       sm: StackMeta, positions):
+    """One-token decode; the cache is updated in place and returned."""
+    for s in range(sm.n_super):
+        p_sb = _index(stack_params["blocks"], s)
+        c_sb = _index(cache["blocks"], s)
+        for j in range(sm.P):
+            x, _ = apply_layer_decode(p_sb[j], x, c_sb[j], cfg, ctx,
+                                      sm.metas[j], positions)
+    for j in range(sm.remainder):
+        x, _ = apply_layer_decode(stack_params["rem"][j], x, cache["rem"][j],
+                                  cfg, ctx, sm.rem_metas[j], positions)
+    return x, cache

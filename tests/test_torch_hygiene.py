@@ -10,7 +10,10 @@ import torch
 
 import repro_torch.core as T
 from repro_torch import interop
+from repro_torch.configs import get_config
 from repro_torch.device import resolve_device
+from repro_torch.models import build_model
+from repro_torch.serve.engine import ServeEngine
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -19,7 +22,10 @@ def test_port_and_chip_smoke_import_no_jax_and_no_reference():
     code = (
         "import sys\n"
         "import repro_torch, repro_torch.core, repro_torch.interop\n"
-        "import repro_torch.kernels.build\n"
+        "import repro_torch.kernels.build, repro_torch.kernels.flash_attention\n"
+        "import repro_torch.kernels.lru_scan, repro_torch.configs\n"
+        "import repro_torch.models, repro_torch.models.transformer\n"
+        "import repro_torch.serve.engine, repro_torch.launch.serve\n"
         "import chip_smoke\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'jaxlib' or m == 'repro' or m.startswith('repro.')]\n"
@@ -54,6 +60,16 @@ def _cpu_graph():
     return T.build_testbed(device="cpu").graph
 
 
+def _smoke_cfg():
+    return get_config("recurrentgemma-9b").smoke()
+
+
+def _model_without_cpu_request():
+    model = build_model(_smoke_cfg(), device="cpu")
+    model._device_req = None      # as if built without device="cpu"
+    return model
+
+
 ENTRY_POINTS = {
     "resolve_device": lambda g: resolve_device(None),
     "build_testbed": lambda g: T.build_testbed(),
@@ -70,6 +86,13 @@ ENTRY_POINTS = {
         {"nodes": [], "edges": []}),
     "snapshot_from_numpy": lambda g: interop.snapshot_from_numpy({}),
     "ledger_from_numpy": lambda g: interop.ledger_from_numpy({}),
+    "build_tpu_fleet": lambda g: T.build_tpu_fleet(1, 1, 2),
+    "build_model.init": lambda g: build_model(_smoke_cfg()).init(
+        torch.Generator()),
+    "Model.init_cache": lambda g: build_model(_smoke_cfg()).init_cache(1, 8),
+    "ServeEngine": lambda g: ServeEngine(_model_without_cpu_request(), None),
+    "params_from_numpy": lambda g: interop.params_from_numpy(
+        _smoke_cfg(), {"stack": {"blocks": (), "rem": ()}}),
 }
 
 

@@ -1,0 +1,221 @@
+"""The model path's two kernels, B5 (flash attention) and B6 (LRU scan):
+their plain PyTorch versions -- what the wrappers run for CPU tensors --
+held against the reference's Pallas kernels (interpret mode, through
+``repro.kernels.ops``) and its oracles (``repro.kernels.ref``), on the same
+seeded numpy inputs.  The CUDA kernels themselves are held against the
+plain versions on the card by ``chip_smoke.py``.
+
+Tolerances: float32 attention 1e-5 absolute and relative (both sides sum in
+float32 in another order); bfloat16 attention 1e-2 (one bf16 rounding of
+the output, 2^-8 relative, on either side); the LRU scan 1e-6 relative
+with a 1e-6 absolute floor: the plain version rounds the product and the
+sum of every step, XLA on the CPU contracts ``a*h + b`` into one fused
+multiply-add, so the two differ by an ulp of the terms (observed <= 3.3e-7
+absolute), which is large relative only where h cancels towards 0."""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import ops, ref
+from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import lru_scan as ls
+from repro_torch.models.recurrent import associative_scan
+
+torch.set_num_threads(1)
+
+F32_TOL = 1e-5
+BF16_TOL = 1e-2
+LRU_TOL = 1e-6
+
+
+def _qkv(seed, B, S, Hq, Hkv, hd, scale=1.0):
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((B, S, Hq, hd)).astype(np.float32) * scale
+    k = rng.standard_normal((B, S, Hkv, hd)).astype(np.float32) * scale
+    v = rng.standard_normal((B, S, Hkv, hd)).astype(np.float32)
+    return q, k, v
+
+
+def _port(q, k, v, dtype=torch.float32, **kw):
+    args = [torch.tensor(a).to(dtype) for a in (q, k, v)]
+    return fa.flash_attention(*args, **kw).float().numpy()
+
+
+def _ref(q, k, v, dtype=jnp.float32, **kw):
+    args = [jnp.asarray(a).astype(dtype) for a in (q, k, v)]
+    return np.asarray(ref.attention_ref(*args, **kw).astype(jnp.float32))
+
+
+def _close(got, want, tol):
+    np.testing.assert_allclose(got, want, atol=tol, rtol=tol)
+
+
+# ---------------------------------------------------------------------------
+# B5: flash attention
+# ---------------------------------------------------------------------------
+CASES = {
+    # name: (B, S, Hq, Hkv, hd, kwargs, block)
+    "mha": (1, 128, 2, 2, 64, {}, 128),
+    "gqa": (2, 256, 4, 2, 64, {}, 128),
+    "mqa": (1, 256, 8, 1, 128, {}, 128),
+    "hd256": (1, 256, 4, 4, 256, {}, 128),
+    "mqa16_hd256_window": (1, 128, 16, 1, 256, {"window": 48}, 64),
+    "window16": (1, 256, 4, 2, 64, {"window": 16}, 128),
+    "window64": (1, 256, 4, 2, 64, {"window": 64}, 128),
+    "window_past_S": (1, 256, 4, 2, 64, {"window": 512}, 128),
+    "softcap20": (1, 256, 4, 4, 64, {"softcap": 20.0}, 128),
+    "softcap50_window": (1, 256, 4, 2, 64,
+                         {"softcap": 50.0, "window": 32}, 128),
+}
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_flash_plain_matches_pallas_and_oracle_f32(case):
+    B, S, Hq, Hkv, hd, kw, blk = CASES[case]
+    q, k, v = _qkv(1, B, S, Hq, Hkv, hd)
+    got = _port(q, k, v, causal=True, **kw)
+    _close(got, _ref(q, k, v, causal=True, **kw), F32_TOL)
+    pallas = ops.flash_attention(jnp.asarray(q), jnp.asarray(k),
+                                 jnp.asarray(v), causal=True, block_q=blk,
+                                 block_k=blk, **kw)
+    _close(got, np.asarray(pallas), F32_TOL)
+
+
+@pytest.mark.parametrize("case", ["gqa", "mqa", "hd256", "window16",
+                                  "softcap50_window"])
+def test_flash_plain_matches_oracle_bf16(case):
+    B, S, Hq, Hkv, hd, kw, _ = CASES[case]
+    q, k, v = _qkv(2, B, S, Hq, Hkv, hd)
+    got = _port(q, k, v, dtype=torch.bfloat16, causal=True, **kw)
+    _close(got, _ref(q, k, v, dtype=jnp.bfloat16, causal=True, **kw),
+           BF16_TOL)
+
+
+def test_flash_plain_extreme_logits():
+    """x100 logits: the softmax must not overflow or turn NaN."""
+    q, k, v = _qkv(3, 1, 128, 2, 2, 64, scale=100.0)
+    got = _port(q, k, v, causal=True)
+    assert np.isfinite(got).all()
+    _close(got, _ref(q, k, v, causal=True), F32_TOL)
+    pallas = ops.flash_attention(jnp.asarray(q), jnp.asarray(k),
+                                 jnp.asarray(v), causal=True, block_q=64,
+                                 block_k=64)
+    _close(got, np.asarray(pallas), F32_TOL)
+
+
+def test_flash_plain_non_causal():
+    q, k, v = _qkv(4, 1, 64, 2, 1, 32)
+    _close(_port(q, k, v, causal=False), _ref(q, k, v, causal=False),
+           F32_TOL)
+
+
+def test_flash_takes_any_sequence_length():
+    """The reference kernel refuses an S its block does not divide; the
+    port takes any S (the CUDA kernel masks the ragged last tile) and
+    agrees with the oracle there."""
+    from repro.kernels.flash_attention import flash_attention_bhsd
+    z = jnp.zeros((2, 100, 64))
+    with pytest.raises(ValueError):
+        flash_attention_bhsd(z, z, z, num_kv_heads=2, block_q=64, block_k=64,
+                             interpret=True)
+    q, k, v = _qkv(5, 2, 100, 4, 2, 64)
+    for kw in ({}, {"window": 30}):
+        _close(_port(q, k, v, causal=True, **kw),
+               _ref(q, k, v, causal=True, **kw), F32_TOL)
+
+
+def test_flash_causality():
+    """Perturbing future tokens must not change past outputs."""
+    q, k, v = _qkv(6, 1, 128, 2, 2, 64)
+    out1 = _port(q, k, v)
+    k2, v2 = k.copy(), v.copy()
+    k2[:, 64:] += 100.0
+    v2[:, 64:] -= 50.0
+    np.testing.assert_array_equal(out1[:, :64], _port(q, k2, v2)[:, :64])
+
+
+def test_flash_wrapper_on_cpu_is_the_plain_version():
+    q, k, v = (torch.tensor(a) for a in _qkv(7, 1, 32, 4, 1, 16))
+    before = fa.launches
+    got = fa.flash_attention(q, k, v, window=8, softcap=30.0)
+    want = fa.flash_attention_plain(q, k, v, window=8, softcap=30.0)
+    assert torch.equal(got, want) and got.dtype == q.dtype
+    assert fa.launches == before         # no kernel launch on the CPU
+
+
+def test_flash_wrapper_refuses_what_the_kernel_does_not_take():
+    q, k, v = (torch.tensor(a) for a in _qkv(8, 1, 32, 4, 2, 16))
+    with pytest.raises(ValueError):
+        fa.flash_attention(q.transpose(1, 2), k, v)          # not contiguous
+    with pytest.raises(TypeError):
+        fa.flash_attention(q.double(), k.double(), v.double())
+    with pytest.raises(TypeError):
+        fa.flash_attention(q, k.bfloat16(), v)
+    with pytest.raises(ValueError):
+        fa.flash_attention(q, k[:, :, :1].contiguous(), v)   # k/v differ
+    with pytest.raises(ValueError):
+        fa.flash_attention(q, k, v, window=0)
+    with pytest.raises(ValueError):                          # no fallback
+        fa.flash_attention(q.to("meta"), k.to("meta"), v.to("meta"))
+
+
+# ---------------------------------------------------------------------------
+# B6: LRU scan
+# ---------------------------------------------------------------------------
+def _ab(seed, B, S, W, lo=0.7, hi=0.999):
+    rng = np.random.default_rng(seed)
+    a = rng.uniform(lo, hi, (B, S, W)).astype(np.float32)
+    b = rng.standard_normal((B, S, W)).astype(np.float32)
+    return a, b
+
+
+@pytest.mark.parametrize("B,S,W,bs,bw", [
+    (1, 64, 128, 32, 128),
+    (2, 256, 256, 128, 128),
+    (1, 128, 100, 64, 64),     # W padded to a block multiple by ops
+    (3, 96, 64, 256, 512),     # blocks clamp to dims
+])
+def test_lru_plain_matches_pallas_and_oracle(B, S, W, bs, bw):
+    a, b = _ab(10 + S, B, S, W)
+    got = ls.lru_scan(torch.tensor(a), torch.tensor(b)).numpy()
+    want = np.asarray(ref.lru_scan_ref(jnp.asarray(a), jnp.asarray(b)))
+    pallas = np.asarray(ops.lru_scan(jnp.asarray(a), jnp.asarray(b),
+                                     block_s=bs, block_w=bw))
+    np.testing.assert_allclose(got, want, rtol=LRU_TOL, atol=LRU_TOL)
+    np.testing.assert_allclose(got, pallas, rtol=LRU_TOL, atol=LRU_TOL)
+
+
+def test_lru_plain_edge_decays():
+    """a in [0, 1] including a = 0 (reset) and a = 1 (pure sum) columns."""
+    a, b = _ab(20, 2, 77, 33, lo=0.0, hi=1.0)
+    a[..., 0] = 0.0
+    a[..., 1] = 1.0
+    got = ls.lru_scan(torch.tensor(a), torch.tensor(b)).numpy()
+    want = np.asarray(ref.lru_scan_ref(jnp.asarray(a), jnp.asarray(b)))
+    np.testing.assert_allclose(got, want, rtol=LRU_TOL, atol=LRU_TOL)
+    np.testing.assert_array_equal(got[..., 0], b[..., 0])
+
+
+def test_lru_associative_scan_matches_plain():
+    """The models' use_kernels=False route (log-depth scan) against the
+    sequential plain version (sums in another order: 1e-5)."""
+    a, b = (torch.tensor(x) for x in _ab(21, 2, 53, 17))
+    np.testing.assert_allclose(associative_scan(a, b).numpy(),
+                               ls.lru_scan_plain(a, b).numpy(),
+                               rtol=1e-5, atol=1e-5)
+
+
+def test_lru_wrapper_on_cpu_and_refusals():
+    a, b = (torch.tensor(x) for x in _ab(22, 1, 16, 8))
+    before = ls.launches
+    assert torch.equal(ls.lru_scan(a, b), ls.lru_scan_plain(a, b))
+    assert ls.launches == before
+    with pytest.raises(TypeError):
+        ls.lru_scan(a.double(), b.double())
+    with pytest.raises(ValueError):
+        ls.lru_scan(a, b[:, :8].contiguous())
+    with pytest.raises(ValueError):
+        ls.lru_scan(a.transpose(1, 2), b.transpose(1, 2))
+    with pytest.raises(ValueError):
+        ls.lru_scan(a.to("meta"), b.to("meta"))

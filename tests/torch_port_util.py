@@ -1,12 +1,14 @@
 """Helpers shared by tests/test_torch_*.py: build the same fleet and the
 same workload in the reference package (``repro``) and in the port
 (``repro_torch``, on the CPU), and export a reference graph / snapshot /
-ledger into the plain specs ``repro_torch.interop`` loads.
+ledger / model parameter tree into the plain specs ``repro_torch.interop``
+loads.
 
 Only the tests import both packages; the port itself imports neither
 ``jax`` nor ``repro``."""
 from __future__ import annotations
 
+import jax
 import numpy as np
 import torch
 
@@ -149,3 +151,9 @@ def export_ledger_columns(led, task_map: dict) -> dict:
         umem=led._umem[rows].copy(),
         uid=np.asarray([task_map[led._tasks[i].uid].uid for i in rows],
                        dtype=np.int64))
+
+
+def export_params(params) -> dict:
+    """A reference model's parameter pytree with numpy leaves, the input of
+    ``repro_torch.interop.params_from_numpy``."""
+    return jax.tree.map(np.asarray, params)
