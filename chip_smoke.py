@@ -6,7 +6,8 @@
 Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``
 (one ``nvcc`` per source, all started together) and holds each against
 its plain PyTorch version on the card: the scheduler's B1-B4 and the
-model path's flash attention (B5) and LRU scan (B6).  Then it drives the
+model path's flash attention (B5: bfloat16 on the tensor cores, float32
+on the CUDA cores) and LRU scan (B6).  Then it drives the
 port's two paths through their public entry points:
 
 * ``model_x_smoke``: recurrentgemma-9b ``.smoke()`` in float32, weights
@@ -66,15 +67,19 @@ FP32_FLOPS = 67e12
 BF16_FLOPS = 989e12
 REL_TOL = 1e-12             # floats against the plain version (decisions exact)
 T_TOL = 1e-9                # finish times: card vs CPU, fused vs reference
-# B5 against its plain version, same inputs.  float32: both sum in float32
-# in another order (observed ~1e-6 at unit scale); x100 logits make every
-# score ~1e4, so a reordering moves it by ~1e-3 (the reference's own
-# kernel test allows 2e-3 there).  bfloat16: both compute in float32 and
-# round the output once, so they differ by at most one bf16 step of the
-# output (2^-7 relative) plus an absolute floor for outputs near 0.
+# B5 against its plain version, same inputs.  float32 (the CUDA-core
+# kernel): both sum in float32 in another order (observed ~1e-6 at unit
+# scale); x100 logits make every score ~1e4, so a reordering moves it by
+# ~1e-3 (the reference's own kernel test allows 2e-3 there).  bfloat16 (the
+# tensor-core kernel): the kernel rounds P to bf16 before P.V where the
+# plain version keeps it in float32, so an output near 0 (terms that
+# cancel) carries an error that scales with its row, not with itself:
+# allowed = 2^-7 * |plain| + 2^-6 * rms(plain over the row's hd entries),
+# ``fa_kernel.bf16_allowed``.  A tile-wise emulation of the kernel's
+# rounding on the CPU (tests/test_torch_model_kernels.py) lands at 0.55-0.61
+# of that, a window off by one key two orders of magnitude above it.
 ATTN_F32_TOL = 1e-4
 ATTN_X100_TOL = 2e-3
-ATTN_BF16_REL, ATTN_BF16_ABS = 2.0 ** -7, 1e-5
 # model_x_smoke: float32 logits (|logit| ~ 2), card kernels vs CPU plain
 # versions, every layer in float32 -> reorderings only
 SMOKE_LOGIT_TOL = 1e-4
@@ -335,17 +340,32 @@ def _attn_err(got, ref, dtype, tol):
     g, r = got.double(), ref.double()
     d = (g - r).abs()
     if dtype == torch.bfloat16:
-        allowed = ATTN_BF16_REL * r.abs() + ATTN_BF16_ABS
+        allowed = fa_kernel.bf16_allowed(ref)
     else:
         allowed = torch.full_like(r, tol)
     return float(d.max()), float((d / allowed).max())
 
 
+def _sdpa(q, k, v, causal=True, window=None):
+    """The one PyTorch call computing B5's function (the same boolean mask,
+    kv heads repeated), in the (B, S, H, hd) layout; a yardstick compared
+    here, used nowhere in the port."""
+    B, S, Hq, hd = q.shape
+    mask = fa_kernel.attention_mask(S, causal, window, q.device)
+    kt = k.transpose(1, 2).repeat_interleave(Hq // k.shape[2], dim=1)
+    vt = v.transpose(1, 2).repeat_interleave(Hq // v.shape[2], dim=1)
+    return torch.nn.functional.scaled_dot_product_attention(
+        q.transpose(1, 2), kt, vt, attn_mask=mask,
+        scale=1.0 / hd ** 0.5).transpose(1, 2)
+
+
 def check_flash(dev, rng) -> dict:
-    """B5 on the card against its plain version: MHA / GQA / MQA, hd 16,
-    64, 128 and 256, causal only, windows (shorter than the 32-key tile,
-    S > window), softcap, x100 logits, non-causal, S that no tile
-    divides; float32 and bfloat16."""
+    """B5 on the card against its plain version: MHA / GQA / MQA, hd 16 to
+    256, causal only, windows (shorter than a kv tile, S > window), softcap,
+    x100 logits, non-causal, S below one tile and S that no tile divides;
+    float32 (the CUDA-core kernel) and bfloat16 (the tensor-core kernel).
+    SDPA's own distance from the plain version is taken on the same bf16
+    inputs, where it computes the same function (no softcap)."""
     cases = [
         # (B, S, Hq, Hkv, hd, kwargs, logit scale)
         (1, 256, 4, 4, 64, {}, 1.0),
@@ -353,15 +373,19 @@ def check_flash(dev, rng) -> dict:
         (1, 512, 16, 1, 256, {}, 1.0),
         (1, 512, 4, 1, 256, {"window": 16}, 1.0),
         (1, 1024, 4, 1, 256, {"window": 300}, 1.0),
+        (1, 777, 4, 2, 256, {"window": 300, "softcap": 50.0}, 1.0),
         (1, 256, 4, 2, 64, {"softcap": 50.0}, 1.0),
         (1, 384, 4, 2, 128, {"softcap": 30.0, "window": 100}, 1.0),
+        (1, 1000, 8, 2, 128, {}, 1.0),
         (2, 40, 4, 1, 16, {"window": 16}, 1.0),
         (1, 200, 4, 2, 32, {"causal": False}, 1.0),
         (1, 256, 2, 2, 64, {}, 100.0),
     ]
     worst = {"float32": 0.0, "bfloat16": 0.0}
-    worst_ratio = 0.0
+    worst_ratio = {"float32": 0.0, "bfloat16": 0.0}
+    sdpa_ratio = 0.0
     for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).split(".")[-1]
         for B, S, Hq, Hkv, hd, kw, scale in cases:
             q, k, v = _attn_inputs(dev, rng, B, S, Hq, Hkv, hd, dtype, scale)
             got = fa_kernel.flash_attention(q, k, v, **kw)
@@ -372,13 +396,16 @@ def check_flash(dev, rng) -> dict:
                                      "dtype or non-finite output")
             tol = ATTN_X100_TOL if scale > 1.0 else ATTN_F32_TOL
             e, ratio = _attn_err(got, ref, dtype, tol)
-            name = str(dtype).split(".")[-1]
             worst[name] = max(worst[name], e)
             if not ratio <= 1.0:
                 raise AssertionError(
                     f"flash_attention {name} B={B} S={S} Hq={Hq} Hkv={Hkv} "
                     f"hd={hd} {kw} x{scale}: max err {e} over its tolerance")
-            worst_ratio = max(worst_ratio, ratio)
+            worst_ratio[name] = max(worst_ratio[name], ratio)
+            if dtype == torch.bfloat16 and "softcap" not in kw:
+                lib = _sdpa(q, k, v, kw.get("causal", True), kw.get("window"))
+                sdpa_ratio = max(sdpa_ratio,
+                                 _attn_err(lib, ref, dtype, 0.0)[1])
     # the path's shape, the serving dtype
     B, S, Hq, Hkv, hd, window = PATH_B, PATH_S, 16, 1, 256, 2048
     q, k, v = _attn_inputs(dev, rng, B, S, Hq, Hkv, hd, torch.bfloat16)
@@ -389,12 +416,12 @@ def check_flash(dev, rng) -> dict:
     if not ratio <= 1.0:
         raise AssertionError(f"flash_attention at the path's shape: {e}")
     worst["bfloat16"] = max(worst["bfloat16"], e)
+    worst_ratio["bfloat16"] = max(worst_ratio["bfloat16"], ratio)
     ms = time_ms(lambda: fa_kernel.flash_attention(q, k, v, window=window),
-                 10, 2)
+                 20, 3)
     plain = time_ms(lambda: fa_kernel.flash_attention_plain(
         q, k, v, window=window), 3, 1)
-    # the one PyTorch call computing the same function (the same boolean
-    # mask, kv heads expanded as views); timed here, used nowhere in the port
+    # the library yardstick at the path's shape, kv heads expanded as views
     mask = fa_kernel.attention_mask(S, True, window, dev)
     qt = q.transpose(1, 2)
     kt = k.transpose(1, 2).expand(B, Hq, S, hd)
@@ -405,26 +432,32 @@ def check_flash(dev, rng) -> dict:
         return sdpa(qt, kt, vt, attn_mask=mask, scale=1.0 / hd ** 0.5)
     lib_out = lib_call().transpose(1, 2)
     torch.cuda.synchronize()
-    lib_err = float((lib_out.double() - ref.double()).abs().max())
+    lib_err, lib_ratio = _attn_err(lib_out, ref, torch.bfloat16, 0.0)
+    sdpa_ratio = max(sdpa_ratio, lib_ratio)
     if not lib_err < 0.1:
         raise AssertionError(f"the SDPA yardstick computes something else "
                              f"(max err {lib_err})")
-    lib = time_ms(lib_call, 10, 2)
+    lib = time_ms(lib_call, 20, 3)
     pos = np.arange(S)
     live = int(np.minimum(pos + 1, window).sum())      # (i, j) pairs per (b, h)
     flops = 4 * hd * live * B * Hq
     nbytes = 2 * (2 * B * S * Hq * hd + 2 * B * S * Hkv * hd)
     return dict(name="flash_attention", route="cuda",
-                source="src/repro_torch/kernels/csrc/flash_attention.cuh",
+                source="src/repro_torch/kernels/csrc/flash_attention_tc.cuh",
                 replaces="src/repro/kernels/flash_attention.py:95",
+                instructions="wgmma+tma",
+                float32_route=dict(
+                    source="src/repro_torch/kernels/csrc/flash_attention.cuh",
+                    instructions="fma (CUDA cores)"),
                 shape=f"B={B} S={S} Hq={Hq} Hkv={Hkv} hd={hd} "
                       f"window={window} bf16",
                 max_abs_err=max(worst.values()),
                 max_abs_err_by_dtype=worst,
                 worst_err_over_tolerance=worst_ratio,
+                sdpa_worst_err_over_tolerance=sdpa_ratio,
                 tolerance=(f"float32 {ATTN_F32_TOL} abs ({ATTN_X100_TOL} at "
-                           f"x100 logits); bfloat16 {ATTN_BF16_REL}*|plain| + "
-                           f"{ATTN_BF16_ABS}"),
+                           f"x100 logits); bfloat16 {fa_kernel.BF16_REL}*|plain|"
+                           f" + {fa_kernel.BF16_ROW}*rms(plain row)"),
                 ms=ms, plain_ms=plain, **bound(nbytes, flops, BF16_FLOPS),
                 library_ms=lib,
                 library_call="torch.nn.functional.scaled_dot_product_attention",

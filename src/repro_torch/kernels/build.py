@@ -12,6 +12,12 @@ build compiles into a directory of its own and renames the finished
 library into place, so processes that build at once do not disturb each
 other.  A failed build raises with ``nvcc``'s output; nothing here falls
 back to anything.
+
+No flag beyond the CUDA toolkit's own is needed: the bf16 attention
+kernel writes its ``wgmma`` / TMA / ``mbarrier`` instructions as inline
+PTX (no CUTLASS header), and its tensor maps are encoded with the
+driver's ``cuTensorMapEncodeTiled``, fetched at run time through the
+runtime's ``cudaGetDriverEntryPoint``, so the library links no ``-lcuda``.
 """
 from __future__ import annotations
 

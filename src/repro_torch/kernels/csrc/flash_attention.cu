@@ -1,10 +1,116 @@
-// Flash attention: the C entry point, dispatching on the head dim to the
-// launchers of flash_attention_hd*.cu.  The kernel and its design are in
-// flash_attention.cuh.
+// Flash attention: the C entry point.  float32 goes to the CUDA-core kernel
+// of flash_attention.cuh (launchers in flash_attention_hd*.cu), bfloat16 to
+// the tensor-core kernel of flash_attention_tc.cuh (launchers in
+// flash_attention_tc_hd*.cu), whose TMA tensor maps are encoded here.
+//
+// cuTensorMapEncodeTiled is a driver function; it is fetched through the
+// runtime's cudaGetDriverEntryPoint, so the library links no -lcuda.
 #include "flash_attention.cuh"
+#include "flash_attention_tc.cuh"
+
+typedef CUresult (*fa_encode_fn)(
+    CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+    const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
+    CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
+    CUtensorMapFloatOOBfill);
+
+static fa_encode_fn fa_encoder() {
+    static fa_encode_fn fn = nullptr;
+    if (fn == nullptr) {
+        void* p = nullptr;
+        cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+        cudaError_t err = cudaGetDriverEntryPointByVersion(
+            "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
+#else
+        cudaError_t err = cudaGetDriverEntryPoint(
+            "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
+#endif
+        if (err == cudaSuccess && q == cudaDriverEntryPointSuccess)
+            fn = (fa_encode_fn)p;
+    }
+    return fn;
+}
+
+// A bfloat16 (B, S, H, hd) tensor as a 4-D map, innermost first (hd, H, S,
+// B); boxes of (min(64, hd), 1, rows, 1) with the swizzle of their row
+// width (128, 64 or 32 bytes), rows past S read as zeros.
+static bool fa_encode(CUtensorMap* map, const void* ptr, int B, int S, int H,
+                      int hd, int rows) {
+    fa_encode_fn fn = fa_encoder();
+    if (fn == nullptr) return false;
+    const cuuint32_t ch = hd < 64 ? hd : 64;
+    const cuuint64_t dims[4] = {(cuuint64_t)hd, (cuuint64_t)H, (cuuint64_t)S,
+                                (cuuint64_t)B};
+    const cuuint64_t row = 2ull * hd;
+    const cuuint64_t strides[3] = {row, row * H, row * H * S};
+    const cuuint32_t box[4] = {ch, 1, (cuuint32_t)rows, 1};
+    const cuuint32_t estr[4] = {1, 1, 1, 1};
+    const CUtensorMapSwizzle sw = ch == 64 ? CU_TENSOR_MAP_SWIZZLE_128B
+                                : ch == 32 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                           : CU_TENSOR_MAP_SWIZZLE_32B;
+    return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr),
+              dims, strides, box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE, sw,
+              CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+static int fa_bf16(const void* q, const void* k, const void* v, void* o,
+                   int B, int S, int Hq, int Hkv, int hd, int causal,
+                   int window, float scale, float softcap, cudaStream_t st) {
+    CUtensorMap tq, tk, tv;
+    if (!fa_encode(&tq, q, B, S, Hq, hd, FATC_BQ) ||
+        !fa_encode(&tk, k, B, S, Hkv, hd, FATC_BK) ||
+        !fa_encode(&tv, v, B, S, Hkv, hd, FATC_BK))
+        return (int)cudaErrorInvalidValue;
+    switch (hd) {
+        case 16:
+            return heye_fa_tc_hd16(&tq, &tk, &tv, o, B, S, Hq, Hkv, causal,
+                                   window, scale, softcap, st);
+        case 32:
+            return heye_fa_tc_hd32(&tq, &tk, &tv, o, B, S, Hq, Hkv, causal,
+                                   window, scale, softcap, st);
+        case 64:
+            return heye_fa_tc_hd64(&tq, &tk, &tv, o, B, S, Hq, Hkv, causal,
+                                   window, scale, softcap, st);
+        case 128:
+            return heye_fa_tc_hd128(&tq, &tk, &tv, o, B, S, Hq, Hkv, causal,
+                                    window, scale, softcap, st);
+        case 256:
+            return heye_fa_tc_hd256(&tq, &tk, &tv, o, B, S, Hq, Hkv, causal,
+                                    window, scale, softcap, st);
+        default:
+            return (int)cudaErrorInvalidValue;
+    }
+}
+
+static int fa_f32(const void* q, const void* k, const void* v, void* o,
+                  int B, int S, int Hq, int Hkv, int hd, int causal,
+                  int window, float scale, float softcap, cudaStream_t st) {
+    switch (hd) {
+        case 16:
+            return heye_fa_hd16(q, k, v, o, B, S, Hq, Hkv, causal, window,
+                                scale, softcap, st);
+        case 32:
+            return heye_fa_hd32(q, k, v, o, B, S, Hq, Hkv, causal, window,
+                                scale, softcap, st);
+        case 64:
+            return heye_fa_hd64(q, k, v, o, B, S, Hq, Hkv, causal, window,
+                                scale, softcap, st);
+        case 128:
+            return heye_fa_hd128(q, k, v, o, B, S, Hq, Hkv, causal, window,
+                                 scale, softcap, st);
+        case 256:
+            return heye_fa_hd256(q, k, v, o, B, S, Hq, Hkv, causal, window,
+                                 scale, softcap, st);
+        default:
+            return (int)cudaErrorInvalidValue;
+    }
+}
 
 // window <= 0: no window; softcap <= 0: no soft cap.  Returns the
-// cudaError_t of the launch; hd outside {16, 32, 64, 128, 256} is refused.
+// cudaError_t of the launch; hd outside {16, 32, 64, 128, 256}, or a tensor
+// map the driver refuses, is cudaErrorInvalidValue.
 extern "C" int heye_flash_attention(const void* q, const void* k,
                                     const void* v, void* o, int B, int S,
                                     int Hq, int Hkv, int hd, int is_bf16,
@@ -12,23 +118,8 @@ extern "C" int heye_flash_attention(const void* q, const void* k,
                                     float softcap, void* stream) {
     if (B <= 0 || S <= 0) return 0;
     cudaStream_t st = (cudaStream_t)stream;
-    switch (hd) {
-        case 16:
-            return heye_fa_hd16(q, k, v, o, B, S, Hq, Hkv, is_bf16, causal,
-                                window, scale, softcap, st);
-        case 32:
-            return heye_fa_hd32(q, k, v, o, B, S, Hq, Hkv, is_bf16, causal,
-                                window, scale, softcap, st);
-        case 64:
-            return heye_fa_hd64(q, k, v, o, B, S, Hq, Hkv, is_bf16, causal,
-                                window, scale, softcap, st);
-        case 128:
-            return heye_fa_hd128(q, k, v, o, B, S, Hq, Hkv, is_bf16, causal,
-                                 window, scale, softcap, st);
-        case 256:
-            return heye_fa_hd256(q, k, v, o, B, S, Hq, Hkv, is_bf16, causal,
-                                 window, scale, softcap, st);
-        default:
-            return (int)cudaErrorInvalidValue;
-    }
+    return is_bf16 ? fa_bf16(q, k, v, o, B, S, Hq, Hkv, hd, causal, window,
+                             scale, softcap, st)
+                   : fa_f32(q, k, v, o, B, S, Hq, Hkv, hd, causal, window,
+                            scale, softcap, st);
 }

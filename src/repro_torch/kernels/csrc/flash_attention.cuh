@@ -1,11 +1,14 @@
-// Online-softmax (flash) attention, forward, on CUDA cores with fp32 math.
+// Online-softmax (flash) attention, forward, float32, on CUDA cores.
 //
 //   o[b,i,h,:] = sum_j softmax_j(mask(cap(q[b,i,h,:] . k[b,j,h/rep,:] * scale)))
 //                * v[b,j,h/rep,:]
 //
 // Replaces the TPU kernel repro/kernels/flash_attention.py:95
 // (flash_attention_bhsd / _attn_kernel), whose grid walks (B*Hq, q blocks,
-// kv blocks) with the kv axis sequential and (m, l, acc) carried in VMEM.
+// kv blocks) with the kv axis sequential and (m, l, acc) carried in VMEM,
+// for float32 tensors: it holds the float32 model route to the plain
+// version at 1e-4, which TF32 tensor cores would not.  bfloat16 goes to the
+// tensor-core kernel of flash_attention_tc.cuh.
 // Here one thread block owns one (b, h) and a tile of BQ = 64 query rows and
 // loops over the kv tiles itself: the online-softmax state lives in
 // registers.  The tensors stay in the model's (B, S, H, hd) layout; a query
@@ -15,7 +18,7 @@
 // chunks 16m + 4g .. 16m + 4g + 3 (m = 0 .. HD/16 - 1) of its row's q and
 // of its accumulator, in registers.  A score is four partial dots combined
 // with two xor shuffles, so every thread of the four ends with the same
-// bits.  The kv tile (BK = 32 keys of k and of v, converted to fp32) sits
+// bits.  The kv tile (BK = 32 keys of k and of v) sits
 // in dynamic shared memory: 2*BK*HD*4 bytes, 64 KB at HD = 256, which needs
 // the opt-in above 48 KB.  The inner loops read it as float4: one 16-byte
 // shared load feeds four FMAs, broadcast across the eight rows of a warp
@@ -31,16 +34,14 @@
 // masked for every row of the query tile are skipped.
 //
 // Bound: operations.  Live (q, k) pairs times 4*hd flops; at the model's
-// shape (B=2, S=4096, 16 heads, hd=256, window 2048) about 2.1e11 flop:
-// 0.21 ms at the bf16 tensor-core peak; on CUDA cores, as here, no faster
-// than ~3 ms at the fp32 peak.  Tensor cores (wgmma) and TMA are later work.
+// shape (B=2, S=4096, 16 heads, hd=256, window 2048) about 2.1e11 flop: no
+// faster than ~3 ms at the fp32 peak of the CUDA cores.
 //
 // Each head dim is compiled in its own source (flash_attention_hd*.cu), so
 // that the build's parallel nvcc processes share the work;
 // flash_attention.cu dispatches on hd.
 #pragma once
 #include <cuda_runtime.h>
-#include <cuda_bf16.h>
 #include <math.h>
 
 #define FA_BQ 64
@@ -48,22 +49,10 @@
 #define FA_THREADS 256
 #define FA_NEG_INF (-1073741824.0f)
 
-template <typename T> __device__ __forceinline__ float fa_to_f(T x);
-template <> __device__ __forceinline__ float fa_to_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ float fa_to_f<__nv_bfloat16>(__nv_bfloat16 x) {
-    return __bfloat162float(x);
-}
-
-template <typename T> __device__ __forceinline__ T fa_from_f(float x);
-template <> __device__ __forceinline__ float fa_from_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 fa_from_f<__nv_bfloat16>(float x) {
-    return __float2bfloat16(x);          // round to nearest even, as .to(bf16)
-}
-
-template <int HD, typename T>
+template <int HD>
 __global__ void __launch_bounds__(FA_THREADS, 1)
-flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                       const T* __restrict__ v, T* __restrict__ o,
+flash_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                       const float* __restrict__ v, float* __restrict__ o,
                        int S, int Hq, int Hkv, int causal, int window,
                        float scale, float softcap) {
     constexpr int NC = HD / 16;                // float4 chunks per thread
@@ -91,8 +80,8 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int m = 0; m < NC; ++m) {
         const int c = 16 * m + 4 * g;
         qf[m] = row_ok
-            ? make_float4(fa_to_f<T>(q[q_off + c]), fa_to_f<T>(q[q_off + c + 1]),
-                          fa_to_f<T>(q[q_off + c + 2]), fa_to_f<T>(q[q_off + c + 3]))
+            ? make_float4(q[q_off + c], q[q_off + c + 1], q[q_off + c + 2],
+                          q[q_off + c + 3])
             : make_float4(0.f, 0.f, 0.f, 0.f);
         acc[m] = make_float4(0.f, 0.f, 0.f, 0.f);
     }
@@ -116,8 +105,8 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
             if (kpos < S) {
                 const long long off =
                     (((long long)b * S + kpos) * Hkv + hk) * HD + c;
-                kv = fa_to_f<T>(k[off]);
-                vv = fa_to_f<T>(v[off]);
+                kv = k[off];
+                vv = v[off];
             }
             Ksf[e] = kv;
             Vsf[e] = vv;
@@ -186,44 +175,40 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
         for (int m = 0; m < NC; ++m) {
             const long long c = q_off + 16 * m + 4 * g;
-            o[c] = fa_from_f<T>(acc[m].x * inv);
-            o[c + 1] = fa_from_f<T>(acc[m].y * inv);
-            o[c + 2] = fa_from_f<T>(acc[m].z * inv);
-            o[c + 3] = fa_from_f<T>(acc[m].w * inv);
+            o[c] = acc[m].x * inv;
+            o[c + 1] = acc[m].y * inv;
+            o[c + 2] = acc[m].z * inv;
+            o[c + 3] = acc[m].w * inv;
         }
     }
 }
 
-template <int HD, typename T>
+template <int HD>
 static int fa_launch(const void* q, const void* k, const void* v, void* o,
                      int B, int S, int Hq, int Hkv, int causal, int window,
                      float scale, float softcap, cudaStream_t stream) {
     const int smem = 2 * FA_BK * HD * (int)sizeof(float);
     cudaError_t err = cudaFuncSetAttribute(
-        flash_attention_kernel<HD, T>,
+        flash_attention_kernel<HD>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return (int)err;
     dim3 grid((S + FA_BQ - 1) / FA_BQ, B * Hq);
-    flash_attention_kernel<HD, T><<<grid, FA_THREADS, smem, stream>>>(
-        (const T*)q, (const T*)k, (const T*)v, (T*)o, S, Hq, Hkv, causal,
-        window, scale, softcap);
+    flash_attention_kernel<HD><<<grid, FA_THREADS, smem, stream>>>(
+        (const float*)q, (const float*)k, (const float*)v, (float*)o, S, Hq,
+        Hkv, causal, window, scale, softcap);
     return (int)cudaGetLastError();
 }
 
 // One launcher per head dim, each defined in its own source.
 #define FA_LAUNCHER_ARGS                                                     \
     const void *q, const void *k, const void *v, void *o, int B, int S,      \
-        int Hq, int Hkv, int is_bf16, int causal, int window, float scale,   \
-        float softcap, cudaStream_t stream
+        int Hq, int Hkv, int causal, int window, float scale, float softcap, \
+        cudaStream_t stream
 
 #define FA_DEFINE_LAUNCHER(HDV)                                              \
     int heye_fa_hd##HDV(FA_LAUNCHER_ARGS) {                                  \
-        return is_bf16                                                       \
-            ? fa_launch<HDV, __nv_bfloat16>(q, k, v, o, B, S, Hq, Hkv,       \
-                                            causal, window, scale, softcap,  \
-                                            stream)                          \
-            : fa_launch<HDV, float>(q, k, v, o, B, S, Hq, Hkv, causal,       \
-                                    window, scale, softcap, stream);         \
+        return fa_launch<HDV>(q, k, v, o, B, S, Hq, Hkv, causal, window,     \
+                              scale, softcap, stream);                       \
     }
 
 int heye_fa_hd16(FA_LAUNCHER_ARGS);

@@ -1,4 +1,4 @@
-// Flash attention at head dim 256 (float32 and bfloat16); see
+// Flash attention at head dim 256, float32 on CUDA cores; see
 // flash_attention.cuh.
 #include "flash_attention.cuh"
 

@@ -1,0 +1,5 @@
+// Flash attention at head dim 256, bfloat16 on the tensor cores; see
+// flash_attention_tc.cuh.
+#include "flash_attention_tc.cuh"
+
+FATC_DEFINE_LAUNCHER(256)

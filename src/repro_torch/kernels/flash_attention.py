@@ -1,28 +1,37 @@
 """Flash attention (online softmax), forward: causal, optional sliding
-``window``, optional logit ``softcap``, GQA / MQA, fp32 math.
+``window``, optional logit ``softcap``, GQA / MQA.
 
 Replaces the TPU kernel ``repro/kernels/flash_attention.py:95``
 (``flash_attention_bhsd`` / ``_attn_kernel``, wrapper ``flash_attention``
 :141, reached through ``repro/kernels/ops.py:21``).  Here the kernel is
-CUDA C++ (``csrc/flash_attention.cuh``, compiled once per head dim in
-``csrc/flash_attention_hd*.cu``, entry point ``csrc/flash_attention.cu``):
-one thread block per (b, h) and 64-row query tile, a loop over 32-key kv
-tiles with the online-softmax state in registers and the kv tile in shared
-memory, on CUDA cores.  It
-reads the model's (B, S, H, hd) layout directly, maps query head h to kv
-head ``h // (Hq // Hkv)`` without repeating k/v, and skips only kv tiles
-that are masked for every row of the query tile.  It is bound by
-operations: live (q, k) pairs x 4*hd flops.
+CUDA C++, one kernel per dtype, each compiled once per head dim:
+
+* **bfloat16** (the serving dtype): ``csrc/flash_attention_tc.cuh``
+  (``flash_attention_tc_hd*.cu``), Hopper's tensor cores.  A producer
+  thread feeds Q and a two-stage ring of 64-key K / V tiles through TMA
+  (4-D tensor maps over the model's layout), two consumer warpgroups of
+  64 query rows run ``wgmma`` for Q.K^T and P.V with the online softmax
+  in registers between them.  P is rounded to bfloat16 before P.V, where
+  the reference keeps it in float32 (see :data:`BF16_REL`).
+* **float32**: ``csrc/flash_attention.cuh`` (``flash_attention_hd*.cu``),
+  CUDA cores, float32 math throughout: one thread block per (b, h) and
+  64-row query tile, a loop over 32-key kv tiles.
+
+Both read the model's (B, S, H, hd) layout directly, map query head h to
+kv head ``h // (Hq // Hkv)`` without repeating k/v, and skip only kv tiles
+that are masked for every row of the query tile.  Both are bound by
+operations: live (q, k) pairs x 4*hd flops.  ``csrc/flash_attention.cu``
+is the C entry point; it encodes the tensor maps.
 
 Shapes: q (B, S, Hq, hd), k and v (B, S, Hkv, hd), float32 or bfloat16
 (all three the same), out (B, S, Hq, hd) in ``q.dtype``; ``Hkv`` divides
-``Hq``.  **Any S is taken**: the kernel masks the ragged last tile, where
+``Hq``.  **Any S is taken**: the kernels mask the ragged last tile, where
 the reference kernel raises ``ValueError`` for an S its block size does
-not divide.  The kernel is built for hd in :data:`KERNEL_HEAD_DIMS`.
+not divide.  The kernels are built for hd in :data:`KERNEL_HEAD_DIMS`.
 
 ``flash_attention`` is the wrapper ``models/layers.py`` calls: the plain
-version for CPU tensors, the kernel for CUDA tensors (or an exception;
-there is no fallback).
+version for CPU tensors, the kernel of the tensor's dtype for CUDA tensors
+(or an exception; there is no fallback).
 """
 from __future__ import annotations
 
@@ -35,8 +44,26 @@ from . import build
 
 NEG_INF = -2.0 ** 30            # the reference's finite mask value
 KERNEL_HEAD_DIMS = (16, 32, 64, 128, 256)
+BF16_BLOCK_Q = 128              # query rows per block of the bf16 kernel
 
 launches = 0          # kernel launches made by the wrapper (not the plain path)
+
+# What the bf16 kernel is held to against flash_attention_plain on the same
+# inputs: |kernel - plain| <= BF16_REL * |plain| + BF16_ROW * rms(plain over
+# that (b, i, h) row's hd entries).  The plain version keeps P in float32
+# and rounds only the output; the kernel also rounds P to bf16 (2^-8
+# relative each) before P.V, so an output near 0, a sum of terms that
+# cancel, carries an error that scales with its row and not with itself.
+# The first term is one bf16 step of the output, the second the rounded P.
+BF16_REL = 2.0 ** -7
+BF16_ROW = 2.0 ** -6
+
+
+def bf16_allowed(plain: torch.Tensor) -> torch.Tensor:
+    """The allowed |kernel - plain| of a bf16 call, element by element."""
+    p = plain.double()
+    rms = p.pow(2).mean(-1, keepdim=True).sqrt()
+    return BF16_REL * p.abs() + BF16_ROW * rms
 
 
 def attention_mask(S: int, causal: bool, window: Optional[int],
@@ -95,7 +122,15 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"unsupported device {dev}")
     if hd not in KERNEL_HEAD_DIMS:
         raise ValueError(f"head dim {hd} not in the kernel's {KERNEL_HEAD_DIMS}")
-    if B * Hq > 65535:
+    if q.dtype == torch.bfloat16:
+        # grid (B*Hq, q tiles); TMA reads from 16-byte aligned addresses
+        if -(-S // BF16_BLOCK_Q) > 65535 or B * Hq > 2 ** 31 - 1:
+            raise ValueError(f"S = {S}, B*Hq = {B * Hq} exceed the kernel's "
+                             "grid")
+        if any(t.data_ptr() % 16 for t in (q, k, v)):
+            raise ValueError("q, k and v must start at 16-byte aligned "
+                             "addresses")
+    elif B * Hq > 65535:
         raise ValueError(f"B*Hq = {B * Hq} exceeds the kernel's grid")
     global launches
     out = torch.empty_like(q)

@@ -7,7 +7,11 @@ plain versions on the card by ``chip_smoke.py``.
 
 Tolerances: float32 attention 1e-5 absolute and relative (both sides sum in
 float32 in another order); bfloat16 attention 1e-2 (one bf16 rounding of
-the output, 2^-8 relative, on either side); the LRU scan 1e-6 relative
+the output, 2^-8 relative, on either side).  The bfloat16 CUDA kernel
+rounds P to bf16 before P.V; a tile-wise emulation of its rounding points
+holds the rule it is held to on the card (``fa.bf16_allowed``) against
+the plain version: the emulation must land well inside it, and a mask off
+by one key far outside it.  The LRU scan 1e-6 relative
 with a 1e-6 absolute floor: the plain version rounds the product and the
 sum of every step, XLA on the CPU contracts ``a*h + b`` into one fused
 multiply-add, so the two differ by an ulp of the terms (observed <= 3.3e-7
@@ -142,6 +146,128 @@ def test_flash_wrapper_on_cpu_is_the_plain_version():
     want = fa.flash_attention_plain(q, k, v, window=8, softcap=30.0)
     assert torch.equal(got, want) and got.dtype == q.dtype
     assert fa.launches == before         # no kernel launch on the CPU
+
+
+def test_flash_wrapper_on_cpu_is_the_plain_version_bf16():
+    q, k, v = (torch.tensor(a).bfloat16() for a in _qkv(7, 1, 48, 4, 2, 32))
+    before = fa.launches
+    got = fa.flash_attention(q, k, v, window=8)
+    want = fa.flash_attention_plain(q, k, v, window=8)
+    assert torch.equal(got, want) and got.dtype == torch.bfloat16
+    assert fa.launches == before
+
+
+def test_flash_wrapper_refuses_bf16_inputs_the_kernel_does_not_take():
+    q, k, v = (torch.tensor(a).bfloat16() for a in _qkv(8, 1, 32, 4, 2, 16))
+    with pytest.raises(TypeError):
+        fa.flash_attention(q.half(), k.half(), v.half())
+    with pytest.raises(TypeError):
+        fa.flash_attention(q, k.float(), v)
+    with pytest.raises(ValueError):
+        fa.flash_attention(q, k.transpose(1, 2), v)          # not contiguous
+    with pytest.raises(ValueError):
+        fa.flash_attention(q, k[:, :16].contiguous(), v[:, :16].contiguous())
+    with pytest.raises(ValueError):                          # no fallback
+        fa.flash_attention(q.to("meta"), k.to("meta"), v.to("meta"))
+
+
+# ---------------------------------------------------------------------------
+# B5, bfloat16: the tensor-core kernel's rounding, emulated tile by tile
+# ---------------------------------------------------------------------------
+def _emulate_tc(q, k, v, *, causal=True, window=None, softcap=None,
+                mask_window=None, block_q=128, block_k=64):
+    """The bf16 kernel's arithmetic in plain PyTorch: 128-row query tiles,
+    64-key kv tiles over the kernel's loop bounds, scores in float32 from
+    bf16 inputs, scaled, soft-capped, masked with the finite NEG_INF, an
+    online max from -inf, P rounded to bf16 (the row sums add the rounded
+    values), float32 accumulation, the output rounded to bf16.
+    ``mask_window`` replaces the window in the mask alone (the loop bounds
+    keep ``window``): a model of a mask error."""
+    B, S, Hq, hd = q.shape
+    rep = Hq // k.shape[2]
+    qf = q.float().transpose(1, 2)
+    kf = k.float().repeat_interleave(rep, dim=2).transpose(1, 2)
+    vf = v.float().repeat_interleave(rep, dim=2).transpose(1, 2)
+    mw = window if mask_window is None else mask_window
+    out = torch.empty(B, Hq, S, hd)
+    for q0 in range(0, S, block_q):
+        rows = torch.arange(q0, min(q0 + block_q, S))
+        k_begin, k_end = 0, S
+        if causal:
+            k_end = min(S, q0 + block_q)
+        if window is not None:
+            k_begin = max(0, q0 - window + 1)
+        m = torch.full((B, Hq, len(rows)), -float("inf"))
+        l = torch.zeros((B, Hq, len(rows)))
+        acc = torch.zeros((B, Hq, len(rows), hd))
+        for t in range(k_begin // block_k, -(-k_end // block_k)):
+            keys = torch.arange(t * block_k, min(t * block_k + block_k, S))
+            s = (qf[:, :, rows] @ kf[:, :, keys].transpose(-1, -2)) \
+                * (1.0 / np.sqrt(hd))
+            if softcap is not None:
+                s = softcap * torch.tanh(s / softcap)
+            live = torch.ones((len(rows), len(keys)), dtype=torch.bool)
+            if causal:
+                live &= keys[None, :] <= rows[:, None]
+            if mw is not None:
+                live &= keys[None, :] > rows[:, None] - mw
+            s = torch.where(live, s, torch.full_like(s, fa.NEG_INF))
+            mx = torch.maximum(m, s.amax(-1))
+            corr = torch.exp(m - mx)
+            p = torch.exp(s - mx[..., None]).bfloat16().float()
+            l = l * corr + p.sum(-1)
+            acc = acc * corr[..., None] + p @ vf[:, :, keys]
+            m = mx
+        out[:, :, rows] = acc / l[..., None]
+    return out.transpose(1, 2).bfloat16()
+
+
+def _ratio(got, plain):
+    """Worst |got - plain| over what the bf16 kernel is allowed."""
+    d = (got.double() - plain.double()).abs()
+    return float((d / fa.bf16_allowed(plain)).max())
+
+
+TC_CASES = {
+    # name: (B, S, Hq, Hkv, hd, kwargs, logit scale); S below one query
+    # tile, windows below one kv tile, GQA / MQA, non-causal, soft caps,
+    # x100 logits, S that no tile divides, the path's shape cut in S
+    "S40_window16_hd16": (2, 40, 4, 1, 16, {"window": 16}, 1.0),
+    "gqa_ragged_hd64": (1, 333, 4, 2, 64, {}, 1.0),
+    "noncausal_hd32": (1, 200, 4, 2, 32, {"causal": False}, 1.0),
+    "softcap30_window_hd128": (1, 300, 4, 2, 128,
+                               {"softcap": 30.0, "window": 100}, 1.0),
+    "softcap50_hd64": (1, 256, 4, 2, 64, {"softcap": 50.0}, 1.0),
+    "x100_hd64": (1, 256, 2, 2, 64, {}, 100.0),
+    "path_mqa_hd256_window": (1, 384, 4, 1, 256, {"window": 128}, 1.0),
+}
+
+
+def _tc_inputs(case):
+    B, S, Hq, Hkv, hd, kw, scale = TC_CASES[case]
+    q, k, v = _qkv(30 + S, B, S, Hq, Hkv, hd, scale)
+    return [torch.tensor(a).bfloat16() for a in (q, k, v)], kw
+
+
+@pytest.mark.parametrize("case", sorted(TC_CASES))
+def test_bf16_tolerance_holds_the_kernel_rounding(case):
+    """The emulation lands well inside the rule.  Its worst ratio, 0.55-0.61
+    here, is set by the output's own rounding: where the two sides round
+    an output of 3x its row's RMS one bf16 step apart, that step alone is
+    0.6 of the rule.  0.7 leaves that margin and no more."""
+    (q, k, v), kw = _tc_inputs(case)
+    plain = fa.flash_attention_plain(q, k, v, **kw)
+    assert _ratio(_emulate_tc(q, k, v, **kw), plain) <= 0.7
+
+
+@pytest.mark.parametrize("shift", [-1, 1])
+@pytest.mark.parametrize("case", sorted(c for c in TC_CASES
+                                        if "window" in TC_CASES[c][5]))
+def test_bf16_tolerance_catches_a_window_off_by_one(case, shift):
+    (q, k, v), kw = _tc_inputs(case)
+    plain = fa.flash_attention_plain(q, k, v, **kw)
+    wrong = _emulate_tc(q, k, v, mask_window=kw["window"] + shift, **kw)
+    assert _ratio(wrong, plain) >= 10.0
 
 
 def test_flash_wrapper_refuses_what_the_kernel_does_not_take():
