@@ -5,10 +5,16 @@
 
 Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``
 (one ``nvcc`` per source, all started together) and holds each against
-its plain PyTorch version on the card: the scheduler's B1-B4 and the
-model path's flash attention (B5: bfloat16 on the tensor cores, float32
-on the CUDA cores) and LRU scan (B6).  Then it drives the
-port's two paths through their public entry points:
+its plain PyTorch version on the card: the scheduler's B1 (slowdown
+factors), B2 (rate-advance and its two fused in-place settle forms,
+reprice and complete), B3 (segment-min), B4 / B4b (the scan-reduce, one
+scan or a ragged stack) and the model path's flash attention (B5:
+bfloat16 on the tensor cores, float32 on the CUDA cores) and LRU scan
+(B6).  Each kernel's row has ``ms`` (CUDA events around back-to-back
+calls of the Python wrapper: the launch path included) and ``body_ms``
+(the kernel's own device time: every kernel's calls traced in one
+torch.profiler session after the last timed phase).
+Then it drives the port's two paths through their public entry points:
 
 * ``model_x_smoke``: recurrentgemma-9b ``.smoke()`` in float32, weights
   made on the card and copied to a CPU model; forward, prefill, 8
@@ -16,7 +22,10 @@ port's two paths through their public entry points:
   against CPU (plain versions);
 * ``x8`` / ``x128``: the offline scheduler session (map -> execute) on the
   Fig. 13 mining fleet at mult=8 (card vs CPU vs the port's own reference
-  event loop) and at full width, mult=128 (8448 PUs, 4608 tasks);
+  event loop) and at full width, mult=128 (8448 PUs, 4608 tasks), whose
+  every scheduler kernel must have been launched (after ``serve_full``
+  the same session runs once more under torch.profiler, for its
+  device-op count);
 * ``model_full``: recurrentgemma-9b at full width (38 layers, d=4096,
   ~8.5 B float32 parameters from a seeded generator): prefill(1, 4096) in
   float32 through the kernels against the plain route, then prefill(2,
@@ -34,6 +43,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import gc
 import statistics
 import subprocess
 import sys
@@ -46,6 +56,7 @@ import numpy as np          # noqa: E402
 import torch                # noqa: E402
 
 import repro_torch.core as core                              # noqa: E402
+import repro_torch.core.orchestrator as orc_mod              # noqa: E402
 import repro_torch.launch.serve as serve_launch              # noqa: E402
 from repro_torch import device as rt_device                  # noqa: E402
 from repro_torch.configs import get_config                   # noqa: E402
@@ -127,6 +138,86 @@ def time_ms(fn, iters: int = 200, warm: int = 20) -> float:
     return statistics.median(rounds)
 
 
+class _Body:
+    """A kernel-body measurement: ``iters`` calls of ``fn``, each launching
+    the kernel whose traced name holds ``kernel`` once, traced by
+    :func:`measure_bodies` after the last timed phase (a torch.profiler
+    trace can leave later launches of its process slower, so no phase is
+    timed after one)."""
+
+    def __init__(self, fn, kernel: str, iters: int) -> None:
+        self.fn, self.kernel, self.iters = fn, kernel, iters
+
+
+def body_ms(fn, kernel: str, iters: int = 200) -> _Body:
+    return _Body(fn, kernel, iters)
+
+
+BODY_PAUSE_S = 0.1          # device idle between two bodies' loops
+
+
+def _device_events(prof) -> list:
+    """(start ns, end ns, name) of every event a finished torch.profiler
+    trace shows on the card (kernels, copies, fills), in start order, read
+    from the raw trace: the profiler's own event list is built lazily in
+    Python and takes minutes for a session's ~750k events."""
+    from torch.autograd import DeviceType
+    return sorted((e.start_ns(), e.start_ns() + e.duration_ns(), e.name())
+                  for e in prof.profiler.kineto_results.events()
+                  if e.device_type() == DeviceType.CUDA)
+
+
+def _split_loops(events: list, n: int) -> list:
+    """``events`` (start, end, name) in start order, split into ``n`` runs
+    at the ``n - 1`` widest gaps between one event's end and the next's
+    start: the pauses between the loops of :func:`measure_bodies`."""
+    gaps = sorted(range(1, len(events)), reverse=True,
+                  key=lambda i: events[i][0] - events[i - 1][1])[:n - 1]
+    cuts = [0, *sorted(gaps), len(events)]
+    return [events[a:b] for a, b in zip(cuts, cuts[1:])]
+
+
+def measure_bodies(rows: list[dict]) -> None:
+    """Replace every deferred ``body_ms`` of the kernel rows (and of their
+    ``other_shapes``) with the device time per launch of its kernel, from
+    ONE torch.profiler session: a loop of calls per body, in order, the
+    device idle for ``BODY_PAUSE_S`` between two loops, so each loop's
+    device events are one run of the trace.  The mean is over the launches
+    the trace shows (it may drop an odd event)."""
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as tprofile
+    slots = [d for row in rows for d in (row, *row.get("other_shapes",
+                                                       {}).values())
+             if isinstance(d.get("body_ms"), _Body)]
+    if not slots:
+        return
+    for d in slots:
+        d["body_ms"].fn()
+    torch.cuda.synchronize()
+    gc.disable()            # no collector pause inside a loop
+    try:
+        with tprofile(activities=[ProfilerActivity.CUDA]) as prof:
+            for d in slots:
+                time.sleep(BODY_PAUSE_S)
+                for _ in range(d["body_ms"].iters):
+                    d["body_ms"].fn()
+                torch.cuda.synchronize()
+    finally:
+        gc.enable()
+    events = _device_events(prof)
+    runs = _split_loops(events, len(slots))
+    if len(runs) != len(slots):
+        raise AssertionError(f"the trace shows {len(events)} device events "
+                             f"for {len(slots)} loops")
+    for d, run in zip(slots, runs):
+        b = d["body_ms"]
+        durs = [e - s for s, e, name in run if b.kernel in name]
+        if len(durs) < b.iters // 2:
+            raise AssertionError(f"the trace shows {len(durs)} launches of "
+                                 f"{b.kernel} for {b.iters} calls")
+        d["body_ms"] = sum(durs) / len(durs) / 1e6
+
+
 def max_err(a: torch.Tensor, b: torch.Tensor) -> tuple[float, float]:
     """(max abs err, max rel err) with equal infs / nans counted as 0."""
     a = a.to(torch.float64)
@@ -161,6 +252,8 @@ def check_slowdown(dev, rng) -> dict:
         e = max_err(got, ref)
         worst = (max(worst[0], e[0]), max(worst[1], e[1]))
     ms = time_ms(lambda: slowdown_kernel.slowdown_factors(*args, kappa))
+    body = body_ms(lambda: slowdown_kernel.slowdown_factors(*args, kappa),
+                   "slowdown_factors_kernel")
     plain = time_ms(lambda: slowdown_kernel.slowdown_factors_plain(*args, kappa))
     n, r = 4223, 6
     nbytes = 8 * (n * r + r + 3 * n)
@@ -169,7 +262,7 @@ def check_slowdown(dev, rng) -> dict:
                 source="src/repro_torch/kernels/csrc/slowdown_factors.cu",
                 replaces="src/repro/kernels/slowdown_kernel.py:47",
                 shape=f"N={n} R={r}", max_abs_err=worst[0],
-                max_rel_err=worst[1], ms=ms, plain_ms=plain,
+                max_rel_err=worst[1], ms=ms, body_ms=body, plain_ms=plain,
                 **bound(nbytes, flops), library_ms=None)
 
 
@@ -186,38 +279,96 @@ def _ra_inputs(dev, rng, n):
     return [torch.as_tensor(a, device=dev) for a in (W, rate, t_last)], 1.5
 
 
-def check_rate_advance(dev, rng) -> list[dict]:
-    worst = [(0.0, 0.0), (0.0, 0.0)]
+def check_rate_advance(dev, rng) -> dict:
+    worst = (0.0, 0.0)
     for n in (5, 384, 4608):
         args, now = _ra_inputs(dev, rng, n)
         W2, eta = timeline_kernel.rate_advance(*args, now)
         rW, reta = timeline_kernel.rate_advance_plain(*args, now)
-        s = timeline_kernel.settle(*args, now)
-        rs = timeline_kernel.settle_plain(*args, now)
         torch.cuda.synchronize()
-        for i, e in ((0, max_err(W2, rW)), (0, max_err(eta, reta)),
-                     (1, max_err(s, rs))):
-            worst[i] = (max(worst[i][0], e[0]), max(worst[i][1], e[1]))
+        for e in (max_err(W2, rW), max_err(eta, reta)):
+            worst = (max(worst[0], e[0]), max(worst[1], e[1]))
+    n = 384
+    args, now = _ra_inputs(dev, rng, n)
+    ms = time_ms(lambda: timeline_kernel.rate_advance(*args, now))
+    body = body_ms(lambda: timeline_kernel.rate_advance(*args, now),
+                   "rate_advance_kernel")
+    plain = time_ms(lambda: timeline_kernel.rate_advance_plain(*args, now))
+    return dict(name="rate_advance", route="cuda",
+                source="src/repro_torch/kernels/csrc/rate_advance.cu",
+                replaces="src/repro/kernels/timeline_kernel.py:59",
+                shape=f"N={n}", max_abs_err=worst[0], max_rel_err=worst[1],
+                ms=ms, body_ms=body, plain_ms=plain,
+                **bound(8 * 5 * n, 5 * n), library_ms=None)
+
+
+# the job table's capacity at mult=128 (4608 tasks and the background
+# jobs, grown by doubling)
+SETTLE_COLS = 8192
+
+
+def _job_cols(dev, rng):
+    """Job columns W, rate, t_last, eta (float64) and cstamp (int64)."""
+    W = rng.uniform(0.0, 5.0, SETTLE_COLS)
+    W[::3] = 0.0                              # settled: finishes at once
+    cols = (W, rng.uniform(0.1, 2.0, SETTLE_COLS),
+            rng.uniform(0.0, 1.0, SETTLE_COLS),
+            rng.uniform(0.0, 9.0, SETTLE_COLS),
+            rng.integers(0, 100, SETTLE_COLS))
+    return [torch.as_tensor(a, device=dev) for a in cols]
+
+
+def _settle_calls(dev, rng, n):
+    """The reprice and complete forms over n distinct slots and their
+    plain versions, each on a copy of one set of job columns:
+    (reprice, reprice plain, complete, complete plain, the columns)."""
+    members = torch.as_tensor(rng.permutation(SETTLE_COLS)[:n], device=dev)
+    factors = torch.as_tensor(rng.uniform(1.0, 3.0, n), device=dev)
+    base = _job_cols(dev, rng)
+    rc, rp, cc, cp = ([c.clone() for c in base] for _ in range(4))
+    tk = timeline_kernel
+    return (lambda: tk.settle_reprice(*rc, members, factors, 1.5, 77),
+            lambda: tk.settle_reprice_plain(*rp, members, factors, 1.5, 77),
+            lambda: tk.settle_complete(*cc[:4], members, 1.5, 1e-15),
+            lambda: tk.settle_complete_plain(*cp[:4], members, 1.5, 1e-15),
+            (rc, rp, cc[:4], cp[:4]))
+
+
+def check_settle(dev, rng) -> list[dict]:
+    """B2's two fused in-place settle forms against their plain versions,
+    bit for bit (the columns and the completion pairs), at n = 1, 4 (a
+    flush's average on the main path), 384 and 4608 distinct slots; timed
+    at 4 and 4608."""
+    for n in (1, 4, 384, 4608):
+        rk, rp, ck, cp, (rc, rpc, cc, cpc) = _settle_calls(dev, rng, n)
+        rk()
+        rp()
+        pk = ck()
+        pp = cp()
+        torch.cuda.synchronize()
+        for name, got, ref in (("settle_reprice", rc, rpc),
+                               ("settle_complete", cc + [pk], cpc + [pp])):
+            if not all(torch.equal(a, b) for a, b in zip(got, ref)):
+                raise AssertionError(f"{name} at n={n} is not bit-equal to "
+                                     "its plain version")
     out = []
-    for form, n, idx in (("rate_advance", 384, 0), ("settle", 4608, 1)):
-        args, now = _ra_inputs(dev, rng, n)
-        if form == "rate_advance":
-            ms = time_ms(lambda: timeline_kernel.rate_advance(*args, now))
-            plain = time_ms(
-                lambda: timeline_kernel.rate_advance_plain(*args, now))
-            nbytes, flops = 8 * 5 * n, 5 * n
-        else:
-            ms = time_ms(lambda: timeline_kernel.settle(*args, now))
-            plain = time_ms(lambda: timeline_kernel.settle_plain(*args, now))
-            nbytes, flops = 8 * 4 * n, 3 * n
+    for name, idx, nbytes, flops in (
+            ("settle_reprice", 0, 80, 6), ("settle_complete", 2, 72, 5)):
+        shapes = {}
+        for n in (4, 4608):
+            calls = _settle_calls(dev, rng, n)
+            kern, plain_fn = calls[idx], calls[idx + 1]
+            shapes[n] = dict(
+                ms=time_ms(kern), body_ms=body_ms(kern, f"{name}_kernel"),
+                plain_ms=time_ms(plain_fn), **bound(nbytes * n, flops * n))
         out.append(dict(
-            name="rate_advance" if form == "rate_advance"
-            else "rate_advance_settle", route="cuda",
+            name=name, route="cuda",
             source="src/repro_torch/kernels/csrc/rate_advance.cu",
-            replaces="src/repro/kernels/timeline_kernel.py:59",
-            shape=f"N={n}", max_abs_err=worst[idx][0],
-            max_rel_err=worst[idx][1], ms=ms, plain_ms=plain,
-            **bound(nbytes, flops), library_ms=None))
+            replaces="src/repro/core/timeline.py:194 (_settle_pos, the "
+                     "settle form of src/repro/kernels/timeline_kernel.py:59)",
+            shape="N=4 (a flush's average)", max_abs_err=0.0,
+            max_rel_err=0.0, tolerance="bit-equal", **shapes[4],
+            library_ms=None, other_shapes={"N=4608": shapes[4608]}))
     return out
 
 
@@ -239,6 +390,8 @@ def check_segment_min(dev, rng) -> dict:
         e = max_err(got, ref)
         worst = (max(worst[0], e[0]), max(worst[1], e[1]))
     ms = time_ms(lambda: timeline_kernel.segment_min(v, s, c))
+    body = body_ms(lambda: timeline_kernel.segment_min(v, s, c),
+                   "segment_min_kernel")
     plain = time_ms(lambda: timeline_kernel.segment_min_plain(v, s, c), 50, 5)
     # the one library call computing the same function, on the same data
     # laid out contiguously; timed here, used nowhere in the port
@@ -256,12 +409,17 @@ def check_segment_min(dev, rng) -> dict:
                 source="src/repro_torch/kernels/csrc/segment_min.cu",
                 replaces="src/repro/kernels/timeline_kernel.py:109",
                 shape=f"S={S} K={K}", max_abs_err=worst[0],
-                max_rel_err=worst[1], ms=ms, plain_ms=plain,
+                max_rel_err=worst[1], ms=ms, body_ms=body, plain_ms=plain,
                 **bound(nbytes, K), library_ms=lib)
 
 
-def _scan_inputs(dev, rng, n_dev, per_dev, mode):
-    """A two-level plan: root + n_dev device nodes of per_dev PUs."""
+LQC = 5e-6                  # the walk's local query cost
+
+
+def _scan_case(rng, n_dev, per_dev, mode):
+    """One scan as numpy: (ok, key, sa, f, cm) over n_dev * per_dev PUs and
+    a two-level plan (root + n_dev device nodes; one node that owns the
+    PUs when n_dev == 1: the walk's device scan)."""
     P = n_dev * per_dev
     ok = rng.random(P) < 0.4
     key = rng.uniform(0.01, 0.2, P)
@@ -273,53 +431,141 @@ def _scan_inputs(dev, rng, n_dev, per_dev, mode):
         ok[:] = False
     if mode != "infeasible":
         ok[rng.integers(0, P)] = True
-    lo = [0] + [d * per_dev for d in range(n_dev)]
-    hi = [P] + [(d + 1) * per_dev for d in range(n_dev)]
-    if n_dev == 1:                       # a device scan: the root owns the PUs
-        lo, hi, leaf, nch = [0], [P], [P], [0]
-        hop, dep = [0.0], [0.0]
-    else:
-        leaf = [0] + [per_dev] * n_dev
-        nch = [n_dev] + [0] * n_dev
-        hop = [float(rng.uniform(1e-4, 1e-3))] + [0.0] * n_dev
-        dep = [0.0] + [1.0] * n_dev
-    t = lambda a, dt: torch.as_tensor(np.asarray(a, dtype=dt), device=dev)
-    return (t(ok, bool), t(key, np.float64), t(lo, np.int64), t(hi, np.int64),
-            t(leaf, np.int64), t(nch, np.int64), t(hop, np.float64),
-            t(dep, np.float64), 5e-6)
+    cols = (ok, key, rng.uniform(0.01, 0.1, P), rng.uniform(1.0, 2.0, P),
+            rng.uniform(0.0, 0.01, P))
+    if n_dev == 1:
+        return cols, ([0], [P], [P], [0], [0.0], [0.0])
+    return cols, ([0] + [d * per_dev for d in range(n_dev)],
+                  [P] + [(d + 1) * per_dev for d in range(n_dev)],
+                  [0] + [per_dev] * n_dev, [n_dev] + [0] * n_dev,
+                  [float(rng.uniform(1e-4, 1e-3))] + [0.0] * n_dev,
+                  [0.0] + [1.0] * n_dev)
 
 
-def check_scan_reduce(dev, rng) -> dict:
+def _scan_stack(dev, rng, shapes, modes):
+    """A ragged stack: the concatenated columns on the card, the plan pool
+    (one plan per scan) and the per-scan offsets."""
+    cases = [_scan_case(rng, nd, pd, modes[i % len(modes)])
+             for i, (nd, pd) in enumerate(shapes)]
+    cols = [torch.as_tensor(np.concatenate(c), device=dev)
+            for c in zip(*[c for c, _ in cases])]
+    pool = [sum((list(p[j]) for _, p in cases), []) for j in range(6)]
+    offs, o, no = [], 0, 0
+    for c, p in cases:
+        offs.append((o, len(c[0]), no, len(p[0])))
+        o += len(c[0])
+        no += len(p[0])
+    return cols, walk_kernel.ScanPlanArrays.from_lists(*pool, dev), offs
+
+
+def _scan_bytes(P: int, Nn: int, rows: torch.Tensor, meta: bool) -> int:
+    """Bytes a stack of scans must move, given its ``(S, 7)`` result rows:
+    ``ok`` (1) and ``key`` (8) per PU, 48 per plan node, ``sa``/``f``/``cm``
+    (24) at each feasible scan's winner only, the offsets and launch order
+    (5 x 8 per scan) where they are passed, and the 7-double rows once."""
+    rows = rows.reshape(-1, 7)
+    S = rows.shape[0]
+    won = int((rows[:, 0] >= 0).sum())
+    return 9 * P + 48 * Nn + 24 * won + (40 * S if meta else 0) + 56 * S
+
+
+def _rows_agree(got: torch.Tensor, ref: torch.Tensor, what: str) -> tuple:
+    """Decisions and gathered columns exact; returns the overhead's
+    (max abs err, max rel err)."""
+    g, r = got.reshape(-1, 7), ref.reshape(-1, 7)
+    exact = [0, 1, 2, 4, 5, 6]
+    if not torch.equal(g[:, exact], r[:, exact]):
+        bad = (g[:, exact] != r[:, exact]).any(1).nonzero()[:3, 0].tolist()
+        raise AssertionError(f"{what}: rows {bad} differ: "
+                             f"{g[bad].tolist()} vs {r[bad].tolist()}")
+    return max_err(g[:, 3], r[:, 3])
+
+
+def _one_scan_plain(args: list, arr) -> torch.Tensor:
+    """The plain version of one scan: the stack of one."""
+    meta = torch.tensor([[0, args[0].shape[0], 0, arr.n]], dtype=torch.int64,
+                        device=args[0].device)
+    return walk_kernel.scan_reduce_batch_plain(*args, *arr.tensors(), meta,
+                                               LQC)[0]
+
+
+def check_scan_reduce(dev, rng) -> list[dict]:
+    """B4 (one scan) and B4b (ragged stacks mixing P = 1, 6 and 8448 with
+    ties, all-inf and infeasible rows) against their plain versions."""
+    modes = ("plain", "ties", "allinf", "infeasible")
     worst = (0.0, 0.0)
-    for n_dev, per_dev in ((1, 6), (24, 6), (1408, 6), (3000, 3)):
-        for mode in ("plain", "ties", "allinf", "infeasible"):
-            args = _scan_inputs(dev, rng, n_dev, per_dev, mode)
-            got = walk_kernel.scan_reduce(*args)
-            ref = walk_kernel.scan_reduce_plain(*args)
+    # warp scans up to 32 PUs, block scans above (33, a word boundary at
+    # 64, the path's 8448, the largest a block takes: 131072)
+    for n_dev, per_dev in ((1, 1), (1, 6), (1, 32), (1, 33), (2, 32),
+                           (24, 6), (1408, 6), (3000, 3), (4096, 32)):
+        for mode in modes:
+            cols, plan = _scan_case(rng, n_dev, per_dev, mode)
+            args = [torch.as_tensor(c, device=dev) for c in cols]
+            arr = walk_kernel.ScanPlanArrays.from_lists(*plan, dev)
+            got = walk_kernel.scan_reduce(*args, arr, LQC)
+            ref = _one_scan_plain(args, arr)
             torch.cuda.synchronize()
-            if got[:3].tolist() != ref[:3].tolist():
-                raise AssertionError(
-                    f"scan_reduce decisions differ ({n_dev}x{per_dev} {mode}): "
-                    f"{got.tolist()} vs {ref.tolist()}")
-            e = max_err(got[3:], ref[3:])
+            e = _rows_agree(got, ref, f"scan_reduce {n_dev}x{per_dev} {mode}")
             worst = (max(worst[0], e[0]), max(worst[1], e[1]))
-    shapes = {}
+    bworst = (0.0, 0.0)
+    shapes = [(1, 1), (1, 6), (1408, 6), (1, 6), (24, 6), (1, 1),
+              (1408, 6), (1, 6), (3, 2), (1, 6), (1, 1), (1408, 6)] * 3
+    for rot in range(len(modes)):
+        cols, arr, offs = _scan_stack(dev, rng, shapes,
+                                      modes[rot:] + modes[:rot])
+        got = walk_kernel.scan_reduce_batch(*cols, arr, offs, LQC)
+        meta = torch.as_tensor(offs, dtype=torch.int64, device=dev)
+        ref = walk_kernel.scan_reduce_batch_plain(*cols, *arr.tensors(),
+                                                  meta, LQC)
+        torch.cuda.synchronize()
+        e = _rows_agree(got, ref, f"scan_reduce_batch (rotation {rot})")
+        bworst = (max(bworst[0], e[0]), max(bworst[1], e[1]))
+    single = {}
     for label, n_dev, per_dev in (("P=6", 1, 6), ("P=8448", 1408, 6)):
-        args = _scan_inputs(dev, rng, n_dev, per_dev, "plain")
-        ms = time_ms(lambda: walk_kernel.scan_reduce(*args))
-        plain = time_ms(lambda: walk_kernel.scan_reduce_plain(*args), 50, 5)
-        P, Nn = args[0].shape[0], args[2].shape[0]
-        shapes[label] = dict(ms=ms, plain_ms=plain,
-                             **bound(9 * P + 48 * Nn + 32, 2 * P + 6 * Nn))
-    main = shapes["P=6"]
-    return dict(name="scan_reduce", route="cuda",
-                source="src/repro_torch/kernels/csrc/scan_reduce.cu",
-                replaces="src/repro/kernels/walk_kernel.py:150",
-                shape="P=6 (device scan)", max_abs_err=worst[0],
-                max_rel_err=worst[1], ms=main["ms"],
-                plain_ms=main["plain_ms"], bound_ms=main["bound_ms"],
-                bound_by=main["bound_by"], library_ms=None,
-                other_shapes={"P=8448": shapes["P=8448"]})
+        cols, plan = _scan_case(rng, n_dev, per_dev, "plain")
+        args = [torch.as_tensor(c, device=dev) for c in cols]
+        arr = walk_kernel.ScanPlanArrays.from_lists(*plan, dev)
+        P, Nn = len(cols[0]), arr.n
+
+        def fn(args=args, arr=arr):
+            return walk_kernel.scan_reduce(*args, arr, LQC)
+
+        def plain_fn(args=args, arr=arr):
+            return _one_scan_plain(args, arr)
+        single[label] = dict(
+            ms=time_ms(fn), body_ms=body_ms(fn, "scan_reduce_batch_kernel"),
+            plain_ms=time_ms(plain_fn, 50, 5),
+            **bound(_scan_bytes(P, Nn, plain_fn(), False), 2 * P + 6 * Nn))
+    rows = [dict(
+        name="scan_reduce", route="cuda",
+        source="src/repro_torch/kernels/csrc/scan_reduce.cu",
+        replaces="src/repro/kernels/walk_kernel.py:150",
+        shape="P=6 (device scan), a stack of one", max_abs_err=worst[0],
+        max_rel_err=worst[1], **single["P=6"], library_ms=None,
+        other_shapes={"P=8448": single["P=8448"]})]
+    # the phase-1 wave at mult=128: 1152 device scans of 6 PUs, each with
+    # its own one-node plan
+    S = 1152
+    cols, arr, offs = _scan_stack(dev, rng, [(1, 6)] * S, ("plain",))
+    meta = torch.as_tensor(offs, dtype=torch.int64, device=dev)
+
+    def batch():
+        return walk_kernel.scan_reduce_batch(*cols, arr, offs, LQC)
+
+    def batch_plain():
+        return walk_kernel.scan_reduce_batch_plain(*cols, *arr.tensors(),
+                                                   meta, LQC)
+    rows.append(dict(
+        name="scan_reduce_batch", route="cuda",
+        source="src/repro_torch/kernels/csrc/scan_reduce.cu",
+        replaces="src/repro/kernels/walk_kernel.py:168",
+        shape=f"S={S} scans of P=6 (a phase-1 wave at mult=128)",
+        max_abs_err=bworst[0], max_rel_err=bworst[1], ms=time_ms(batch),
+        body_ms=body_ms(batch, "scan_reduce_batch_kernel"),
+        plain_ms=time_ms(batch_plain, 50, 5),
+        **bound(_scan_bytes(6 * S, S, batch_plain(), True), S * (2 * 6 + 6)),
+        library_ms=None))
+    return rows
 
 
 # the model path's shapes: recurrentgemma-9b's local attention layers and
@@ -419,6 +665,8 @@ def check_flash(dev, rng) -> dict:
     worst_ratio["bfloat16"] = max(worst_ratio["bfloat16"], ratio)
     ms = time_ms(lambda: fa_kernel.flash_attention(q, k, v, window=window),
                  20, 3)
+    body = body_ms(lambda: fa_kernel.flash_attention(q, k, v, window=window),
+                   "flash_attention_tc_kernel", 20)
     plain = time_ms(lambda: fa_kernel.flash_attention_plain(
         q, k, v, window=window), 3, 1)
     # the library yardstick at the path's shape, kv heads expanded as views
@@ -458,7 +706,8 @@ def check_flash(dev, rng) -> dict:
                 tolerance=(f"float32 {ATTN_F32_TOL} abs ({ATTN_X100_TOL} at "
                            f"x100 logits); bfloat16 {fa_kernel.BF16_REL}*|plain|"
                            f" + {fa_kernel.BF16_ROW}*rms(plain row)"),
-                ms=ms, plain_ms=plain, **bound(nbytes, flops, BF16_FLOPS),
+                ms=ms, body_ms=body, plain_ms=plain,
+                **bound(nbytes, flops, BF16_FLOPS),
                 library_ms=lib,
                 library_call="torch.nn.functional.scaled_dot_product_attention",
                 library_max_abs_err=lib_err, flops=flops)
@@ -494,12 +743,13 @@ def check_lru(dev, rng) -> dict:
     if max_err(got, ref)[0] != 0.0:
         raise AssertionError("lru_scan at the path's shape is not bit-equal")
     ms = time_ms(lambda: lru_kernel.lru_scan(a, b), 20, 3)
+    body = body_ms(lambda: lru_kernel.lru_scan(a, b), "lru_scan_kernel", 20)
     plain = time_ms(lambda: lru_kernel.lru_scan_plain(a, b), 2, 1)
     return dict(name="lru_scan", route="cuda",
                 source="src/repro_torch/kernels/csrc/lru_scan.cu",
                 replaces="src/repro/kernels/lru_scan.py:45",
                 shape=f"B={B} S={S} W={W} fp32", max_abs_err=worst,
-                tolerance="bit-equal", ms=ms, plain_ms=plain,
+                tolerance="bit-equal", ms=ms, body_ms=body, plain_ms=plain,
                 **bound(3 * B * S * W * 4, 2 * B * S * W, FP32_FLOPS),
                 library_ms=None)
 
@@ -514,27 +764,25 @@ def bound(nbytes: int, flops: int, peak: float = FP64_FLOPS) -> dict:
 # ---------------------------------------------------------------------------
 # the main path
 # ---------------------------------------------------------------------------
-SCHED_KERNELS = ("slowdown_factors", "rate_advance", "rate_advance_settle",
-                 "segment_min", "scan_reduce")
+SCHED_KERNELS = ("slowdown_factors", "rate_advance", "settle_reprice",
+                 "settle_complete", "segment_min", "scan_reduce",
+                 "scan_reduce_batch")
 MODEL_KERNELS = ("flash_attention", "lru_scan")
 
 
 def reset_counts() -> None:
     slowdown_kernel.launches = 0
-    walk_kernel.launches = 0
     fa_kernel.launches = 0
     lru_kernel.launches = 0
-    for k in timeline_kernel.launches:
-        timeline_kernel.launches[k] = 0
+    for counts in (timeline_kernel.launches, walk_kernel.launches):
+        for k in counts:
+            counts[k] = 0
     rt_device.reset_sync_count()
 
 
 def read_counts() -> dict:
     return {"slowdown_factors": slowdown_kernel.launches,
-            "rate_advance": timeline_kernel.launches["rate_advance"],
-            "rate_advance_settle": timeline_kernel.launches["settle"],
-            "segment_min": timeline_kernel.launches["segment_min"],
-            "scan_reduce": walk_kernel.launches,
+            **timeline_kernel.launches, **walk_kernel.launches,
             "flash_attention": fa_kernel.launches,
             "lru_scan": lru_kernel.launches}
 
@@ -603,12 +851,31 @@ def session_x8(seed: int) -> dict:
 
 
 def session_full(seed: int) -> tuple[dict, dict]:
+    """The session at full width: placements complete, every scheduler
+    kernel launched, the size of each phase-1 wave's batched entry reduce
+    (read by wrapping the walk's call, outside the port).  Its device-op
+    count comes later, from :func:`session_traced`."""
     mult = FULL_MULT
     reset_counts()
     torch.cuda.reset_peak_memory_stats()
-    st, cfg, g, sess, secs = run_session(mult, None, seed)
+    walk_call = orc_mod.scan_reduce_batch
+    stacks: list[int] = []
+
+    def counted(*args):
+        stacks.append(len(args[6]))
+        return walk_call(*args)
+
+    orc_mod.scan_reduce_batch = counted
+    try:
+        st, cfg, g, sess, secs = run_session(mult, None, seed)
+    finally:
+        orc_mod.scan_reduce_batch = walk_call
     counts = read_counts()
     syncs = rt_device.sync_count()
+    peak = torch.cuda.max_memory_allocated()
+    if counts["scan_reduce_batch"] != len(stacks):
+        raise AssertionError(f"x{mult}: {len(stacks)} batched entry reduces,"
+                             f" {counts['scan_reduce_batch']} launches")
     lat = st.latencies(cfg)
     if len(lat) != len(cfg) or not all(np.isfinite(lat)):
         raise AssertionError(f"x{mult}: unfinished or non-finite latencies")
@@ -628,8 +895,21 @@ def session_full(seed: int) -> tuple[dict, dict]:
                 unmapped=len(st.unmapped), **secs,
                 p50_latency_s=pct[50.0], p99_latency_s=pct[99.0],
                 qos_failures=st.qos_failures(cfg), launches=counts,
-                device_to_host_syncs=syncs,
-                peak_device_bytes=torch.cuda.max_memory_allocated()), counts
+                entry_wave_scans=stacks, device_to_host_syncs=syncs,
+                peak_device_bytes=peak), counts
+
+
+def session_traced(seed: int) -> dict:
+    """The full-width session once more, under torch.profiler (CUDA
+    activity): its device-op count (every kernel, copy and fill on the
+    card) and device-busy seconds.  Run after the last timed phase."""
+    from torch.profiler import ProfilerActivity
+    wall, prof = _traced_session(FULL_MULT, seed, [ProfilerActivity.CUDA])
+    ops = [e - s for s, e, _ in _device_events(prof) if e > s]
+    if not ops:
+        raise AssertionError("the traced session shows no device op")
+    return dict(mult=FULL_MULT, traced_wall_s=wall,
+                device_busy_s=sum(ops) / 1e9, device_ops=len(ops))
 
 
 # ---------------------------------------------------------------------------
@@ -829,21 +1109,29 @@ def serve_full(seed: int) -> dict:
                 driver_output=out.getvalue().splitlines()[:3])
 
 
-def _device_busy(mult: int, seed: int, activities) -> tuple[float, float, list]:
-    """(wall s, device-busy s, top kernels) of one traced session."""
+def _traced_session(mult: int, seed: int, activities) -> tuple:
+    """(wall s, the finished torch.profiler) of one session traced."""
     from torch.profiler import profile as tprofile
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     with tprofile(activities=activities) as prof:
         run_session(mult, None, seed)
         torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    return time.perf_counter() - t0, prof
+
+
+def _device_busy(mult: int, seed: int,
+                 activities) -> tuple[float, float, list, int]:
+    """(wall s, device-busy s, top kernels, device ops) of one traced
+    session; the device ops are every kernel, copy and fill the trace
+    shows on the card."""
+    wall, prof = _traced_session(mult, seed, activities)
     rows = prof.key_averages()
-    dev_us = sum(getattr(r, "self_device_time_total", 0.0) for r in rows)
-    top = sorted(rows, key=lambda r: -getattr(r, "self_device_time_total", 0.0))
-    return wall, dev_us / 1e6, [
-        (r.key[:60], r.count, getattr(r, "self_device_time_total", 0.0) / 1e3)
-        for r in top[:12]]
+    dev_t = [getattr(r, "self_device_time_total", 0.0) for r in rows]
+    n_ops = sum(r.count for r, t in zip(rows, dev_t) if t > 0)
+    top = sorted(zip(rows, dev_t), key=lambda x: -x[1])
+    return wall, sum(dev_t) / 1e6, [
+        (r.key[:60], r.count, t / 1e3) for r, t in top[:12]], n_ops
 
 
 def profile(seed: int, out: str) -> None:
@@ -864,14 +1152,15 @@ def profile(seed: int, out: str) -> None:
     run_session(mult, None, seed)
     torch.cuda.synchronize()
     plain_wall = time.perf_counter() - t0
-    wall, busy, top = _device_busy(mult, seed, [ProfilerActivity.CUDA])
+    wall, busy, top, n_ops = _device_busy(mult, seed, [ProfilerActivity.CUDA])
     if not busy > 0.0:
         raise AssertionError("the trace shows no device time")
     emit(f"device_busy_x{mult}", dict(
         untraced_wall_s=plain_wall, traced_wall_s=wall, device_busy_s=busy,
+        device_ops=n_ops,
         device_busy_share_of_untraced_wall=busy / plain_wall,
         device_busy_share_of_traced_wall=busy / wall, top_device=top))
-    wall, busy, top = _device_busy(
+    wall, busy, top, _ = _device_busy(
         8, seed, [ProfilerActivity.CPU, ProfilerActivity.CUDA])
     emit("profile_x8", dict(wall_s=wall, device_busy_s=busy,
                             device_busy_share=busy / wall, top_device=top))
@@ -1002,44 +1291,70 @@ def main() -> None:
     if args.profile_model:
         profile_model(args.seed, args.out)
         raise SystemExit("profiling run: no result line")
+    phases: dict = {}
+    mark = [time.perf_counter()]
+
+    def done(phase: str) -> None:
+        now = time.perf_counter()
+        phases[phase] = now - mark[0]
+        mark[0] = now
 
     def stop(phase: str) -> None:
         if args.stop_after == phase:
+            measure_bodies(kernels)
+            emit("kernel_bodies", {k["name"]: dict(
+                body_ms=k["body_ms"], **{n: o["body_ms"] for n, o in
+                                         k.get("other_shapes", {}).items()})
+                for k in kernels})
             raise SystemExit(f"stopped after the {phase} phase (debugging)")
 
     rng = np.random.default_rng(args.seed)
-    kernels = [check_slowdown(dev, rng), *check_rate_advance(dev, rng),
-               check_segment_min(dev, rng), check_scan_reduce(dev, rng)]
+    kernels = [check_slowdown(dev, rng), check_rate_advance(dev, rng),
+               *check_settle(dev, rng), check_segment_min(dev, rng),
+               *check_scan_reduce(dev, rng)]
     for k in kernels:
         if not (k["max_rel_err"] <= REL_TOL):
             raise AssertionError(
                 f"kernel {k['name']} disagrees with its plain version: "
                 f"rel err {k['max_rel_err']}")
-        k["tolerance"] = f"decisions exact, floats <= {REL_TOL} relative"
+        k.setdefault("tolerance",
+                     f"decisions exact, floats <= {REL_TOL} relative")
     # B5 and B6 raise inside their checks, against their own tolerances
     kernels += [check_flash(dev, rng), check_lru(dev, rng)]
 
+    done("kernels")
     emit("kernels_checked", {k["name"]: dict(
         max_abs_err=k["max_abs_err"], tolerance=k["tolerance"], ms=k["ms"],
         plain_ms=k["plain_ms"]) for k in kernels})
     stop("kernels")
     emit("model_x_smoke", model_x_smoke(args.seed))
+    done("model_x_smoke")
     stop("model_x_smoke")
     emit("session_x8", session_x8(args.seed))
+    done("x8")
     stop("x8")
     full, counts = session_full(args.seed)
     emit(f"session_x{FULL_MULT}", full)
+    done(f"x{FULL_MULT}")
     stop("x128")
     mfull, mcounts = model_full(args.seed)
     emit("model_full", mfull)
+    done("model_full")
     stop("model_full")
     emit("serve_full", serve_full(args.seed))
+    done("serve_full")
+    # the traces, after every timed phase
+    measure_bodies(kernels)
+    done("bodies")
+    emit(f"session_x{FULL_MULT}_traced", session_traced(args.seed))
+    done(f"x{FULL_MULT}_traced")
 
     # launches: each kernel's count from the run of its own path
     for k in kernels:
         k["launches"] = (mcounts if k["name"] in MODEL_KERNELS
                          else counts)[k["name"]]
-    emit("total", dict(seconds=time.perf_counter() - t_start))
+    emit("total", dict(seconds=time.perf_counter() - t_start,
+                       phases=phases))
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -18,12 +18,14 @@ Alg. 1 —
 
 — lowered to the **fused wave-batched walk**: every ORC subtree is a scan
 plan (device tensors), each escalation depth's constraint checks batch
-into one factor-kernel call, and each scan's accounting is one launch of
-the scan-reduce kernel.  Mapping is optimistic-concurrency: every task is
-first scored against the ledger as it stood at the start of the batch,
-then committed in task order; a task is re-scored only when an earlier
-commit landed on a device its search actually scored, which keeps
-``map_batch`` identical to N sequential one-task batches.
+into one factor-kernel call, a wave's entry scans are reduced together
+in one launch of the batched scan-reduce kernel, and every later scan
+(re-walks, escalations) is one launch of it at a stack of one.  Mapping
+is optimistic-concurrency: every task is first scored against the ledger
+as it stood at the start of the batch, then committed in task order; a
+task is re-scored only when an earlier commit landed on a device its
+search actually scored, which keeps ``map_batch`` identical to N
+sequential one-task batches.
 
 Host and device: the ORC tree, the plans' name lists, the per-batch
 caches and the ledger's dict indexes are host Python; the ledger columns,
@@ -49,7 +51,8 @@ import torch
 
 from ..device import (BOOL, FLOAT, INT, DeviceLike, bytes_key, f64, host_item,
                       host_list, i64, resolve_device)
-from ..kernels.walk_kernel import scan_reduce
+from ..kernels.walk_kernel import (ScanPlanArrays, scan_reduce,
+                                   scan_reduce_batch)
 from .hwgraph import HWGraph
 from .task import Task
 from .traverser import TaskPrediction, Traverser
@@ -433,12 +436,13 @@ class _StaticScore:
 class _ScanPlan:
     """One ORC subtree lowered to arrays: the preorder node list of a scan
     root with per-node subtree PU ranges, leaf/child counts, summed hop
-    costs and depths (device tensors) — everything the scan-reduce kernel
-    needs to replay Alg. 1's TraverseChildren accounting in closed form.
-    Built lazily per compiled snapshot (hop costs are snapshot functions)."""
+    costs and depths (``rows`` on the host, ``arrays`` on the device) —
+    everything the scan-reduce kernel needs to replay Alg. 1's
+    TraverseChildren accounting in closed form.  Built lazily per compiled
+    snapshot (hop costs are snapshot functions)."""
 
-    __slots__ = ("pus", "pu_lo", "pu_hi", "leafcnt", "nchild", "hopsum",
-                 "depth", "leaf_groups", "devs", "dev_ranges", "dev_sublists")
+    __slots__ = ("pus", "rows", "arrays", "leaf_groups", "devs",
+                 "dev_ranges", "dev_sublists")
 
 
 class _ChildPlan:
@@ -884,13 +888,8 @@ class Orchestrator:
             pu_hi[i] = cursor
 
         build(self, 0)
-        dev = comp.device
-        p.pu_lo = i64(pu_lo, dev)
-        p.pu_hi = i64(pu_hi, dev)
-        p.leafcnt = i64(leafcnt, dev)
-        p.nchild = i64(nchild, dev)
-        p.hopsum = f64(hopsum, dev)
-        p.depth = f64(depth, dev)
+        p.rows = (pu_lo, pu_hi, leafcnt, nchild, hopsum, depth)
+        p.arrays = ScanPlanArrays.from_lists(*p.rows, comp.device)
         self._plan_cache = (comp, p)
         return p
 
@@ -1123,36 +1122,25 @@ class Orchestrator:
         return ok, cm, key
 
     def _scan_reduce(self, ok_d: torch.Tensor, cm_d: torch.Tensor,
-                     st: _ScanState, plan: _ScanPlan,
-                     offset: int = 0,
-                     key_d: Optional[torch.Tensor] = None,
-                     ) -> Optional[MapResult]:
+                     key_d: torch.Tensor, st: _ScanState, plan: _ScanPlan,
+                     offset: int = 0) -> Optional[MapResult]:
         """Replay TraverseChildren's accounting over one scan in closed
         form (one launch of the scan-reduce kernel) and return its winner.
-        ``ok_d``/``cm_d`` (and the precomputed ``cm + sa*f`` selection
-        column ``key_d``) are the per-signature effective columns over the
+        ``ok_d``/``cm_d`` and the precomputed ``cm + sa*f`` selection
+        column ``key_d`` are the per-signature effective columns over the
         plan that ``st`` (plus ``offset``) is sliced against.  The kernel's
-        four results and the winner's prediction columns come back to the
-        host in ONE copy."""
+        results, the winner's prediction columns among them, come back to
+        the host in ONE copy."""
         n = len(plan.pus)
-        sl = slice(offset, offset + n)
-        ok = ok_d[sl]
-        sa = st.sa[sl]
-        f = st.f[sl]
-        cm = cm_d[sl]
+        ok, sa, f, cm, key = ok_d, st.sa, st.f, cm_d, key_d
+        if offset or ok.shape[0] != n:
+            sl = slice(offset, offset + n)
+            ok, sa, f, cm, key = ok[sl], sa[sl], f[sl], cm[sl], key[sl]
         if self.config.objective == "min_load":
             cnt = self.ledger.count
             key = f64([cnt(p) for p in plan.pus], ok.device)
-        elif key_d is not None:
-            key = key_d[sl]
-        else:
-            key = cm + sa * f
-        res = scan_reduce(ok.contiguous(), key.contiguous(), plan.pu_lo,
-                          plan.pu_hi, plan.leafcnt, plan.nchild, plan.hopsum,
-                          plan.depth, self.config.local_query_cost)
-        wi = res[0].to(INT).clamp(min=0)
-        w, queries, hops, overhead, sa_w, f_w, cm_w = host_list(
-            torch.cat([res, torch.stack([sa[wi], f[wi], cm[wi]])]))
+        w, queries, hops, overhead, sa_w, f_w, cm_w = host_list(scan_reduce(
+            ok, key, sa, f, cm, plan.arrays, self.config.local_query_cost))
         if w < 0:
             return None
         pred = TaskPrediction(sa_w, f_w, cm_w)
@@ -1160,9 +1148,11 @@ class Orchestrator:
                          overhead=overhead, queries=int(queries),
                          hops=int(hops))
 
-    def _traverse_fast(self, task: Task, now: float, ctx: "_BatchContext",
-                       scored: Optional[set]) -> Optional[MapResult]:
-        """TraverseChildren over this ORC's subtree as one tracked scan."""
+    def _entry_columns(self, task: Task, now: float, ctx: "_BatchContext",
+                       scored: Optional[set]) -> Optional[tuple]:
+        """The entry TraverseChildren scan over this ORC's subtree, up to
+        its reduce: ``(ok, cm, key, st, plan)`` as :meth:`_scan_reduce`
+        takes them, or None when the subtree holds no PU."""
         plan = self._scan_plan(ctx.comp)
         if scored is not None:
             scored.update(plan.leaf_groups)
@@ -1170,7 +1160,13 @@ class Orchestrator:
             return None
         st = self._tracked_checks(task, plan, now, ctx)
         ok, cm, key = self._effective(task, st, plan, now, ctx)
-        return self._scan_reduce(ok, cm, st, plan, key_d=key)
+        return ok, cm, key, st, plan
+
+    def _traverse_fast(self, task: Task, now: float, ctx: "_BatchContext",
+                       scored: Optional[set]) -> Optional[MapResult]:
+        """TraverseChildren over this ORC's subtree as one tracked scan."""
+        cols = self._entry_columns(task, now, ctx, scored)
+        return None if cols is None else self._scan_reduce(*cols)
 
     def _ask_level_fast(self, task: Task, now: float, ctx: "_BatchContext",
                         scored: Optional[set]) -> Optional[MapResult]:
@@ -1219,8 +1215,9 @@ class Orchestrator:
             return None
         k = bisect.bisect_right(cp.bounds, w) - 1
         sibling = cp.children[k]
-        sub = sibling._scan_reduce(ok_d, cm_d, st, sibling._scan_plan(comp),
-                                   offset=cp.bounds[k], key_d=key_d)
+        sub = sibling._scan_reduce(ok_d, cm_d, key_d, st,
+                                   sibling._scan_plan(comp),
+                                   offset=cp.bounds[k])
         # the running Alg. 1 charges at the winning sibling's position:
         # one hop up to the parent plus one per *sibling* asked so far
         # (the asker itself is skipped in the iteration order)
@@ -1341,11 +1338,53 @@ class Orchestrator:
         self._batch_checks(
             ctx, [(w.orc, w.task, w.orc._scan_plan(comp)) for w in order],
             now)
-        for w in order:
-            w.res = w.orc._traverse_fast(w.task, now, ctx, w.scored)
+        self._entry_reduce_batch(order, now, ctx)
         active = [w for w in order
                   if w.res is None and w.cur.parent is not None]
         self._escalate_walks(active, now, ctx)
+
+    def _entry_reduce_batch(self, ws: list["_Walk"], now: float,
+                            ctx: "_BatchContext") -> None:
+        """Resolve every walk's entry TraverseChildren scan: the wave's
+        scans go to ONE ``scan_reduce_batch`` launch (one per distinct
+        local query cost), over the wave's plans concatenated on this
+        call, and come back in one host copy.  Phase 1 reads a frozen
+        ledger, so reducing after every walk's checks equals reducing walk
+        by walk.  ``min_load`` walks keep the per-walk reduce — their
+        selection key reads live ledger counts."""
+        groups: dict = {}
+        for w in ws:
+            cols = w.orc._entry_columns(w.task, now, ctx, w.scored)
+            if cols is None:
+                w.res = None
+            elif w.orc.config.objective == "min_load":
+                w.res = w.orc._scan_reduce(*cols)
+            else:
+                groups.setdefault(w.orc.config.local_query_cost, []).append(
+                    (w, cols))
+        for lqc, rows in groups.items():
+            scans = []
+            plan_cols: tuple = ([], [], [], [], [], [])
+            off = 0
+            for _, (_, _, _, _, plan) in rows:
+                n = len(plan.pus)
+                scans.append((off, n, len(plan_cols[0]), plan.arrays.n))
+                off += n
+                for col, row in zip(plan_cols, plan.rows):
+                    col.extend(row)
+            out = host_list(scan_reduce_batch(
+                torch.cat([c[0] for _, c in rows]),
+                torch.cat([c[2] for _, c in rows]),
+                torch.cat([c[3].sa for _, c in rows]),
+                torch.cat([c[3].f for _, c in rows]),
+                torch.cat([c[1] for _, c in rows]),
+                ScanPlanArrays.from_lists(*plan_cols, ctx.comp.device),
+                scans, lqc))
+            for (w, cols), (wi, q, h, ov, sa_w, f_w, cm_w) in zip(rows, out):
+                w.res = None if wi < 0 else MapResult(
+                    pu=cols[4].pus[int(wi)],
+                    prediction=TaskPrediction(sa_w, f_w, cm_w),
+                    overhead=ov, queries=int(q), hops=int(h))
 
     def _walk_wave(self, tasks: list, now: float, ctx: "_BatchContext",
                    route: bool) -> dict:

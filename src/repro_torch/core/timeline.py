@@ -13,10 +13,12 @@ identical; what changes is the representation and the unit of work:
   timestamp.
 * **Per-timestamp draining** — all events sharing one timestamp drain
   before a single flush reprices the devices/links they touched.  The
-  settle of every completion across all devices is one launch of the
-  rate-advance kernel, and the flush reprices *every* dirty device pool
-  in one ``factor_batch_idx`` call (compute paths never cross device
-  boundaries, so the union pool factors block-diagonally).
+  settle of every compute completion across all devices is one launch
+  of the fused settle-complete kernel, and the flush reprices *every*
+  dirty device pool in one ``factor_batch_idx`` call (compute paths never
+  cross device boundaries, so the union pool factors block-diagonally)
+  and one launch of the fused settle-reprice kernel, both in place on
+  the job columns.
 * **Batched link repricing** — the bottleneck share of each affected
   transfer is a segment-min over its route edges, evaluated for the
   whole dirty set at once by the segment-min kernel, which consumes the
@@ -32,7 +34,7 @@ the next flush (no column is read in between), and finished slots are
 retired with one indexed store.  Columns grow by reallocation on the
 device; no view of an old buffer is kept across a growth.
 
-The two inner loops are the port's float64 kernels
+The inner loops are the port's float64 kernels
 (``kernels.timeline_kernel``): CUDA for columns on the card, the plain
 PyTorch versions for columns on the CPU.
 
@@ -658,17 +660,12 @@ class TimelineEngine:
             total = len(mem_list)
             if total:
                 members = i64(mem_list, dev)
-                self.cstamp[members] = torch.arange(
-                    self._stamp, self._stamp + total, device=dev)
-                self._stamp += total
                 factors = self._pool_factors(mem_list, members)
-                W2 = tk.settle(self.W[members], self.rate[members],
-                               self.t_last[members], t)
-                rate = 1.0 / factors
-                self.W[members] = W2
-                self.t_last[members] = t
-                self.rate[members] = rate
-                self.eta[members] = t + W2 / rate
+                # stamp, settle, reprice and project in one launch
+                tk.settle_reprice(self.W, self.rate, self.t_last, self.eta,
+                                  self.cstamp, members, factors, t,
+                                  self._stamp)
+                self._stamp += total
                 flushed = True
         if self.dirty_edges:
             affected: set[int] = set()
@@ -719,16 +716,10 @@ class TimelineEngine:
         t = self.time
         if done.shape[0] > 1:   # simultaneous: settle in reprice-stamp order
             done = done[torch.argsort(self.cstamp[done], stable=True)]
-        W2 = tk.settle(self.W[done], self.rate[done], self.t_last[done], t)
-        self.W[done] = W2
-        self.t_last[done] = t
-        fin = W2 <= CTOL
-        done_l, fin_l = host_list(torch.stack([done, fin.to(INT)]))
-        dev = self.device
-        if not all(fin_l):   # float residue: keep running, fresh estimate
-            resid = i64([s for s, ok in zip(done_l, fin_l) if not ok], dev)
-            self.eta[resid] = t + self.W[resid] / self.rate[resid]
-        self.eta[i64([s for s, ok in zip(done_l, fin_l) if ok], dev)] = _INF
+        # settle in place; finished slots get eta = +inf, a float residue
+        # keeps running with a fresh estimate
+        done_l, fin_l = host_list(tk.settle_complete(
+            self.W, self.rate, self.t_last, self.eta, done, t, CTOL))
         self.n_events += len(done_l)
         for s, ok in zip(done_l, fin_l):
             if ok:

@@ -51,11 +51,14 @@ _F32 = ctypes.c_float
 _SIGNATURES = {
     "heye_slowdown_factors": [_PTR, _PTR, _PTR, _PTR, _PTR, _I64, _INT,
                               _F64, _PTR],
-    "heye_rate_advance": [_PTR, _PTR, _PTR, _PTR, _PTR, _I64, _F64, _INT,
-                          _PTR],
+    "heye_rate_advance": [_PTR, _PTR, _PTR, _PTR, _PTR, _I64, _F64, _PTR],
+    "heye_settle_reprice": [_PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _I64,
+                            _F64, _I64, _PTR],
+    "heye_settle_complete": [_PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _I64, _F64,
+                             _F64, _PTR],
     "heye_segment_min": [_PTR, _PTR, _PTR, _PTR, _I64, _PTR],
-    "heye_scan_reduce": [_PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR,
-                         _PTR, _PTR, _I64, _I64, _F64, _PTR],
+    "heye_scan_reduce_batch": [_PTR] * 12 + [_I64, _I64, _I64, _I64, _F64,
+                                             _PTR, _PTR],
     "heye_lru_scan": [_PTR, _PTR, _PTR, _I64, _I64, _I64, _PTR],
     "heye_flash_attention": [_PTR, _PTR, _PTR, _PTR, _INT, _INT, _INT, _INT,
                              _INT, _INT, _INT, _INT, _F32, _F32, _PTR],

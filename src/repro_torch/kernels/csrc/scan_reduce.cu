@@ -1,4 +1,7 @@
-// Alg. 1 subtree-scan accounting reduce, float64 / int64.
+// Alg. 1 subtree-scan accounting reduce over a ragged stack of scans,
+// float64 / int64.  For every scan s (its PUs at ok[ok_off : ok_off + P],
+// its plan nodes at [node_off, node_off + Nn) of the concatenated plan
+// arrays, node ranges relative to the scan's own PU order):
 //
 //   feas[n]  = any(ok[pu_lo[n] : pu_hi[n]])
 //   winner   = first feasible position attaining the minimum key
@@ -7,144 +10,314 @@
 //   queries  = sum(leafcnt[feas]);  hops = sum(nchild[feas])
 //   overhead = sum((hopsum + lqc * leafcnt * (depth + 1))[feas])
 //
-// One block per scan.  Feasibility comes from a block prefix sum of `ok`
-// (chunked per thread, written to an int32 scratch the wrapper
-// allocates), so every node's range test is two loads.  The argmin
-// orders candidates by (key, index), so ties resolve to the lowest index
-// whatever the thread layout; the integer sums are exact in int64; the
-// overhead is summed in a fixed order (strided per-thread partials, then
-// a fixed binary tree), so it is reproducible from run to run.  The four
-// results go into one 4-double output so the host needs one copy.
-// Every input is read once: bound by bytes moved, and at device-scan
-// sizes (6 PUs) by launch latency.
+// and out[7 s : 7 s + 7] = [winner, queries, hops, overhead, sa[w], f[w],
+// cm[w]] (the winner's prediction columns gathered here, so the caller
+// needs no further op), or [-1, 0, 0, 0, 0, 0, 0] when the root is
+// infeasible.
+//
+// Work per scan is tiny (the walk's device scans have 6 PUs and one node)
+// and scans arrive a thousand at a time, so the layout follows the scan:
+//
+// * a scan of at most 32 PUs gets ONE WARP: lane i holds PU i, a ballot of
+//   `ok` is the whole prefix (a node is feasible when the ballot has a bit
+//   in [pu_lo, pu_hi)), the (key, index) argmin and the sums are butterfly
+//   shuffles, so there is no shared memory, no block barrier and no global
+//   scratch; eight scans share a block;
+// * a larger scan (a group- or root-level scan, 8448 PUs at mult=128) gets
+//   a BLOCK: one ballot per 32 PUs packs `ok` into bit words in shared
+//   memory (the argmin rides along), a block scan of the words' popcounts
+//   makes the prefix, and then one THREAD per plan node tests its range in
+//   O(1) (two popcounts), so the nodes' loads are independent and
+//   coalesced; partials are combined in lane, then warp order.  The words
+//   take 32 KB of shared memory: up to 131072 PUs per scan (the wrapper
+//   refuses more);
+//
+// Both kinds go in one launch: blocks [0, n_warp_blocks) take the warp
+// scans, the rest one large scan each (`perm` lists the warp scans first).
+// The argmin orders candidates by (key, index), so ties resolve to the
+// lowest position whatever the thread layout; the integer sums are exact
+// in int64; the overhead is summed in a fixed order (lane / warp order, a
+// fixed butterfly), so it is reproducible from run to run.  Every input
+// is read at most once per enclosing plan node: bound by bytes moved, and
+// at the walk's sizes by launch latency, which is why a whole wave of
+// entry scans is one launch.  Replaces repro/kernels/walk_kernel.py
+// scan_reduce (:150) and scan_reduce_batch (:168, a jit(vmap) of it).
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
-#define SCAN_THREADS 1024
+#define SR_THREADS 256
+#define SR_WARPS (SR_THREADS / 32)
+#define SR_WARP_MAX_P 32
+#define SR_MAX_WORDS 4096                 // a block's scan: <= 131072 PUs
+#define FULL_MASK 0xffffffffu
 
 __device__ __forceinline__ bool better(double k, long long i,
                                        double bk, long long bi) {
     return (k < bk) || (k == bk && i < bi);
 }
 
-__global__ void __launch_bounds__(SCAN_THREADS)
-scan_reduce_kernel(const unsigned char* __restrict__ ok,
-                   const double* __restrict__ key,
-                   const long long* __restrict__ pu_lo,
-                   const long long* __restrict__ pu_hi,
-                   const long long* __restrict__ leafcnt,
-                   const long long* __restrict__ nchild,
-                   const double* __restrict__ hopsum,
-                   const double* __restrict__ depth,
-                   int* __restrict__ cs, double* __restrict__ out,
-                   long long P, long long Nn, double lqc) {
-    __shared__ double sK[SCAN_THREADS];
-    __shared__ long long sI[SCAN_THREADS];
-    __shared__ long long sQ[SCAN_THREADS];
-    const int t = threadIdx.x;
-    const int T = blockDim.x;
+// bits [0, x) of a 32-bit word, x in [0, 32]
+__device__ __forceinline__ unsigned below(long long x) {
+    return x >= 32 ? FULL_MASK : ((1u << (unsigned)x) - 1u);
+}
 
-    // ---- pass 1: per-thread chunk count + chunk-local argmin ------------
-    const long long chunk = (P + T - 1) / T;
-    const long long lo = (long long)t * chunk;
-    const long long hi = (lo + chunk < P) ? lo + chunk : P;
-    long long cnt = 0;
-    double bk = CUDART_INF;
-    long long bi = 0x7fffffffffffffffLL;
-    for (long long i = lo; i < hi; ++i) {
-        if (ok[i]) {
-            ++cnt;
-            const double k = key[i];
-            if (better(k, i, bk, bi)) { bk = k; bi = i; }
-        }
-    }
-    sQ[t] = cnt;
-    sK[t] = bk;
-    sI[t] = bi;
-    __syncthreads();
+__device__ __forceinline__ double node_term(double hopsum, double lqc,
+                                            long long lc, double depth) {
+    // no fused multiply-add: the plain version rounds each product
+    return __dadd_rn(hopsum, __dmul_rn(__dmul_rn(lqc, (double)lc),
+                                       __dadd_rn(depth, 1.0)));
+}
 
-    // ---- exclusive scan of the chunk counts (T entries, one thread) -----
-    if (t == 0) {
-        long long run = 0;
-        for (int j = 0; j < T; ++j) {
-            const long long c = sQ[j];
-            sQ[j] = run;
-            run += c;
-        }
-        cs[0] = 0;
-    }
-    __syncthreads();
-    {
-        long long run = sQ[t];
-        for (long long i = lo; i < hi; ++i) {
-            run += ok[i] ? 1 : 0;
-            cs[i + 1] = (int)run;
-        }
-    }
-    // ---- block argmin with (key, index) ordering -------------------------
-    for (int s = T / 2; s > 0; s >>= 1) {
-        __syncthreads();
-        if (t < s) {
-            const double k2 = sK[t + s];
-            const long long i2 = sI[t + s];
-            if (better(k2, i2, sK[t], sI[t])) { sK[t] = k2; sI[t] = i2; }
-        }
-    }
-    __syncthreads();                 // also publishes cs[] to the block
-    const long long winner = sI[0];
-    const bool root_ok = (Nn > 0) && (cs[pu_hi[0]] > cs[pu_lo[0]]);
-    __syncthreads();
+struct ScanArgs {
+    const unsigned char* ok;
+    const double* key;
+    const double* sa;
+    const double* f;
+    const double* cm;
+    const long long* pu_lo;
+    const long long* pu_hi;
+    const long long* leafcnt;
+    const long long* nchild;
+    const double* hopsum;
+    const double* depth;
+    // per scan [ok_off, P, node_off, Nn] (S rows), then perm (S entries);
+    // null for a stack of one, whose P / Nn come as scalars
+    const long long* meta;
+    long long S, n_small, P0, Nn0;
+    double lqc;
+    double* out;
+};
 
-    // ---- pass 2: per-node feasibility + accounting sums ------------------
+__device__ __forceinline__ void scan_of(const ScanArgs& a, long long k,
+                                        long long& s, long long& ok_off,
+                                        long long& P, long long& node_off,
+                                        long long& Nn) {
+    if (a.meta == nullptr) {
+        s = 0; ok_off = 0; P = a.P0; node_off = 0; Nn = a.Nn0;
+        return;
+    }
+    s = a.meta[4 * a.S + k];
+    ok_off = a.meta[4 * s];
+    P = a.meta[4 * s + 1];
+    node_off = a.meta[4 * s + 2];
+    Nn = a.meta[4 * s + 3];
+}
+
+__device__ __forceinline__ void write_row(const ScanArgs& a, long long s,
+                                          bool root_ok, long long ok_off,
+                                          long long w, long long q,
+                                          long long h, double ov) {
+    double* o = a.out + 7 * s;
+    if (!root_ok) {
+        o[0] = -1.0;
+        for (int j = 1; j < 7; ++j) o[j] = 0.0;
+        return;
+    }
+    o[0] = (double)w;
+    o[1] = (double)q;
+    o[2] = (double)h;
+    o[3] = ov;
+    o[4] = a.sa[ok_off + w];
+    o[5] = a.f[ok_off + w];
+    o[6] = a.cm[ok_off + w];
+}
+
+// one warp, one scan of at most 32 PUs
+__device__ void warp_scan(const ScanArgs& a, long long k, int lane) {
+    long long s, ok_off, P, node_off, Nn;
+    scan_of(a, k, s, ok_off, P, node_off, Nn);
+    const bool o = lane < P && a.ok[ok_off + lane];
+    double bk = o ? a.key[ok_off + lane] : CUDART_INF;
+    long long bi = o ? (long long)lane : 0x7fffffffffffffffLL;
+    for (int d = 16; d > 0; d >>= 1) {
+        const double k2 = __shfl_xor_sync(FULL_MASK, bk, d);
+        const long long i2 = __shfl_xor_sync(FULL_MASK, bi, d);
+        if (better(k2, i2, bk, bi)) { bk = k2; bi = i2; }
+    }
+    const unsigned okbits = __ballot_sync(FULL_MASK, o);
+    const long long* lo = a.pu_lo + node_off;
+    const long long* hi = a.pu_hi + node_off;
     long long q = 0, h = 0;
     double ov = 0.0;
-    for (long long n = t; n < Nn; n += T) {
-        if (cs[pu_hi[n]] > cs[pu_lo[n]]) {
-            const long long lc = leafcnt[n];
+    for (long long n = lane; n < Nn; n += 32) {
+        if (okbits & below(hi[n]) & ~below(lo[n])) {
+            const long long lc = a.leafcnt[node_off + n];
             q += lc;
-            h += nchild[n];
-            const double term = __dadd_rn(
-                hopsum[n],
-                __dmul_rn(__dmul_rn(lqc, (double)lc),
-                          __dadd_rn(depth[n], 1.0)));
-            ov = __dadd_rn(ov, term);
+            h += a.nchild[node_off + n];
+            ov = __dadd_rn(ov, node_term(a.hopsum[node_off + n], a.lqc, lc,
+                                         a.depth[node_off + n]));
         }
     }
-    sK[t] = ov;
-    sI[t] = q;
-    sQ[t] = h;
-    for (int s = T / 2; s > 0; s >>= 1) {
-        __syncthreads();
-        if (t < s) {
-            sK[t] = __dadd_rn(sK[t], sK[t + s]);
-            sI[t] += sI[t + s];
-            sQ[t] += sQ[t + s];
-        }
+    for (int d = 16; d > 0; d >>= 1) {
+        ov = __dadd_rn(ov, __shfl_xor_sync(FULL_MASK, ov, d));
+        q += __shfl_xor_sync(FULL_MASK, q, d);
+        h += __shfl_xor_sync(FULL_MASK, h, d);
     }
-    __syncthreads();
-    if (t == 0) {
-        if (!root_ok) {
-            out[0] = -1.0; out[1] = 0.0; out[2] = 0.0; out[3] = 0.0;
-        } else {
-            out[0] = (double)winner;
-            out[1] = (double)sI[0];
-            out[2] = (double)sQ[0];
-            out[3] = sK[0];
-        }
+    if (lane == 0) {
+        const bool root_ok = Nn > 0 && (okbits & below(hi[0]) & ~below(lo[0]));
+        write_row(a, s, root_ok, ok_off, bi, q, h, ov);
     }
 }
 
-extern "C" int heye_scan_reduce(const void* ok, const void* key,
-                                const void* pu_lo, const void* pu_hi,
-                                const void* leafcnt, const void* nchild,
-                                const void* hopsum, const void* depth,
-                                void* cs, void* out, long long P,
-                                long long Nn, double lqc, void* stream) {
-    scan_reduce_kernel<<<1, SCAN_THREADS, 0, (cudaStream_t)stream>>>(
-        (const unsigned char*)ok, (const double*)key,
-        (const long long*)pu_lo, (const long long*)pu_hi,
-        (const long long*)leafcnt, (const long long*)nchild,
-        (const double*)hopsum, (const double*)depth, (int*)cs, (double*)out,
-        P, Nn, lqc);
+// one block, one scan of up to SR_MAX_P PUs
+__device__ void block_scan(const ScanArgs& a, long long k) {
+    __shared__ unsigned sW[SR_MAX_WORDS + 1];   // ok bits, 32 PUs a word
+    __shared__ int sC[SR_MAX_WORDS + 1];        // set bits before word w
+    __shared__ int sT[SR_WARPS];
+    __shared__ double sK[SR_WARPS];
+    __shared__ long long sI[SR_WARPS];
+    __shared__ long long sQ[SR_WARPS];
+    __shared__ long long sH[SR_WARPS];
+    __shared__ double sO[SR_WARPS];
+    __shared__ unsigned char sRoot;
+    const int t = threadIdx.x;
+    const int lane = t & 31;
+    const int wid = t >> 5;
+    long long s, ok_off, P, node_off, Nn;
+    scan_of(a, k, s, ok_off, P, node_off, Nn);
+    const unsigned char* ok = a.ok + ok_off;
+    const int nW = (int)((P + 31) / 32);
+
+    // 1. one ballot per 32 PUs (coalesced byte loads) and the (key,
+    //    index) argmin over the feasible ones
+    double bk = CUDART_INF;
+    long long bi = 0x7fffffffffffffffLL;
+    for (int w = wid; w < nW; w += SR_WARPS) {
+        const long long i = 32LL * w + lane;
+        const bool o = i < P && ok[i];
+        const unsigned word = __ballot_sync(FULL_MASK, o);
+        if (o) {
+            const double kv = a.key[ok_off + i];
+            if (better(kv, i, bk, bi)) { bk = kv; bi = i; }
+        }
+        if (lane == 0) sW[w] = word;
+    }
+    if (t == 0) sW[nW] = 0u;
+    for (int d = 16; d > 0; d >>= 1) {
+        const double k2 = __shfl_xor_sync(FULL_MASK, bk, d);
+        const long long i2 = __shfl_xor_sync(FULL_MASK, bi, d);
+        if (better(k2, i2, bk, bi)) { bk = k2; bi = i2; }
+    }
+    __syncthreads();
+
+    // 2. exclusive prefix of the words' popcounts: a contiguous chunk of
+    //    words per thread, the chunk totals scanned across the block
+    const int chunk = (nW + SR_THREADS - 1) / SR_THREADS;
+    const int w0 = t * chunk < nW ? t * chunk : nW;
+    const int w1 = w0 + chunk < nW ? w0 + chunk : nW;
+    int tot = 0;
+    for (int w = w0; w < w1; ++w) tot += __popc(sW[w]);
+    int incl = tot;
+    for (int d = 1; d < 32; d <<= 1) {
+        const int v = __shfl_up_sync(FULL_MASK, incl, d);
+        if (lane >= d) incl += v;
+    }
+    if (lane == 31) sT[wid] = incl;
+    __syncthreads();
+    if (t == 0) {
+        int run = 0;
+        for (int j = 0; j < SR_WARPS; ++j) {
+            const int v = sT[j];
+            sT[j] = run;
+            run += v;
+        }
+        sC[nW] = run;                            // every set bit
+    }
+    __syncthreads();
+    int run = sT[wid] + incl - tot;
+    for (int w = w0; w < w1; ++w) {
+        sC[w] = run;
+        run += __popc(sW[w]);
+    }
+    __syncthreads();
+
+    // 3. one thread per plan node: feasible when [lo, hi) holds a set bit,
+    //    i.e. cs(hi) > cs(lo) with cs(x) = ok bits before position x
+    long long q = 0, h = 0;
+    double ov = 0.0;
+    for (long long n = t; n < Nn; n += SR_THREADS) {
+        long long lo = a.pu_lo[node_off + n];
+        long long hi = a.pu_hi[node_off + n];
+        lo = lo < P ? lo : P;
+        hi = hi < P ? hi : P;
+        const int cl = sC[lo >> 5] + __popc(sW[lo >> 5] & below(lo & 31));
+        const int ch = sC[hi >> 5] + __popc(sW[hi >> 5] & below(hi & 31));
+        const bool feas = ch > cl;
+        if (n == 0) sRoot = feas ? 1 : 0;
+        if (feas) {
+            const long long lc = a.leafcnt[node_off + n];
+            q += lc;
+            h += a.nchild[node_off + n];
+            ov = __dadd_rn(ov, node_term(a.hopsum[node_off + n], a.lqc, lc,
+                                         a.depth[node_off + n]));
+        }
+    }
+    for (int d = 16; d > 0; d >>= 1) {
+        ov = __dadd_rn(ov, __shfl_xor_sync(FULL_MASK, ov, d));
+        q += __shfl_xor_sync(FULL_MASK, q, d);
+        h += __shfl_xor_sync(FULL_MASK, h, d);
+    }
+    if (lane == 0) {
+        sK[wid] = bk;
+        sI[wid] = bi;
+        sQ[wid] = q;
+        sH[wid] = h;
+        sO[wid] = ov;
+    }
+    __syncthreads();
+    if (t == 0) {
+        double kk = sK[0], oo = sO[0];
+        long long ii = sI[0], qq = sQ[0], hh = sH[0];
+        for (int j = 1; j < SR_WARPS; ++j) {
+            if (better(sK[j], sI[j], kk, ii)) { kk = sK[j]; ii = sI[j]; }
+            qq += sQ[j];
+            hh += sH[j];
+            oo = __dadd_rn(oo, sO[j]);
+        }
+        write_row(a, s, Nn > 0 && sRoot, ok_off, ii, qq, hh, oo);
+    }
+}
+
+__global__ void __launch_bounds__(SR_THREADS)
+scan_reduce_batch_kernel(ScanArgs a, long long n_warp_blocks) {
+    if ((long long)blockIdx.x < n_warp_blocks) {
+        const long long k = (long long)blockIdx.x * SR_WARPS
+                            + (threadIdx.x >> 5);
+        if (k < a.n_small) warp_scan(a, k, threadIdx.x & 31);
+    } else {
+        block_scan(a, a.n_small + (long long)blockIdx.x - n_warp_blocks);
+    }
+}
+
+extern "C" int heye_scan_reduce_batch(
+        const void* ok, const void* key, const void* sa, const void* f,
+        const void* cm, const void* pu_lo, const void* pu_hi,
+        const void* leafcnt, const void* nchild, const void* hopsum,
+        const void* depth, const void* meta, long long S, long long n_small,
+        long long P0, long long Nn0, double lqc, void* out, void* stream) {
+    if (S <= 0) return 0;
+    ScanArgs a;
+    a.ok = (const unsigned char*)ok;
+    a.key = (const double*)key;
+    a.sa = (const double*)sa;
+    a.f = (const double*)f;
+    a.cm = (const double*)cm;
+    a.pu_lo = (const long long*)pu_lo;
+    a.pu_hi = (const long long*)pu_hi;
+    a.leafcnt = (const long long*)leafcnt;
+    a.nchild = (const long long*)nchild;
+    a.hopsum = (const double*)hopsum;
+    a.depth = (const double*)depth;
+    a.meta = (const long long*)meta;
+    a.S = S;
+    a.n_small = n_small;
+    a.P0 = P0;
+    a.Nn0 = Nn0;
+    a.lqc = lqc;
+    a.out = (double*)out;
+    const long long n_warp_blocks = (n_small + SR_WARPS - 1) / SR_WARPS;
+    const long long blocks = n_warp_blocks + (S - n_small);
+    scan_reduce_batch_kernel<<<(unsigned)blocks, SR_THREADS, 0,
+                               (cudaStream_t)stream>>>(a, n_warp_blocks);
     return (int)cudaGetLastError();
 }

@@ -1,11 +1,12 @@
-"""The port's four kernels: each plain PyTorch version (what a wrapper
-runs for a CPU tensor) against the reference's numpy oracle on the same
-seeded inputs, and against the reference's Pallas kernel in interpret mode
-at float32 tolerance.  Tolerances: decisions (winner / queries / hops,
-inf and zero patterns) exact; floats 1e-12 relative against the float64
-oracles; 2e-5 against the float32 Pallas kernels.  The CUDA kernels
-themselves are held against these plain versions on the card by
-``chip_smoke.py``."""
+"""The port's scheduler kernels: each plain PyTorch version (what a
+wrapper runs for a CPU tensor) against the reference's numpy oracle on the
+same seeded inputs, and against the reference's Pallas kernel in
+interpret mode at float32 tolerance; the fused settle forms against the
+unfused op sequence they replace, bit for bit.  Tolerances: decisions
+(winner / queries / hops, gathered columns, inf and zero patterns) exact;
+floats 1e-12 relative against the float64 oracles; 2e-5 against the
+float32 Pallas kernels.  The CUDA kernels themselves are held against
+these plain versions on the card by ``chip_smoke.py``."""
 import numpy as np
 import pytest
 import torch
@@ -15,6 +16,7 @@ import jax  # noqa: F401  (the reference's kernels need it; CPU backend)
 from repro.kernels import ref
 from repro.kernels import slowdown_kernel as ref_sk
 from repro.kernels import timeline_kernel as ref_tk
+from repro.kernels import walk_kernel as ref_wk
 from repro.kernels.walk_kernel import scan_reduce_ref
 from repro_torch.kernels import slowdown_kernel as sk
 from repro_torch.kernels import timeline_kernel as tk
@@ -91,8 +93,10 @@ def test_rate_advance_matches_oracle(n):
     w, e = tk.rate_advance(t(W), t(rate), t(t_last), 2.5)
     np.testing.assert_array_equal(w.numpy(), w_ref)
     np.testing.assert_array_equal(e.numpy(), e_ref)
-    s = tk.settle(t(W), t(rate), t(t_last), 2.5)
-    np.testing.assert_array_equal(s.numpy(), w_ref)
+    # the fused settle of the compute sites: the same W' in place
+    cols = [t(W), t(rate), t(t_last), t(np.zeros(n))]
+    tk.settle_complete(*cols, torch.arange(n), 2.5, 0.0)
+    np.testing.assert_array_equal(cols[0].numpy(), w_ref)
     if n > 4:
         assert w[2].item() == 0.0 and np.isinf(e[0].item())
 
@@ -150,12 +154,11 @@ def _plan(n_dev, per_dev, rng):
     return lo, hi, leaf, nch, hop, dep
 
 
-@pytest.mark.parametrize("mode", ["plain", "ties", "allinf", "infeasible",
-                                  "single_ok"])
-@pytest.mark.parametrize("shape", [(1, 6), (8, 6), (40, 6)])
-def test_scan_reduce_matches_oracle(shape, mode):
+def _scan(shape, mode, seed):
+    """One scan's columns and plan: ``ok``/``key`` in the given mode, the
+    prediction columns ``sa``/``f``/``cm`` the kernel gathers."""
     n_dev, per_dev = shape
-    rng = np.random.default_rng(n_dev * 10 + len(mode))
+    rng = np.random.default_rng(seed)
     P = n_dev * per_dev
     ok = rng.random(P) < 0.4
     key = rng.uniform(0.01, 0.2, P)
@@ -163,33 +166,232 @@ def test_scan_reduce_matches_oracle(shape, mode):
         key = np.round(key, 1)
     elif mode == "allinf":
         key[:] = np.inf
-    elif mode == "infeasible":
-        ok[:] = False
-    elif mode == "single_ok":
+    elif mode in ("infeasible", "single_ok"):
         ok[:] = False
     if mode != "infeasible":
         ok[rng.integers(0, P)] = True
-    lo, hi, leaf, nch, hop, dep = _plan(n_dev, per_dev, rng)
-    want = scan_reduce_ref(ok, key, lo, hi, leaf, nch, hop, dep, 5e-6)
-    got = wk.scan_reduce(t(ok), t(key), t(lo), t(hi), t(leaf), t(nch),
-                         t(hop, torch.float64), t(dep, torch.float64),
+    cols = (rng.uniform(0.01, 0.1, P), rng.uniform(1.0, 2.0, P),
+            rng.uniform(0.0, 0.01, P))
+    return ok, key, cols, _plan(n_dev, per_dev, rng)
+
+
+def _assert_row(got, want, ok, cols, rel):
+    """A kernel row against ``scan_reduce_ref``'s 4-tuple: decisions and
+    the gathered prediction columns exact, ``overhead`` within ``rel``."""
+    assert [int(v) for v in got[:3]] == [int(v) for v in want[:3]]
+    assert got[3] == pytest.approx(float(want[3]), rel=rel, abs=0)
+    w = int(want[0])
+    if w < 0:
+        assert list(got) == [-1.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0]
+    else:
+        assert ok[w]
+        assert list(got[4:]) == [float(c[w]) for c in cols]
+
+
+@pytest.mark.parametrize("mode", ["plain", "ties", "allinf", "infeasible",
+                                  "single_ok"])
+@pytest.mark.parametrize("shape", [(1, 6), (8, 6), (40, 6)])
+def test_scan_reduce_matches_oracle(shape, mode):
+    ok, key, cols, plan = _scan(shape, mode, shape[0] * 10 + len(mode))
+    want = scan_reduce_ref(ok, key, *plan, 5e-6)
+    got = wk.scan_reduce(t(ok), t(key), *(t(c) for c in cols),
+                         wk.ScanPlanArrays.from_lists(*plan, "cpu"),
                          5e-6).tolist()
-    assert [int(got[0]), int(got[1]), int(got[2])] == list(want[:3])
-    assert got[3] == pytest.approx(want[3], rel=1e-9, abs=0)
-    if mode == "infeasible":
-        assert got == [-1.0, 0.0, 0.0, 0.0]
-    elif mode == "allinf":
-        assert ok[int(got[0])]
+    _assert_row(got, want, ok, cols, 1e-9)
+    if mode == "allinf":
+        assert ok[int(got[0])] and not ok[:int(got[0])].any()
+
+
+# ragged stacks mix warp-sized (<= 32 PUs) and block-sized scans; "shared"
+# stacks reuse one plan's nodes for every scan, as the walk's pool does
+STACKS = {"ragged": [(1, 6), (8, 6), (1, 1), (40, 6), (1, 6), (3, 2)],
+          "same": [(1, 6)] * 5,
+          "shared": [(8, 6)] * 4}
+MODES = ["plain", "ties", "allinf", "infeasible"]
+
+
+def _stack(name, mode):
+    """Concatenated columns, the plan pool and per-scan offsets."""
+    shapes = STACKS[name]
+    scans = [_scan(sh, MODES[i % 4] if mode == "mixed" else mode, 100 + i)
+             for i, sh in enumerate(shapes)]
+    if name == "shared":
+        scans = [sc[:3] + (scans[0][3],) for sc in scans]
+    plans = [scans[0][3]] if name == "shared" else [sc[3] for sc in scans]
+    pool = [np.concatenate(col) for col in zip(*plans)]
+    offs, ok_off, node_off = [], 0, 0
+    for ok, _, _, plan in scans:
+        offs.append((ok_off, len(ok), node_off, len(plan[0])))
+        ok_off += len(ok)
+        if name != "shared":
+            node_off += len(plan[0])
+    cat = [np.concatenate(c) for c in zip(*[(sc[0], sc[1]) + sc[2]
+                                            for sc in scans])]
+    return scans, cat, pool, offs
+
+
+@pytest.mark.parametrize("mode", MODES + ["mixed"])
+@pytest.mark.parametrize("stack", sorted(STACKS))
+def test_scan_reduce_batch_plain_matches_reference(stack, mode, monkeypatch):
+    """B4b's plain version (the CPU wrapper) row by row against
+    ``scan_reduce_ref`` and against the single-scan path; same-shape stacks
+    also against the reference's ``scan_reduce_batch`` on its numpy path
+    (its jitted path runs int32/float32 and is no oracle)."""
+    monkeypatch.delenv("REPRO_WALK_KERNEL", raising=False)
+    assert not ref_wk._use_jax()
+    scans, cat, pool, offs = _stack(stack, mode)
+    got = wk.scan_reduce_batch(
+        *(t(c) for c in cat), wk.ScanPlanArrays.from_lists(*pool, "cpu"),
+        offs, 5e-6).tolist()
+    assert len(got) == len(scans)
+    for row, (ok, key, cols, plan) in zip(got, scans):
+        _assert_row(row, scan_reduce_ref(ok, key, *plan, 5e-6), ok, cols,
+                    1e-12)
+        one = wk.scan_reduce(t(ok), t(key), *(t(c) for c in cols),
+                             wk.ScanPlanArrays.from_lists(*plan, "cpu"),
+                             5e-6).tolist()
+        assert row[:3] + row[4:] == one[:3] + one[4:]
+        assert row[3] == pytest.approx(one[3], rel=1e-12, abs=0)
+    if stack != "ragged":
+        stacked = [np.stack(c) for c in zip(*[(sc[0], sc[1]) + sc[3]
+                                              for sc in scans])]
+        wv, qv, hv, ov = ref_wk.scan_reduce_batch(*stacked, 5e-6)
+        assert [int(r[0]) for r in got] == wv.tolist()
+        assert [int(r[1]) for r in got] == qv.tolist()
+        assert [int(r[2]) for r in got] == hv.tolist()
+        np.testing.assert_allclose([r[3] for r in got], ov, rtol=1e-12,
+                                   atol=0)
+
+
+def test_scan_reduce_batch_of_nothing_and_bad_offsets():
+    ok, key, cols, plan = _scan((8, 6), "plain", 3)
+    arr = wk.ScanPlanArrays.from_lists(*plan, "cpu")
+    args = (t(ok), t(key), *(t(c) for c in cols), arr)
+    assert wk.scan_reduce_batch(*args, [], 5e-6).shape == (0, 7)
+    n, nn = len(ok), len(plan[0])
+    # a scan with no PU (after the last column) gives the infeasible row
+    pool = wk.ScanPlanArrays.from_lists(
+        *(list(c) + [z] for c, z in zip(plan, (0, 0, 0, 0, 0.0, 0.0))),
+        "cpu")
+    rows = wk.scan_reduce_batch(*args[:5], pool,
+                                [(0, n, 0, nn), (n, 0, nn, 1)], 5e-6).tolist()
+    assert rows[0] == wk.scan_reduce(*args, 5e-6).tolist()
+    assert rows[1] == [-1.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0]
+    for bad in [(1, n, 0, nn), (0, n, 0, 0), (0, n, 1, nn), (-1, 2, 0, 1),
+                (0, wk.MAX_P + 1, 0, nn)]:
+        with pytest.raises(ValueError):
+            wk.scan_reduce_batch(*args, [bad], 5e-6)
+    with pytest.raises(ValueError):           # the plan reaches past the scan
+        wk.scan_reduce(*(a[:n - 1] for a in args[:5]), arr, 5e-6)
+    big = wk.MAX_P + 1                        # more PUs than a block holds
+    with pytest.raises(ValueError):
+        wk.scan_reduce(torch.zeros(big, dtype=torch.bool),
+                       *(torch.zeros(big, dtype=torch.float64)
+                         for _ in range(4)), arr, 5e-6)
+    with pytest.raises(ValueError):
+        wk.ScanPlanArrays.from_lists([0, 3], [6, 2], [0, 1], [1, 0],
+                                     [0.0, 0.0], [0.0, 1.0], "cpu")
+
+
+def test_scan_reduce_batch_refuses_nodes_past_their_scan():
+    """Each scan's plan nodes must end within its own PUs: a node reaching
+    into the next scan's PUs is refused on the host, before any launch."""
+    ok, key, cols, plan = _scan((8, 6), "plain", 4)
+    n, nn = len(ok), len(plan[0])
+    args = (t(np.concatenate([ok, ok])), t(np.concatenate([key, key])),
+            *(t(np.concatenate([c, c])) for c in cols))
+    arr = wk.ScanPlanArrays.from_lists(*plan, "cpu")
+    assert arr.hi.tolist() == list(plan[1]) and arr.span == n
+    rows = wk.scan_reduce_batch(*args, arr, [(0, n, 0, nn), (n, n, 0, nn)],
+                                5e-6)
+    assert rows[0].tolist() == rows[1].tolist()
+    for scans in ([(0, n - 1, 0, nn)], [(0, n, 0, nn), (n, n - 1, 0, nn)],
+                  [(n, 1, 0, nn)]):
+        with pytest.raises(ValueError, match="reach past"):
+            wk.scan_reduce_batch(*args, arr, scans, 5e-6)
+    # the last device node alone ends at the scan's end
+    rows = wk.scan_reduce_batch(*args, arr, [(0, n, nn - 1, 1)], 5e-6)
+    assert rows.shape == (1, 7)
+
+
+# ---------------------------------------------------------------------------
+# B2's fused settle forms against the unfused op sequence they replace
+# ---------------------------------------------------------------------------
+def _job_columns(n_cols, rng):
+    W = rng.uniform(0.0, 5.0, n_cols)
+    W[:: 3] = 0.0                               # settled already
+    rate = rng.uniform(0.1, 2.0, n_cols)
+    t_last = rng.uniform(0.0, 1.0, n_cols)
+    eta = rng.uniform(0.0, 9.0, n_cols)
+    cstamp = rng.integers(0, 100, n_cols)
+    return [t(W), t(rate), t(t_last), t(eta), t(cstamp)]
+
+
+def _settled(W, rate, t_last, now):
+    """The reference's settle (its float64 oracle), as a tensor."""
+    return t(ref.rate_advance_ref(W.numpy(), rate.numpy(), t_last.numpy(),
+                                  now)[0])
+
+
+@pytest.mark.parametrize("n", [1, 4, 384])
+def test_settle_reprice_plain_is_the_unfused_sequence(n):
+    rng = np.random.default_rng(n)
+    fused = _job_columns(2 * n + 5, rng)
+    unfused = [c.clone() for c in fused]
+    members = t(rng.permutation(2 * n + 5)[:n])
+    assert len(set(members.tolist())) == n       # distinct slots only
+    factors = t(rng.uniform(1.0, 3.0, n))
+    factors[0] = 1.0
+    tk.settle_reprice(*fused, members, factors, 1.5, 77)
+    # the flush's sequence before it was fused
+    W, rate, t_last, eta, cstamp = unfused
+    cstamp[members] = torch.arange(77, 77 + n)
+    W2 = _settled(W[members], rate[members], t_last[members], 1.5)
+    r = 1.0 / factors
+    W[members] = W2
+    t_last[members] = 1.5
+    rate[members] = r
+    eta[members] = 1.5 + W2 / r
+    for a, b in zip(fused, unfused):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("n", [1, 4, 384])
+def test_settle_complete_plain_is_the_unfused_sequence(n):
+    rng = np.random.default_rng(n + 1)
+    fused = _job_columns(2 * n + 5, rng)[:4]
+    unfused = [c.clone() for c in fused]
+    done = t(rng.permutation(2 * n + 5)[:n])
+    assert len(set(done.tolist())) == n          # distinct slots only
+    tol = 1e-15
+    pairs = tk.settle_complete(*fused, done, 1.5, tol)
+    # the completion's sequence before it was fused
+    W, rate, t_last, eta = unfused
+    W2 = _settled(W[done], rate[done], t_last[done], 1.5)
+    W[done] = W2
+    t_last[done] = 1.5
+    fin = W2 <= tol
+    resid = done[~fin]
+    eta[resid] = 1.5 + W[resid] / rate[resid]
+    eta[done[fin]] = float("inf")
+    assert pairs.dtype == torch.int64
+    assert pairs.tolist() == [done.tolist(), fin.to(torch.int64).tolist()]
+    assert 0 < int(fin.sum()) or n < 4
+    for a, b in zip(fused, unfused):
+        assert torch.equal(a, b)
 
 
 # ---------------------------------------------------------------------------
 # wrappers
 # ---------------------------------------------------------------------------
 def test_wrappers_take_the_plain_version_on_cpu_and_count_no_launch():
-    before = (sk.launches, dict(tk.launches), wk.launches)
+    before = (sk.launches, dict(tk.launches), dict(wk.launches))
     test_slowdown_factors_inactive_rows_are_one()
     test_segment_min_takes_offset_starts()
-    assert (sk.launches, dict(tk.launches), wk.launches) == before
+    test_settle_reprice_plain_is_the_unfused_sequence(4)
+    test_settle_complete_plain_is_the_unfused_sequence(4)
+    test_scan_reduce_matches_oracle((8, 6), "plain")
+    assert (sk.launches, dict(tk.launches), dict(wk.launches)) == before
 
 
 @pytest.mark.parametrize("case", ["dtype", "contiguous", "shape", "ndim"])
@@ -212,3 +414,29 @@ def test_wrappers_raise_on_what_they_do_not_take(case):
     else:
         with pytest.raises(ValueError):
             sk.slowdown_factors(v, beta, v, v, 0.1)
+
+
+@pytest.mark.parametrize("case", ["dtype", "length", "index"])
+def test_fused_settle_wrappers_raise_on_what_they_do_not_take(case):
+    W, rate, t_last, eta, cstamp = _job_columns(8, np.random.default_rng(0))
+    idx = torch.arange(3)
+    fac = torch.ones(3, dtype=torch.float64)
+    if case == "dtype":
+        with pytest.raises(TypeError):
+            tk.settle_reprice(W, rate, t_last, eta, cstamp.double(), idx,
+                              fac, 0.0, 0)
+        with pytest.raises(TypeError):
+            tk.settle_complete(W.float(), rate, t_last, eta, idx, 0.0, 0.0)
+    elif case == "length":
+        with pytest.raises(ValueError):
+            tk.settle_reprice(W, rate, t_last, eta, cstamp, idx, fac[:2],
+                              0.0, 0)
+        with pytest.raises(ValueError):
+            tk.settle_complete(W, rate[:7].clone(), t_last, eta, idx, 0.0,
+                               0.0)
+    else:
+        with pytest.raises(TypeError):
+            tk.settle_complete(W, rate, t_last, eta, idx.int(), 0.0, 0.0)
+        with pytest.raises(ValueError):
+            tk.settle_reprice(W, rate, t_last, eta, cstamp,
+                              torch.arange(6)[::2], fac, 0.0, 0)

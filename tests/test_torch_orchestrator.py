@@ -129,3 +129,68 @@ def test_later_slices_are_refused_not_rerouted():
         g, T.truth_params(), rng=np.random.default_rng(0)))
     with pytest.raises(NotImplementedError):
         T.build_orchestrators(g, noisy).map_batch([t], 0.0, route=True)
+
+
+@pytest.mark.parametrize("mult", [1, 2])
+def test_entry_wave_is_one_batched_reduce_matching_reference(mult,
+                                                            monkeypatch):
+    """Each phase-1 wave's entry scans go to ONE ``scan_reduce_batch``
+    call over every deduped walk (the reference's ``_entry_reduce_batch``);
+    the batch gives the reference's placements, ``queries`` and ``hops``
+    exactly and its overheads within 1e-9."""
+    import repro_torch.core.orchestrator as Torc
+    calls = []
+    real = Torc.scan_reduce_batch
+
+    def counted(*args):
+        calls.append(len(args[6]))
+        return real(*args)
+
+    monkeypatch.setattr(Torc, "scan_reduce_batch", counted)
+    rtb, rroot, ttb, troot = roots(mult)
+    rcfg = workload(Rwork, rtb, "mining", mult)
+    tcfg = workload(Twork, ttb, "mining", mult)
+    times = sorted({t.release_time for t in rcfg})
+    for now in times:
+        rw = [t for t in rcfg if t.release_time == now and not rcfg.preds(t)]
+        tw = [t for t in tcfg if t.release_time == now and not tcfg.preds(t)]
+        if not tw:
+            continue
+        n_walks = len(troot._dedup_walks(tw, True)[1])
+        before = len(calls)
+        assert_same(rroot.map_batch(rw, now, route=True),
+                    troot.map_batch(tw, now, route=True))
+        assert calls[before:] == [n_walks]
+    assert calls and max(calls) > 1
+
+
+def test_entry_wave_concatenates_each_walks_plan_in_scan_order(
+        monkeypatch):
+    """The batched entry reduce concatenates the wave's plans on each
+    call: every scan's node rows are its own plan's, at its offsets."""
+    import repro_torch.core.orchestrator as Torc
+    seen = []
+    real = Torc.scan_reduce_batch
+
+    def spy(ok, key, sa, f, cm, plan, scans, lqc):
+        seen.append((plan, scans))
+        return real(ok, key, sa, f, cm, plan, scans, lqc)
+
+    monkeypatch.setattr(Torc, "scan_reduce_batch", spy)
+    _, _, ttb, troot = roots(2)
+    comp = ttb.graph.compiled()
+    tcfg = workload(Twork, ttb, "mining", 2)
+    now = min(t.release_time for t in tcfg)
+    wave = [t for t in tcfg if t.release_time == now and not tcfg.preds(t)]
+    _, order = troot._dedup_walks(wave, True)
+    troot.map_batch(wave, now, route=True)
+    plan, scans = seen[0]
+    assert len(scans) == len(order)
+    cols = [c.tolist() for c in plan.tensors()]
+    pus = 0
+    for w, (ok_off, P, node_off, Nn) in zip(order, scans):
+        own = w.orc._scan_plan(comp)
+        assert (ok_off, P, Nn) == (pus, len(own.pus), own.arrays.n)
+        for col, row in zip(cols, own.rows):
+            assert col[node_off:node_off + Nn] == list(row)
+        pus += P

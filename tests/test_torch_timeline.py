@@ -114,3 +114,32 @@ def test_interventions_wait_for_a_later_slice(case):
             tcfg, tmap, interventions=[(0.01, lambda: None)])
     with pytest.raises(ValueError):
         T.heye_traverser(ttb.graph).traverse(tcfg, tmap, engine="nope")
+
+
+def test_fused_settle_sites_take_distinct_slots_and_match_reference(
+        case, monkeypatch):
+    """The DES's two compute settle sites go through the fused in-place
+    forms; every call hands them distinct slots (on the card one thread
+    writes each slot), and the finish times are the reference's."""
+    from repro_torch.kernels import timeline_kernel as tk
+    seen = {"settle_reprice": 0, "settle_complete": 0}
+
+    def distinct(name, pos):
+        real = getattr(tk, name)
+
+        def wrapped(*args):
+            idx = args[pos].tolist()
+            assert len(set(idx)) == len(idx), f"{name}: repeated slot"
+            seen[name] += 1
+            return real(*args)
+        monkeypatch.setattr(tk, name, wrapped)
+
+    distinct("settle_reprice", 5)
+    distinct("settle_complete", 4)
+    rtb, rcfg, rmap, ttb, tcfg, tmap = case
+    rt, tt = travs(rtb, ttb, True)
+    want = rt.traverse(rcfg, rmap)
+    got = tt.traverse(tcfg, tmap)
+    assert diff(in_order(got.finish, tcfg), in_order(want.finish, rcfg)) \
+        <= TOL
+    assert seen["settle_reprice"] > 0 and seen["settle_complete"] > 0
