@@ -6,12 +6,14 @@
 Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``
 (one ``nvcc`` per source, all started together) and holds each against
 its plain PyTorch version on the card: the scheduler's B1 (slowdown
-factors), B2 (rate-advance and its two fused in-place settle forms,
-reprice and complete), B3 (segment-min), B4 / B4b (the scan-reduce, one
-scan or a ragged stack) and the model path's flash attention (B5:
-bfloat16 on the tensor cores, float32 on the CUDA cores) and LRU scan
-(B6).  Each kernel's row has ``ms`` (CUDA events around back-to-back
-calls of the Python wrapper: the launch path included) and ``body_ms``
+factors: the row form, the pool form of the DES repricing and the
+same-device form of the walk's constraint checks), B2 (rate-advance and
+its two fused in-place settle forms, reprice and complete), B3
+(segment-min), B4 / B4b (the scan-reduce, one scan or a ragged stack) and
+the model path's flash attention (B5: bfloat16 on the tensor cores,
+float32 on the CUDA cores) and LRU scan (B6, fed by TMA).  Each
+kernel's row has ``ms`` (CUDA events around back-to-back calls of the
+Python wrapper: the launch path included) and ``body_ms``
 (the kernel's own device time: every kernel's calls traced in one
 torch.profiler session after the last timed phase).
 Then it drives the port's two paths through their public entry points:
@@ -25,7 +27,8 @@ Then it drives the port's two paths through their public entry points:
   event loop) and at full width, mult=128 (8448 PUs, 4608 tasks), whose
   every scheduler kernel must have been launched (after ``serve_full``
   the same session runs once more under torch.profiler, for its
-  device-op count);
+  device-op count), then B1's row form on its own path, the traverser's
+  what-if query;
 * ``model_full``: recurrentgemma-9b at full width (38 layers, d=4096,
   ~8.5 B float32 parameters from a seeded generator): prefill(1, 4096) in
   float32 through the kernels against the plain route, then prefill(2,
@@ -57,6 +60,7 @@ import torch                # noqa: E402
 
 import repro_torch.core as core                              # noqa: E402
 import repro_torch.core.orchestrator as orc_mod              # noqa: E402
+import repro_torch.core.slowdown as sd_mod                   # noqa: E402
 import repro_torch.launch.serve as serve_launch              # noqa: E402
 from repro_torch import device as rt_device                  # noqa: E402
 from repro_torch.configs import get_config                   # noqa: E402
@@ -234,9 +238,16 @@ def max_err(a: torch.Tensor, b: torch.Tensor) -> tuple[float, float]:
 # ---------------------------------------------------------------------------
 # kernels against their plain versions
 # ---------------------------------------------------------------------------
+def _bit_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Equal to the bit, a NaN matching a NaN."""
+    return a.shape == b.shape and bool(
+        ((a == b) | (torch.isnan(a) & torch.isnan(b))).all())
+
+
 def check_slowdown(dev, rng) -> dict:
+    """B1's row form (the traverser's dense check) against its plain
+    version, bit for bit, at N = 3, 16, 4223 rows."""
     kappa = 0.12
-    worst = (0.0, 0.0)
     for n in (3, 16, 4223):
         x = rng.uniform(0.0, 3.0, (n, 6))
         x[rng.random((n, 6)) < 0.5] = 0.0
@@ -249,8 +260,9 @@ def check_slowdown(dev, rng) -> dict:
         got = slowdown_kernel.slowdown_factors(*args, kappa)
         ref = slowdown_kernel.slowdown_factors_plain(*args, kappa)
         torch.cuda.synchronize()
-        e = max_err(got, ref)
-        worst = (max(worst[0], e[0]), max(worst[1], e[1]))
+        if not _bit_equal(got, ref):
+            raise AssertionError(f"slowdown_factors N={n} is not bit-equal "
+                                 "to its plain version")
     ms = time_ms(lambda: slowdown_kernel.slowdown_factors(*args, kappa))
     body = body_ms(lambda: slowdown_kernel.slowdown_factors(*args, kappa),
                    "slowdown_factors_kernel")
@@ -261,9 +273,200 @@ def check_slowdown(dev, rng) -> dict:
     return dict(name="slowdown_factors", route="cuda",
                 source="src/repro_torch/kernels/csrc/slowdown_factors.cu",
                 replaces="src/repro/kernels/slowdown_kernel.py:47",
-                shape=f"N={n} R={r}", max_abs_err=worst[0],
-                max_rel_err=worst[1], ms=ms, body_ms=body, plain_ms=plain,
+                shape=f"N={n} R={r}", max_abs_err=0.0, max_rel_err=0.0,
+                tolerance="bit-equal", ms=ms, body_ms=body, plain_ms=plain,
                 **bound(nbytes, flops), library_ms=None)
+
+
+# the snapshot's size at mult=128: 8448 PUs, 6 resource classes
+SD_PUS, SD_R = 8448, 6
+SD_KAPPA = 0.12
+
+
+def _sd_tables(dev, rng) -> tuple:
+    """Snapshot tables at mult=128's size: ``ncr_rclass`` (int16, classes
+    -1..R-1 drawn at random), ``mem_cap`` (inf, some PUs capped),
+    ``mt_vec``, ``beta`` (one class inactive)."""
+    g = torch.Generator(device=dev).manual_seed(int(rng.integers(1 << 30)))
+    ncr = torch.randint(-1, SD_R, (SD_PUS, SD_PUS), generator=g, device=dev,
+                        dtype=torch.int16)
+    cap = np.full(SD_PUS, np.inf)
+    cap[rng.random(SD_PUS) < 0.2] = 0.3
+    mt_vec = rng.uniform(0.2, 0.5, SD_PUS)
+    beta = np.array([0.0884, 0.1330, 0.1107, 0.1786, 0.4196, 0.0])
+    return (ncr, *(torch.as_tensor(a, device=dev)
+                   for a in (cap, mt_vec, beta)))
+
+
+def _pool_case(dev, rng, n, tables, nan=False):
+    """A pool of ``n`` rows of 8192-row job columns, its PUs drawn from
+    n // 3 + 1 of them (ties), uids distinct and, for the uid-masked
+    mode, with repeats.  Returns (args, args of the uid-masked mode)."""
+    rows = 8192
+    pus = rng.choice(SD_PUS, n // 3 + 1, replace=False)
+    cols = [rng.choice(pus, rows), rng.uniform(0.2, 1.5, rows),
+            rng.uniform(0.05, 1.5, rows), np.arange(rows)]
+    members = rng.permutation(rows)[:n]
+    if nan:
+        cols[1][members[n // 2]] = np.nan
+    cols = [torch.as_tensor(c, device=dev) for c in cols]
+    m = torch.as_tensor(members, device=dev)
+    ncr, cap, mt_vec, beta = tables
+    tail = (cap, ncr, mt_vec, beta, SD_KAPPA)
+    dup = torch.as_tensor(rng.integers(0, n // 2 + 1, rows), device=dev)
+    return ((m, *cols, *tail, True), (m, *cols[:3], dup, *tail, False))
+
+
+def _pool_bytes(args) -> tuple[int, int]:
+    """(bytes, operations) one pool needs: 56 bytes of gathered columns and
+    tables per member, 2 per distinct ncr entry read (PU pairs that
+    differ), beta, 8 per factor written; an add per pair, ~40 operations
+    per member for its factor."""
+    P = args[1][args[0]].cpu().numpy()
+    n = len(P)
+    u = len(np.unique(P))
+    return 56 * n + 2 * (u * u - u) + 8 * SD_R + 8 * n, n * n + 40 * n
+
+
+def check_slowdown_pool(dev, rng, tables) -> dict:
+    """The pool form (the DES repricing) against its plain version, bit for
+    bit, at n = 2, 8, 384, 4608 members, in both modes (distinct members,
+    uid-masked), PU ties included, a NaN usage at n=384; timed at 8 (with
+    384 and 4608 beside)."""
+    for n in (2, 8, 384, 4608):
+        for args in _pool_case(dev, rng, n, tables, nan=n == 384):
+            got = slowdown_kernel.slowdown_pool(*args)
+            ref = slowdown_kernel.slowdown_pool_plain(*args)
+            torch.cuda.synchronize()
+            if not _bit_equal(got, ref):
+                raise AssertionError(f"slowdown_pool n={n} distinct="
+                                     f"{args[-1]} is not bit-equal to its "
+                                     "plain version")
+    shapes = {}
+    for n, plain_iters in ((8, 50), (384, 10), (4608, 2)):
+        args = _pool_case(dev, rng, n, tables)[0]
+
+        def fn(args=args):
+            return slowdown_kernel.slowdown_pool(*args)
+
+        def plain_fn(args=args):
+            return slowdown_kernel.slowdown_pool_plain(*args)
+        nbytes, ops = _pool_bytes(args)
+        shapes[n] = dict(ms=time_ms(fn), body_ms=body_ms(fn,
+                                                         "slowdown_pool_kernel"),
+                         plain_ms=time_ms(plain_fn, plain_iters, 1),
+                         **bound(nbytes, ops))
+    return dict(name="slowdown_pool", route="cuda",
+                source="src/repro_torch/kernels/csrc/slowdown_factors.cu",
+                replaces="src/repro/kernels/slowdown_kernel.py:47 (with "
+                         "src/repro/core/slowdown.py:441 _factor_batch_arrays"
+                         ", the pressures around it)",
+                shape="n=8 members, 8448-PU snapshot", max_abs_err=0.0,
+                max_rel_err=0.0, tolerance="bit-equal", **shapes[8],
+                library_ms=None, other_shapes={
+                    f"n={n}": shapes[n] for n in (384, 4608)})
+
+
+def _sd_view(dev, rng, A, per_dev=6):
+    """A device-sorted ledger view of ``A`` actives over ``max(2, A // 4)``
+    devices of ``per_dev`` PUs (device 1 empty), uids distinct, the
+    newcomer's uid among them: (Pa, Ua, Ma, uid_a, Da, astart, na) on the
+    card and the device count."""
+    nd = max(2, A // 4)
+    dev_of = np.sort(rng.choice(np.delete(np.arange(nd), 1), A))
+    Pa = dev_of * per_dev + rng.integers(0, per_dev, A)
+    na = np.bincount(dev_of, minlength=nd)
+    cols = (Pa, rng.uniform(0.2, 1.5, A), rng.uniform(0.05, 1.0, A),
+            np.arange(100, 100 + A), dev_of, np.cumsum(na) - na, na)
+    return [torch.as_tensor(c, device=dev) for c in cols], nd
+
+
+def _sd_stack(dev, rng, A, per_dev=6):
+    """A ragged stack over one view of ``A`` actives: single-device items
+    (a device with actives, the empty device 1) and several-device items
+    (three devices, the first 64 devices, every device)."""
+    view, nd = _sd_view(dev, rng, A, per_dev)
+    Da = view[4].cpu().numpy()
+    busy = int(Da[len(Da) // 2])
+    uid_new = 100 + int(rng.integers(0, A))        # a dead (equal-uid) pair
+
+    def item(devs, single):
+        Pc = np.concatenate([d * per_dev + np.arange(per_dev) for d in devs])
+        Pc, Dc = (torch.as_tensor(a, device=dev)
+                  for a in (Pc, Pc // per_dev))
+        na = view[6].cpu().numpy()
+        st = view[5].cpu().numpy()
+        summ = (int(devs[0]), single, int(st[devs[0]]), int(na[devs[0]]))
+        return slowdown_kernel.SameDeviceItem(
+            Pc, Dc, 1.0, 0.6, uid_new, *view, summ)
+    items = [item([busy], True), item([1], True),
+             item(sorted({0, 1, busy}), False),
+             item(list(range(min(nd, 64))), False),
+             item(list(range(nd)), False)]
+    return items, view
+
+
+def _sd_bytes(items, R=SD_R) -> tuple[int, int]:
+    """(bytes, operations) a stack needs: per candidate its PU, device,
+    cap, mt and factor (40); per active of a candidate device its five
+    columns (40) and the segment arrays; 2 per ncr entry read (each
+    candidate-active pair both ways, each active pair once); 24 per pair
+    row written; the 200-byte item rows.  An add per pair read, ~40
+    operations per factor."""
+    nbytes = ops = 0
+    for it in items:
+        C = it.Pc.shape[0]
+        na = it.na.cpu().numpy()
+        devs = np.unique(it.Dc.cpu().numpy())
+        K = int(na[it.Dc.cpu().numpy()].sum())
+        seg = int(na[devs].sum())
+        sq = int((na[devs] ** 2).sum())
+        nbytes += 40 * C + 40 * seg + 16 * len(devs) + 2 * (2 * K + sq) \
+            + 24 * K + 200
+        ops += K + sq + 40 * (C + K)
+    return nbytes, ops
+
+
+def check_slowdown_same_device(dev, rng, tables) -> dict:
+    """The same-device form (the walk's constraint checks) against its
+    plain version, bit for bit, on ragged stacks over views of A = 2, 8,
+    384 and 4608 actives (single- and several-device items, an empty
+    device, a candidate with no same-device active, a dead pair); timed
+    on a wave-depth stack of 16 single-device items over 8-active device
+    views, and on the several-device stack at A=4608."""
+    ncr, cap, mt_vec, beta = tables
+    tail = (mt_vec, beta, cap, ncr, SD_KAPPA)
+    for A in (2, 8, 384, 4608):
+        items, _ = _sd_stack(dev, rng, A)
+        got = slowdown_kernel.slowdown_same_device(items, *tail)
+        ref = slowdown_kernel.slowdown_same_device_plain(items, *tail)
+        torch.cuda.synchronize()
+        for i, (g, r) in enumerate(zip(got, ref)):
+            if not all(_bit_equal(a, b) for a, b in zip(g, r)):
+                raise AssertionError(f"slowdown_same_device A={A} item {i} "
+                                     "is not bit-equal to its plain version")
+    wave = [_sd_stack(dev, rng, 8)[0][0] for _ in range(16)]
+    big = _sd_stack(dev, rng, 4608)[0][2:]
+    shapes = {}
+    for label, items, plain_iters in (("wave", wave, 20), ("big", big, 2)):
+        def fn(items=items):
+            return slowdown_kernel.slowdown_same_device(items, *tail)
+
+        def plain_fn(items=items):
+            return slowdown_kernel.slowdown_same_device_plain(items, *tail)
+        shapes[label] = dict(
+            ms=time_ms(fn), body_ms=body_ms(fn, "slowdown_same_device_kernel"),
+            plain_ms=time_ms(plain_fn, plain_iters, 1),
+            **bound(*_sd_bytes(items)))
+    return dict(name="slowdown_same_device", route="cuda",
+                source="src/repro_torch/kernels/csrc/slowdown_factors.cu",
+                replaces="src/repro/kernels/slowdown_kernel.py:47 (with "
+                         "src/repro/core/slowdown.py:764 _same_device_rows, "
+                         "the pressures around it)",
+                shape="16 single-device items, 6 candidates x 8 actives",
+                max_abs_err=0.0, max_rel_err=0.0, tolerance="bit-equal",
+                **shapes["wave"], library_ms=None, other_shapes={
+                    "3 several-device items over 4608 actives": shapes["big"]})
 
 
 def _ra_inputs(dev, rng, n):
@@ -713,25 +916,46 @@ def check_flash(dev, rng) -> dict:
                 library_max_abs_err=lib_err, flops=flops)
 
 
+def _lru_inputs(dev, rng, B, S, W, offset=0):
+    """a in (0, 1) with a = 0 and a = 1 columns, b normal; ``offset`` floats
+    into a larger buffer (a base TMA cannot take)."""
+    a = rng.uniform(0.0, 1.0, (B, S, W))
+    a[..., 0] = 0.0
+    a[..., min(1, W - 1)] = 1.0
+    b = rng.standard_normal((B, S, W))
+    out = []
+    for x in (a, b):
+        buf = torch.empty(x.size + offset, dtype=torch.float32, device=dev)
+        t = buf[offset:].view(B, S, W)
+        t.copy_(torch.as_tensor(x, dtype=torch.float32))
+        out.append(t)
+    return out
+
+
+# (B, S, W, offset): ragged shapes and shapes that straddle the TMA kernel's
+# (64 steps x 32 channels) box and its six-stage ring (S = 385: seven
+# tiles); W % 4 != 0 and an offset base take the thread-per-channel kernel
+LRU_CASES = ((1, 64, 128, 0), (2, 256, 256, 0), (1, 128, 100, 0),
+             (3, 96, 64, 0), (2, 77, 33, 0), (2, 65, 36, 0), (1, 63, 32, 0),
+             (2, 5, 8, 0), (1, 385, 68, 0), (2, 130, 4, 0),
+             (1, 1000, 100, 0), (2, 200, 96, 1))
+
+
 def check_lru(dev, rng) -> dict:
-    """B6 on the card against its plain version, bit for bit: a in (0, 1)
-    with a = 0 and a = 1 columns, shapes no block divides."""
+    """B6 on the card against its plain version, bit for bit, on the
+    ragged and straddling shapes of ``LRU_CASES`` and at the path's shape
+    (the TMA kernel)."""
     worst = 0.0
-    for B, S, W in ((1, 64, 128), (2, 256, 256), (1, 128, 100), (3, 96, 64),
-                    (2, 77, 33)):
-        a = rng.uniform(0.0, 1.0, (B, S, W))
-        a[..., 0] = 0.0
-        a[..., 1] = 1.0
-        b = rng.standard_normal((B, S, W))
-        a, b = (torch.as_tensor(x, dtype=torch.float32, device=dev)
-                for x in (a, b))
+    for B, S, W, off in LRU_CASES:
+        a, b = _lru_inputs(dev, rng, B, S, W, off)
         got = lru_kernel.lru_scan(a, b)
         ref = lru_kernel.lru_scan_plain(a, b)
         torch.cuda.synchronize()
         e = max_err(got, ref)[0]
         if e != 0.0:
-            raise AssertionError(f"lru_scan ({B},{S},{W}) differs from its "
-                                 f"plain version by {e} (bit-equal expected)")
+            raise AssertionError(f"lru_scan ({B},{S},{W}) offset {off} "
+                                 f"differs from its plain version by {e} "
+                                 "(bit-equal expected)")
         worst = max(worst, e)
     B, S, W = PATH_B, PATH_S, 4096
     a, b = (torch.as_tensor(x, dtype=torch.float32, device=dev)
@@ -743,11 +967,13 @@ def check_lru(dev, rng) -> dict:
     if max_err(got, ref)[0] != 0.0:
         raise AssertionError("lru_scan at the path's shape is not bit-equal")
     ms = time_ms(lambda: lru_kernel.lru_scan(a, b), 20, 3)
-    body = body_ms(lambda: lru_kernel.lru_scan(a, b), "lru_scan_kernel", 20)
+    body = body_ms(lambda: lru_kernel.lru_scan(a, b), "lru_scan_tma_kernel",
+                   20)
     plain = time_ms(lambda: lru_kernel.lru_scan_plain(a, b), 2, 1)
     return dict(name="lru_scan", route="cuda",
                 source="src/repro_torch/kernels/csrc/lru_scan.cu",
                 replaces="src/repro/kernels/lru_scan.py:45",
+                instructions="tma+mbarrier",
                 shape=f"B={B} S={S} W={W} fp32", max_abs_err=worst,
                 tolerance="bit-equal", ms=ms, body_ms=body, plain_ms=plain,
                 **bound(3 * B * S * W * 4, 2 * B * S * W, FP32_FLOPS),
@@ -764,24 +990,24 @@ def bound(nbytes: int, flops: int, peak: float = FP64_FLOPS) -> dict:
 # ---------------------------------------------------------------------------
 # the main path
 # ---------------------------------------------------------------------------
-SCHED_KERNELS = ("slowdown_factors", "rate_advance", "settle_reprice",
-                 "settle_complete", "segment_min", "scan_reduce",
-                 "scan_reduce_batch")
+SCHED_KERNELS = ("slowdown_pool", "slowdown_same_device", "rate_advance",
+                 "settle_reprice", "settle_complete", "segment_min",
+                 "scan_reduce", "scan_reduce_batch")
 MODEL_KERNELS = ("flash_attention", "lru_scan")
 
 
 def reset_counts() -> None:
-    slowdown_kernel.launches = 0
     fa_kernel.launches = 0
     lru_kernel.launches = 0
-    for counts in (timeline_kernel.launches, walk_kernel.launches):
+    for counts in (slowdown_kernel.launches, timeline_kernel.launches,
+                   walk_kernel.launches):
         for k in counts:
             counts[k] = 0
     rt_device.reset_sync_count()
 
 
 def read_counts() -> dict:
-    return {"slowdown_factors": slowdown_kernel.launches,
+    return {**slowdown_kernel.launches,
             **timeline_kernel.launches, **walk_kernel.launches,
             "flash_attention": fa_kernel.launches,
             "lru_scan": lru_kernel.launches}
@@ -850,26 +1076,55 @@ def session_x8(seed: int) -> dict:
                 launches=counts)
 
 
+def _spread(xs: list) -> dict:
+    """Count, mean, median and max of per-call sizes."""
+    if not xs:
+        return dict(calls=0)
+    return dict(calls=len(xs), mean=float(np.mean(xs)),
+                p50=float(np.median(xs)), max=int(max(xs)))
+
+
 def session_full(seed: int) -> tuple[dict, dict]:
     """The session at full width: placements complete, every scheduler
     kernel launched, the size of each phase-1 wave's batched entry reduce
-    (read by wrapping the walk's call, outside the port).  Its device-op
-    count comes later, from :func:`session_traced`."""
+    and of each pool and same-device stack that reached B1 (read by
+    wrapping the calls, outside the port); then the row form of B1 on its
+    own path, the traverser's what-if query (:func:`what_if`).  Its
+    device-op count comes later, from :func:`session_traced`."""
     mult = FULL_MULT
     reset_counts()
     torch.cuda.reset_peak_memory_stats()
     walk_call = orc_mod.scan_reduce_batch
+    pool_call = sd_mod.slowdown_pool
+    same_call = sd_mod.slowdown_same_device
     stacks: list[int] = []
+    pools: list[int] = []
+    same_items: list[int] = []
+    same_pairs: list[int] = []
 
     def counted(*args):
         stacks.append(len(args[6]))
         return walk_call(*args)
 
+    def counted_pool(members, *args):
+        pools.append(members.shape[0])
+        return pool_call(members, *args)
+
+    def counted_same(items, *args):
+        res = same_call(items, *args)
+        same_items.append(len(items))
+        same_pairs.append(sum(r[1].shape[0] for r in res))
+        return res
+
     orc_mod.scan_reduce_batch = counted
+    sd_mod.slowdown_pool = counted_pool
+    sd_mod.slowdown_same_device = counted_same
     try:
         st, cfg, g, sess, secs = run_session(mult, None, seed)
     finally:
         orc_mod.scan_reduce_batch = walk_call
+        sd_mod.slowdown_pool = pool_call
+        sd_mod.slowdown_same_device = same_call
     counts = read_counts()
     syncs = rt_device.sync_count()
     peak = torch.cuda.max_memory_allocated()
@@ -890,13 +1145,45 @@ def session_full(seed: int) -> tuple[dict, dict]:
                                  "on the main path")
     pct = st.latency_percentiles(cfg, (50.0, 99.0))
     comp = g.compiled()
+    wif = what_if(g, cfg, st)
+    counts["slowdown_factors"] = wif["launches"]
     return dict(mult=mult, device=str(g.device), pus=len(comp.pu_names),
                 tasks=len(cfg), mapped=len(st.mapping),
                 unmapped=len(st.unmapped), **secs,
                 p50_latency_s=pct[50.0], p99_latency_s=pct[99.0],
                 qos_failures=st.qos_failures(cfg), launches=counts,
-                entry_wave_scans=stacks, device_to_host_syncs=syncs,
-                peak_device_bytes=peak), counts
+                entry_wave_scans=stacks, pool_members=_spread(pools),
+                same_device_items=_spread(same_items),
+                same_device_pairs=_spread(same_pairs),
+                device_to_host_syncs=syncs, peak_device_bytes=peak,
+                what_if=wif), counts
+
+
+def what_if(g, cfg, st) -> dict:
+    """The path of B1's row form: ``Traverser.predict_active_with`` — the
+    updated factor of every task the session placed on the busiest device
+    if one more task joins each of its PUs in turn (the Alg. 1 l.15
+    re-check, the dense form of ``factors_with_candidates``), on the
+    full-width fleet, counted from 0."""
+    comp = g.compiled()
+    by_dev: dict = {}
+    for t in cfg:
+        pu = st.mapping[t.uid]
+        by_dev.setdefault(comp.device_name(pu), []).append((t, pu))
+    dev_name, active = max(by_dev.items(), key=lambda kv: len(kv[1]))
+    pus = [p.name for p in g.pus(under=dev_name)]
+    trav = core.heye_traverser(g)
+    reset_counts()
+    out = [trav.predict_active_with(core.make_task("svm"), pu, active)
+           for pu in pus]
+    n = read_counts()["slowdown_factors"]
+    # two launches a query: the newcomer's row, then the actives' rows
+    if n != 2 * len(pus) or any(len(o) != len(active) for o in out) or not all(
+            np.isfinite(list(o.values())).all() for o in out):
+        raise AssertionError(f"what_if: {n} row-form launches for "
+                             f"{len(pus)} queries, or missing factors")
+    return dict(device=dev_name, actives=len(active), queries=len(pus),
+                launches=n)
 
 
 def session_traced(seed: int) -> dict:
@@ -1094,7 +1381,7 @@ def serve_full(seed: int) -> dict:
             len(r.out) != args.max_new for r in report.done):
         raise AssertionError(f"serve_full: {len(report.done)} of "
                              f"{args.requests} requests answered in full")
-    for name in ("scan_reduce", "slowdown_factors"):
+    for name in ("scan_reduce", "slowdown_same_device"):
         if counts[name] <= 0:
             raise AssertionError(f"serve_full: {name} never launched")
     pct = core.percentiles(report.latencies, (50.0, 99.0))
@@ -1309,7 +1596,10 @@ def main() -> None:
             raise SystemExit(f"stopped after the {phase} phase (debugging)")
 
     rng = np.random.default_rng(args.seed)
-    kernels = [check_slowdown(dev, rng), check_rate_advance(dev, rng),
+    tables = _sd_tables(dev, rng)
+    kernels = [check_slowdown(dev, rng), check_slowdown_pool(dev, rng, tables),
+               check_slowdown_same_device(dev, rng, tables),
+               check_rate_advance(dev, rng),
                *check_settle(dev, rng), check_segment_min(dev, rng),
                *check_scan_reduce(dev, rng)]
     for k in kernels:

@@ -29,16 +29,17 @@ once over the ``CompiledHWGraph`` tensors — ``factor_batch`` /
 repricing call), ``slowdown_matrix`` (all pairwise co-run factors),
 ``factors_with_candidates`` and the block-diagonal
 ``factors_same_device(_multi)`` (the Orchestrator's constraint checks).
-Every one of them ends in the factor-aggregation kernel
-(``kernels.slowdown_kernel.slowdown_factors``: the float64 CUDA kernel
-for tensors on the card, its plain version for tensors on the CPU).
+Each ends in a form of the factor kernel
+(``kernels.slowdown_kernel``: float64 CUDA kernels for tensors on the
+card, their plain versions for tensors on the CPU): the pool form and
+the same-device form build their pressures in the kernel from the
+ledger columns, the row form aggregates the dense check's rows.
 
-Reproducibility: pressure sums are built in a **fixed order** — dense
-per-class mat-vecs for whole pools, and a column-by-column running sum
-in (candidate, active) pair order for the constraint checks, which
-equals a sequential accumulation in input order exactly.  No atomics are
-involved, so results do not change from run to run, and the decisions
-that read them (placements) are the same on the card and on the CPU.
+Reproducibility: pressure sums are built in a **fixed order** — a
+sequential sum in ascending co-runner (ledger) order, the order of the
+reference's ``np.bincount`` / ``np.add.at``.  No atomics are involved,
+so results do not change from run to run, and the decisions that read
+them (placements) are the same on the card and on the CPU.
 
 Randomness: the only draw is ``_apply_noise`` — one host scalar per
 noisy ``factor()`` call from the ``numpy.random.Generator`` the caller
@@ -53,8 +54,10 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
-from ..device import FLOAT, INT, bytes_key, f64, host_list, i64, nonzero
-from ..kernels.slowdown_kernel import slowdown_factors
+from ..device import FLOAT, INT, bytes_key, f64, host_list, i64
+from ..kernels.slowdown_kernel import (SameDeviceItem, pressure_term,
+                                       slowdown_factors, slowdown_pool,
+                                       slowdown_same_device)
 from .hwgraph import HWGraph
 from .task import Task
 
@@ -105,37 +108,12 @@ def truth_params(noise: float = 0.035, superlinear: float = 0.12) -> SlowdownPar
 # ---------------------------------------------------------------------------
 # batched factor aggregation
 # ---------------------------------------------------------------------------
-def _pterm(beta: torch.Tensor, x: torch.Tensor, kappa: float) -> torch.Tensor:
-    """beta*x*(1+kappa*x), 0 where inactive (broadcasts beta against x)."""
-    return torch.where((x > 0.0) & (beta > 0.0),
-                       beta * x * (1.0 + kappa * x), torch.zeros_like(x))
-
-
 def _aggregate(x, beta, mem, mt_term, kappa):
-    """Batched factor-aggregation inner loop: the port's factor kernel
-    (CUDA for tensors on the card, its plain version on the CPU)."""
+    """Factor aggregation over dense pressure rows: the row form of the
+    factor kernel (CUDA for tensors on the card, its plain version on the
+    CPU)."""
     return slowdown_factors(x.contiguous(), beta.contiguous(),
                             mem.contiguous(), mt_term.contiguous(), kappa)
-
-
-def _ordered_sums(rows: torch.Tensor, cols: torch.Tensor,
-                  within: torch.Tensor, vals: torch.Tensor,
-                  n_rows: int, n_cols: int, width: int) -> torch.Tensor:
-    """``out[rows[k], cols[k]] += vals[k]`` accumulated in ascending ``k``
-    per row, where ``within[k]`` is pair ``k``'s position inside its
-    row's run (rows arrive in contiguous runs of at most ``width``).
-
-    The pairs are laid out densely as ``(n_rows, n_cols, width)`` (unique
-    slots, so the scatter is a plain store) and summed column by column:
-    a sequential sum in input order, without atomics — exact zeros in
-    unused slots leave every partial sum untouched."""
-    dense = torch.zeros((n_rows, n_cols, width), dtype=FLOAT,
-                        device=vals.device)
-    dense[rows, cols, within] = vals
-    acc = torch.zeros((n_rows, n_cols), dtype=FLOAT, device=vals.device)
-    for k in range(width):
-        acc = acc + dense[:, :, k]
-    return acc
 
 
 class DecoupledSlowdown:
@@ -262,26 +240,33 @@ class DecoupledSlowdown:
         return self._factor_batch_arrays(comp, P, U, M, uid)
 
     def factor_batch_idx(self, P: torch.Tensor, U: torch.Tensor,
-                         mem: torch.Tensor, uid: torch.Tensor) -> torch.Tensor:
+                         mem: torch.Tensor, uid: torch.Tensor,
+                         members: Optional[torch.Tensor] = None
+                         ) -> torch.Tensor:
         """Array-native :meth:`factor_batch` over ledger-style columns
         (compiled PU index, pu-usage, raw mem-usage, uid) — the DES
         timeline engine reprices every dirty device pool in one call
-        through this entry.  Compute paths never cross device boundaries,
-        so a pool spanning several devices factors exactly as the
-        per-device pools would.  Noise-free path only."""
-        n = P.shape[0]
+        through this entry, passing its whole job columns and the pool's
+        rows as ``members`` (the pool form of the factor kernel gathers
+        them itself); without ``members`` the pool is every row.  Compute
+        paths never cross device boundaries, so a pool spanning several
+        devices factors exactly as the per-device pools would.  Noise-free
+        path only."""
         dev = P.device
-        if n == 0:
-            return torch.ones(0, dtype=FLOAT, device=dev)
-        if n == 1:
-            return torch.ones(1, dtype=FLOAT, device=dev)
+        n = P.shape[0] if members is None else members.shape[0]
+        if n <= 1:
+            return torch.ones(n, dtype=FLOAT, device=dev)
         comp = self.graph.compiled()
-        M = torch.minimum(mem, comp.mem_cap[P])
         if not P.is_cuda and n <= _SMALL_POOL_MAX:
-            return self._factor_small(comp, P, U, M)
+            if members is not None:
+                P, U, mem = P[members], U[members], mem[members]
+            return self._factor_small(comp, P, U,
+                                      torch.minimum(mem, comp.mem_cap[P]))
+        if members is None:
+            members = torch.arange(n, device=dev)
         # DES pools hold one job per task, so uids are pairwise distinct:
-        # self-interaction reduces to the diagonal
-        return self._factor_batch_arrays(comp, P, U, M, uid, distinct=True)
+        # self-interaction reduces to the member itself
+        return self._pool(comp, members, P, U, mem, uid, distinct=True)
 
     def _factor_small(self, comp, P, U, M) -> torch.Tensor:
         """Exact scalar path for distinct-uid pools of a few members.
@@ -329,26 +314,17 @@ class DecoupledSlowdown:
 
     def _factor_batch_arrays(self, comp, P, U, M, uid,
                              distinct: bool = False) -> torch.Tensor:
-        n = P.shape[0]
+        """Joint factors of the pool of rows ``P`` / ``U`` / ``M`` / ``uid``
+        (``M`` capped already: the kernel's cap leaves it as it is)."""
+        return self._pool(comp, torch.arange(P.shape[0], device=P.device),
+                          P, U, M, uid, distinct)
+
+    def _pool(self, comp, members, P, U, mem, uid,
+              distinct: bool) -> torch.Tensor:
         beta_vec, mt_vec = self._tables(comp)
-        kappa = self.params.superlinear
-        same_pu = P[:, None] == P[None, :]
-        r = comp.ncr_rclass[P[:, None], P[None, :]]
-        valid = ~same_pu & (r >= 0)
-        if distinct:
-            same_pu = same_pu & ~torch.eye(n, dtype=torch.bool,
-                                           device=P.device)
-        else:
-            diff_uid = uid[:, None] != uid[None, :]
-            same_pu = same_pu & diff_uid
-            valid = valid & diff_uid
-        mtp = same_pu.to(FLOAT) @ U
-        R = len(comp.rclass_names)
-        # pressure matrix in a fixed order: one masked mat-vec per class
-        X = torch.stack([(valid & (r == k)).to(FLOAT) @ M for k in range(R)],
-                        dim=1)
-        mt_term = _pterm(mt_vec[P], mtp, kappa) * U
-        return _aggregate(X, beta_vec, M, mt_term, kappa)
+        return slowdown_pool(members, P, U, mem, uid, comp.mem_cap,
+                             comp.ncr_rclass, mt_vec, beta_vec,
+                             self.params.superlinear, distinct)
 
     def slowdown_matrix(self, pool: Sequence[tuple[Task, str]]) -> torch.Tensor:
         """All pairwise co-run factors in one shot: entry [i, j] is the
@@ -369,11 +345,11 @@ class DecoupledSlowdown:
         r = comp.ncr_rclass[P[:, None], P[None, :]].to(INT)
         cross = diff_uid & (P[:, None] != P[None, :]) & (r >= 0)
         zero = torch.zeros((n, n), dtype=FLOAT, device=P.device)
-        mt_f = 1.0 + _pterm(mt_vec[P][:, None].expand(n, n),
+        mt_f = 1.0 + pressure_term(mt_vec[P][:, None].expand(n, n),
                             torch.where(same_pu, U[None, :].expand(n, n), zero),
                             kappa) * U[:, None]
         res_term = torch.where(cross,
-                               _pterm(beta_vec[r.clamp(min=0)],
+                               pressure_term(beta_vec[r.clamp(min=0)],
                                       M[None, :].expand(n, n), kappa),
                                zero)
         return torch.clamp_min(mt_f * (1.0 + res_term * M[:, None]), 1.0)
@@ -433,7 +409,7 @@ class DecoupledSlowdown:
         valid_ca = live[None, :] & (Pc[:, None] != Pa[None, :]) & (r_ca >= 0)
         Xc = torch.stack([(valid_ca & (r_ca == k)).to(FLOAT) @ Ma
                           for k in range(R)], dim=1)
-        mt_term_c = _pterm(mt_vec[Pc], mt_c, kappa) * u_new
+        mt_term_c = pressure_term(mt_vec[Pc], mt_c, kappa) * u_new
         new_f = _aggregate(Xc, beta_vec, Mc, mt_term_c, kappa)
 
         # --- each active's factor if the task joins on candidate c --------
@@ -452,7 +428,7 @@ class DecoupledSlowdown:
         add = join_cross.to(FLOAT) * Mc[:, None]
         # one slot per (c, a): a plain indexed add, no collisions
         X_full.scatter_add_(2, r_ac.clamp(min=0)[:, :, None], add[:, :, None])
-        mt_term_a = _pterm(mt_vec[Pa][None, :].expand(C, A), mt_ca,
+        mt_term_a = pressure_term(mt_vec[Pa][None, :].expand(C, A), mt_ca,
                            kappa) * Ua[None, :]
         act_f = _aggregate(X_full.reshape(C * A, R), beta_vec,
                            Ma.repeat(C), mt_term_a.reshape(C * A),
@@ -491,65 +467,37 @@ class DecoupledSlowdown:
 
     def factors_same_device_multi(self, comp, items: Sequence[tuple]):
         """Score many newcomers (one per distinct wave signature) in one
-        aggregation call.  ``items`` holds the positional argument tuples
-        of :meth:`factors_same_device`; the result list holds that
-        method's return tuple per item, identical to calling it per item
-        (the kernel is elementwise per row, so stacking and splitting is
-        exact)."""
-        dev = comp.device
-        empty = torch.zeros(0, dtype=INT, device=dev)
-
-        def trivial(C: int):
-            return (torch.ones(C, dtype=FLOAT, device=dev), empty, empty,
-                    torch.ones(0, dtype=FLOAT, device=dev))
-
-        built: list = []
-        blocks: list = []
-        keys: list = []
-        for it in items:
-            if it[1].shape[0] == 0 or it[3].shape[0] == 0:
-                built.append(None)
-                keys.append(None)
-                continue
-            summ = self._dev_summary(it[2], it[8], it[9])
-            key, base = self._canon_key(comp, it[0], it[1], it[2], it[3],
-                                        it[4], it[5], it[6], it[8], it[9],
-                                        summ=summ)
-            if key is not None:
-                hit = self._canon_lookup(comp, key, base)
-                if hit is not None:
-                    built.append(hit)
-                    keys.append(None)       # already cached
-                    continue
-            keys.append((key, base))
-            rows = self._same_device_rows(comp, *it, summ=summ)
-            built.append(rows)
-            if rows is not None:
-                blocks.append(rows)
-        if blocks:
-            beta_vec, _ = self._tables(comp)
-            f = _aggregate(torch.cat([b[0] for b in blocks]),
-                           beta_vec,
-                           torch.cat([b[1] for b in blocks]),
-                           torch.cat([b[2] for b in blocks]),
-                           self.params.superlinear)
-        pos = 0
-        out = []
-        for it, rows, kb in zip(items, built, keys):
-            C = it[1].shape[0]
-            if isinstance(rows, tuple) and len(rows) == 4:
-                out.append(rows)            # cache hit, already final
-                continue
-            if rows is None:
-                res = trivial(C)
-            else:
-                k = rows[1].shape[0]
-                fi = f[pos:pos + k]
-                pos += k
-                res = (fi[:C], rows[3], rows[4], fi[C:])
-            if kb is not None and kb[0] is not None:
-                self._canon_store(kb[0], kb[1], res)
-            out.append(res)
+        call of the same-device form of the factor kernel.  ``items``
+        holds the positional argument tuples of
+        :meth:`factors_same_device`; the result list holds that method's
+        return tuple per item, identical to calling it per item (each item
+        is a block of its own in the kernel)."""
+        beta_vec, mt_vec = self._tables(comp)
+        out: list = [None] * len(items)
+        todo: list = []
+        stores: list = []
+        for i, (task, Pc, Dc, Pa, Ua, Ma, uid_a, Da, astart,
+                na) in enumerate(items):
+            summ = (0, True, 0, 0)          # no candidate or no active
+            if Pc.shape[0] and Pa.shape[0]:
+                summ = self._dev_summary(Dc, astart, na)
+                key, base = self._canon_key(comp, task, Pc, Dc, Pa, Ua, Ma,
+                                            uid_a, astart, na, summ=summ)
+                if key is not None:
+                    out[i] = self._canon_lookup(comp, key, base)
+                    if out[i] is not None:
+                        continue
+                    stores.append((i, key, base))
+            todo.append((i, SameDeviceItem(
+                Pc, Dc, task.usage.get("pu", 1.0), task.usage.get("mem", 1.0),
+                task.uid, Pa, Ua, Ma, uid_a, Da, astart, na, summ)))
+        res = slowdown_same_device([it for _, it in todo], mt_vec, beta_vec,
+                                   comp.mem_cap, comp.ncr_rclass,
+                                   self.params.superlinear)
+        for (i, _), r in zip(todo, res):
+            out[i] = r
+        for i, key, base in stores:
+            self._canon_store(key, base, out[i])
         return out
 
     # -- canonical-pattern cache (single-device constraint checks) ---------
@@ -611,96 +559,6 @@ class DecoupledSlowdown:
         new_f, ci, ai, act_pf = result
         cache[key] = (new_f, ci, ai - base, act_pf)
 
-    def _same_device_rows(self, comp, task: Task, Pc, Dc, Pa, Ua, Ma,
-                          uid_a, Da, astart, na,
-                          summ: Optional[tuple] = None):
-        """Aggregation inputs of one newcomer's same-device constraint
-        check: ``(X, mem, mt_term, ci, ai)`` with the candidate rows
-        first and the (candidate, active) pair rows after, or ``None``
-        when no active shares a device with any candidate."""
-        dev = Pc.device
-        C = Pc.shape[0]
-        A = Pa.shape[0]
-        _, mt_vec = self._tables(comp)
-        kappa = self.params.superlinear
-        R = len(comp.rclass_names)
-        u_new = task.usage.get("pu", 1.0)
-        mem_new = task.usage.get("mem", 1.0)
-        Mc = torch.clamp_max(comp.mem_cap[Pc], mem_new)
-        if summ is None:
-            summ = self._dev_summary(Dc, astart, na)
-        d0, single, s0, n0 = summ
-
-        def segment_pairs(left_ids, left_dev):
-            """(li, ri, within, width): cross product of each left element
-            with the active rows of its device (actives contiguous per
-            device ordinal); ``within`` numbers a left element's pairs."""
-            rep = na[left_dev]
-            K, width = host_list(torch.stack([rep.sum(), rep.max()]))
-            if K == 0:
-                return None
-            li = torch.repeat_interleave(left_ids, rep, output_size=K)
-            offs = torch.cumsum(rep, 0) - rep
-            within = torch.arange(K, device=dev) - torch.repeat_interleave(
-                offs, rep, output_size=K)
-            ri = torch.repeat_interleave(astart[left_dev], rep,
-                                         output_size=K) + within
-            return li, ri, within, width
-
-        # --- the new task's factor per candidate --------------------------
-        pairs = segment_pairs(torch.arange(C, device=dev), Dc)
-        if pairs is None:
-            return None
-        ci, ai, within_c, width_c = pairs
-        live = uid_a[ai] != task.uid
-        Pci, Pai = Pc[ci], Pa[ai]
-        same = (Pci == Pai) & live
-        r_ca = comp.ncr_rclass[Pci, Pai].to(INT)
-        validc = live & (Pci != Pai) & (r_ca >= 0)
-        zero_k = torch.zeros(ci.shape[0], dtype=FLOAT, device=dev)
-        # class columns 0..R-1 carry memory pressure, column R the
-        # same-PU tenancy pressure: one ordered sum builds both
-        col_c = torch.where(same, torch.full_like(r_ca, R),
-                            r_ca.clamp(min=0))
-        val_c = torch.where(same, Ua[ai], torch.where(validc, Ma[ai], zero_k))
-        acc_c = _ordered_sums(ci, col_c, within_c, val_c, C, R + 1, width_c)
-        Xc = acc_c[:, :R]
-        mt_c = acc_c[:, R]
-        mt_term_c = _pterm(mt_vec[Pc], mt_c, kappa) * u_new
-
-        # --- each same-device active's factor if the task joins -----------
-        # base pressures only for actives on candidate devices: the rest
-        # never appear in a (candidate, active) pair
-        if single:
-            act_sel = torch.arange(s0, s0 + n0, device=dev)
-        else:
-            act_sel = nonzero(torch.isin(Da, Dc))
-        a1, a2, within_a, width_a = segment_pairs(act_sel, Da[act_sel])
-        diff = uid_a[a1] != uid_a[a2]
-        sameP = (Pa[a1] == Pa[a2]) & diff
-        r_aa = comp.ncr_rclass[Pa[a1], Pa[a2]].to(INT)
-        valida = diff & (Pa[a1] != Pa[a2]) & (r_aa >= 0)
-        zero_a = torch.zeros(a1.shape[0], dtype=FLOAT, device=dev)
-        col_a = torch.where(sameP, torch.full_like(r_aa, R),
-                            r_aa.clamp(min=0))
-        val_a = torch.where(sameP, Ua[a2], torch.where(valida, Ma[a2], zero_a))
-        acc_a = _ordered_sums(a1, col_a, within_a, val_a, A, R + 1, width_a)
-        Xa = acc_a[:, :R]
-        mt_base = acc_a[:, R]
-        Xp = Xa[ai]                            # (K, R): base + join term
-        r_ac = comp.ncr_rclass[Pai, Pci].to(INT)
-        jc = live & (Pai != Pci) & (r_ac >= 0)
-        # one slot per pair row: a plain indexed add, no collisions
-        Xp.scatter_add_(1, r_ac.clamp(min=0)[:, None],
-                        torch.where(jc, Mc[ci], zero_k)[:, None])
-        mt_p = mt_base[ai] + same.to(FLOAT) * u_new
-        mt_term_p = _pterm(mt_vec[Pai], mt_p, kappa) * Ua[ai]
-        # stacked (candidate; pair) rows — the aggregation kernel is
-        # elementwise per row, so callers split the result back exactly
-        return (torch.cat([Xc, Xp]),
-                torch.cat([Mc, Ma[ai]]),
-                torch.cat([mt_term_c, mt_term_p]), ci, ai)
-
 
 class NoSlowdown:
     """Contention-blind model (what ACE-like baselines assume)."""
@@ -722,8 +580,8 @@ class NoSlowdown:
     def factor_batch(self, pool) -> torch.Tensor:
         return self._ones(len(pool))
 
-    def factor_batch_idx(self, P, U, mem, uid) -> torch.Tensor:
-        return self._ones(P.shape[0])
+    def factor_batch_idx(self, P, U, mem, uid, members=None) -> torch.Tensor:
+        return self._ones(P.shape[0] if members is None else members.shape[0])
 
     def slowdown_matrix(self, pool) -> torch.Tensor:
         return self._ones(len(pool), len(pool))

@@ -15,8 +15,10 @@ identical; what changes is the representation and the unit of work:
   before a single flush reprices the devices/links they touched.  The
   settle of every compute completion across all devices is one launch
   of the fused settle-complete kernel, and the flush reprices *every*
-  dirty device pool in one ``factor_batch_idx`` call (compute paths never
-  cross device boundaries, so the union pool factors block-diagonally)
+  dirty device pool in one ``factor_batch_idx`` call, the pool form of
+  the factor kernel over the job columns and the pool's rows (compute
+  paths never cross device boundaries, so the union pool factors
+  block-diagonally)
   and one launch of the fused settle-reprice kernel, both in place on
   the job columns.
 * **Batched link repricing** — the bottleneck share of each affected
@@ -607,8 +609,8 @@ class TimelineEngine:
                 out = torch.empty(n, dtype=FLOAT, device=dev)
                 out[order_t] = hit
                 return out
-            f = self._fbi(self.pu_i[members], self.U[members],
-                          self.memraw[members], self.uid_col[members])
+            f = self._fbi(self.pu_i, self.U, self.memraw, self.uid_col,
+                          members=members)
             self._fcache[key] = f[order_t]
             return f
         # tuple fallback (custom slowdown models): per-device pools, like

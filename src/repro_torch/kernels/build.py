@@ -51,6 +51,11 @@ _F32 = ctypes.c_float
 _SIGNATURES = {
     "heye_slowdown_factors": [_PTR, _PTR, _PTR, _PTR, _PTR, _I64, _INT,
                               _F64, _PTR],
+    "heye_slowdown_pool": [_PTR, _I64, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR,
+                           _I64, _PTR, _PTR, _INT, _F64, _INT, _PTR, _PTR],
+    "heye_slowdown_same_device": [_PTR, _INT, _INT, _PTR, _I64, _PTR, _PTR,
+                                  _PTR, _INT, _F64, _PTR, _PTR, _PTR, _PTR,
+                                  _PTR, _PTR, _PTR],
     "heye_rate_advance": [_PTR, _PTR, _PTR, _PTR, _PTR, _I64, _F64, _PTR],
     "heye_settle_reprice": [_PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _I64,
                             _F64, _I64, _PTR],
@@ -191,3 +196,16 @@ def check_tensor(name: str, t: torch.Tensor, dtype, ndim: int, device) -> None:
         raise ValueError(f"{name} is on {t.device}, expected {device}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
+
+
+def check_tensors(device, *specs) -> None:
+    """:func:`check_tensor` over ``(name, tensor, dtype, ndim)`` specs, a
+    fast test first (wrappers on the scheduler's hot path call this once
+    per launch)."""
+    cuda = device.type == "cuda"
+    idx = device.index if cuda else -1
+    for name, t, dtype, ndim in specs:
+        if not (isinstance(t, torch.Tensor) and t.dtype is dtype
+                and t.is_cuda is cuda and t.get_device() == idx
+                and t.dim() == ndim and t.is_contiguous()):
+            check_tensor(name, t, dtype, ndim, device)

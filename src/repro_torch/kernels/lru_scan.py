@@ -5,11 +5,17 @@ Replaces the TPU kernel ``repro/kernels/lru_scan.py:45``
 (``lru_scan_pallas`` / ``_lru_kernel``, reached through
 ``repro/kernels/ops.py:31``, which pads W and searches a time-chunk size
 for the TPU's tiling).  Here the kernel is CUDA C++
-(``csrc/lru_scan.cu``): one thread per (batch, channel) walking t in a
-register, coalesced across W, any S and W with no padding.  It is bound
-by bytes (3*B*S*W*4: a and b read once, h written once) and, with only
-B*W threads, by memory latency.  Products and sums are rounded separately,
-so the kernel agrees to the bit with :func:`lru_scan_plain`.
+(``csrc/lru_scan.cu``): each channel's chain runs in one thread, walking
+t in a register, and is fed from a ring of (64 steps x 32 channels)
+boxes of ``a`` and ``b`` in shared memory that the Tensor Memory
+Accelerator keeps full (one warp per 32 channels of a batch row, six
+stages on mbarriers); ``h`` goes back in coalesced 128-byte rows.  Any S
+and W: boxes past the ends read as zeros and the walk stops at S; inputs
+TMA cannot describe (W not a multiple of 4, unaligned bases) take a
+thread-per-channel kernel with the same arithmetic.  It is bound by
+bytes (3*B*S*W*4: a and b read once, h written once).  Products and sums
+are rounded separately, so the kernel agrees to the bit with
+:func:`lru_scan_plain`.
 
 ``lru_scan`` is the wrapper ``models/recurrent.py`` calls: the plain
 version for CPU tensors, the kernel for CUDA tensors (or an exception;

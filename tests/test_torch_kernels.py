@@ -71,6 +71,264 @@ def test_slowdown_factors_inactive_rows_are_one():
 
 
 # ---------------------------------------------------------------------------
+# B1's fused forms: the pool (DES repricing) and the same-device checks
+# ---------------------------------------------------------------------------
+KAPPA = 0.12
+BETA6 = np.array([0.0884, 0.1330, 0.1107, 0.0, 0.4196, 0.2679])  # one off
+
+
+def _tables(rng, n_pus=24):
+    """Snapshot tables: ncr_rclass (-1..5, int16), mem_cap (inf or a cap),
+    mt_vec, beta (class 3 inactive)."""
+    ncr = rng.integers(-1, 6, (n_pus, n_pus)).astype(np.int16)
+    cap = np.where(rng.random(n_pus) < 0.3, 0.3, np.inf)
+    return (t(ncr), t(cap), t(rng.uniform(0.2, 0.5, n_pus)), t(BETA6))
+
+
+def _scalar_factor(x: dict, mt: float, m: float, u: float, b_mt: float):
+    """One factor as the reference's scalar loop rounds it (classes in
+    ascending order, inactive ones skipped)."""
+    mt_term = 0.0
+    if mt > 0.0 and b_mt > 0.0:
+        mt_term = b_mt * mt * (1.0 + KAPPA * mt) * u
+    prod = 1.0
+    for r in sorted(x):
+        b = BETA6[r]
+        if x[r] > 0.0 and b > 0.0:
+            prod *= 1.0 + b * x[r] * (1.0 + KAPPA * x[r]) * m
+    f = (1.0 + mt_term) * prod
+    return f if f > 1.0 or f != f else 1.0
+
+
+def _pool_inputs(n, seed, distinct):
+    rng = np.random.default_rng(seed)
+    ncr, cap, mt_vec, beta = _tables(rng)
+    rows = 3 * n + 4
+    pu_i = rng.integers(0, 24, rows) if n > 8 else rng.integers(0, 4, rows)
+    U = rng.uniform(0.2, 1.5, rows)
+    memraw = rng.uniform(0.05, 1.5, rows)
+    uid = np.arange(rows) if distinct else rng.integers(0, n // 2 + 1, rows)
+    members = rng.permutation(rows)[:n]
+    return (t(members), t(pu_i), t(U), t(memraw), t(uid), cap, ncr, mt_vec,
+            beta, KAPPA, distinct)
+
+
+@pytest.mark.parametrize("distinct", [True, False])
+@pytest.mark.parametrize("n", [1, 2, 7, 8, 64])
+def test_slowdown_pool_is_the_sequential_scalar_loop(n, distinct):
+    args = _pool_inputs(n, 40 + n, distinct)
+    members, pu_i, U, memraw, uid, cap, ncr, mt_vec = (
+        a.numpy() for a in args[:8])
+    got = sk.slowdown_pool(*args)
+    P = pu_i[members]
+    M = np.minimum(memraw[members], cap[P])
+    want = []
+    for i in range(n):
+        x: dict = {}
+        mt = 0.0
+        for j in range(n):
+            if (j == i) if distinct else (uid[members[j]] == uid[members[i]]):
+                continue
+            if P[j] == P[i]:
+                mt += U[members[j]]
+            elif ncr[P[i], P[j]] >= 0:
+                r = int(ncr[P[i], P[j]])
+                x[r] = x.get(r, 0.0) + M[j]
+        want.append(_scalar_factor(x, mt, M[i], U[members[i]], mt_vec[P[i]]))
+    assert got.dtype == torch.float64 and got.tolist() == want
+    assert n < 8 or len(set(P.tolist())) < n        # PU ties exercised
+
+
+def _view(rng, A, nd, per_dev=4, empty=(1,)):
+    """A device-sorted ledger view of A actives over nd devices of per_dev
+    PUs (the ``empty`` devices hold none)."""
+    devs = np.delete(np.arange(nd), list(empty))
+    Da = np.sort(rng.choice(devs, A))
+    Pa = Da * per_dev + rng.integers(0, per_dev, A)
+    na = np.bincount(Da, minlength=nd)
+    return [t(Pa), t(rng.uniform(0.2, 1.5, A)), t(rng.uniform(0.05, 1.0, A)),
+            t(np.arange(10, 10 + A)), t(Da), t(np.cumsum(na) - na), t(na)]
+
+
+def _sd_item(view, devs, uid_new, per_dev=4):
+    """The newcomer whose candidates are every PU of ``devs``."""
+    Pc = np.concatenate([d * per_dev + np.arange(per_dev) for d in devs])
+    na, st = view[6].numpy(), view[5].numpy()
+    single = len(set(devs)) == 1
+    return sk.SameDeviceItem(t(Pc), t(Pc // per_dev), 1.0, 0.6, uid_new,
+                             *view, (int(devs[0]), single, int(st[devs[0]]),
+                                     int(na[devs[0]])))
+
+
+def _sd_items(seed, A=12, nd=6):
+    """A ragged stack over one view: a single-device item (a dead pair:
+    the newcomer's uid is an active's), an empty device, several devices
+    with an empty one among them, every device; and one over a view of
+    its own."""
+    rng = np.random.default_rng(seed)
+    view = _view(rng, A, nd)
+    busy = int(view[4][A // 2])
+    items = [_sd_item(view, [busy], 10 + A // 2),
+             _sd_item(view, [1], 99),
+             _sd_item(view, [0, 1, busy], 99),
+             _sd_item(view, list(range(nd)), 10)]
+    items.append(_sd_item(_view(rng, 5, 2), [0], 99))
+    return items
+
+
+def _scalar_same_device(it, tables):
+    """Per item, the reference's loops written out: candidates in order,
+    each against its device segment in ledger order."""
+    ncr, cap, mt_vec, _ = (a.numpy() for a in tables)
+    Pc, Dc, Pa, Ua, Ma, uid_a, Da, astart, na = (
+        getattr(it, k).numpy() for k in ("Pc", "Dc", "Pa", "Ua", "Ma",
+                                         "uid_a", "Da", "astart", "na"))
+
+    def seg(d):
+        return range(astart[d], astart[d] + na[d])
+
+    def base(a):
+        x: dict = {}
+        mt = 0.0
+        for a2 in seg(Da[a]):
+            if uid_a[a2] == uid_a[a]:
+                continue
+            if Pa[a2] == Pa[a]:
+                mt += Ua[a2]
+            elif ncr[Pa[a], Pa[a2]] >= 0:
+                r = int(ncr[Pa[a], Pa[a2]])
+                x[r] = x.get(r, 0.0) + Ma[a2]
+        return x, mt
+    new_f, ci, ai, act = [], [], [], []
+    for c in range(len(Pc)):
+        mc = min(cap[Pc[c]], it.mem_new)
+        x: dict = {}
+        mt = 0.0
+        for a in seg(Dc[c]):
+            if uid_a[a] == it.uid_new:
+                continue
+            if Pa[a] == Pc[c]:
+                mt += Ua[a]
+            elif ncr[Pc[c], Pa[a]] >= 0:
+                r = int(ncr[Pc[c], Pa[a]])
+                x[r] = x.get(r, 0.0) + Ma[a]
+        new_f.append(_scalar_factor(x, mt, mc, it.u_new, mt_vec[Pc[c]]))
+        for a in seg(Dc[c]):
+            x, mt = base(a)
+            x = {r: x.get(r, 0.0) for r in range(6)}
+            live = uid_a[a] != it.uid_new
+            r = int(ncr[Pa[a], Pc[c]])
+            if live and Pa[a] != Pc[c] and r >= 0:
+                x[r] += mc
+            mt += (1.0 if live and Pa[a] == Pc[c] else 0.0) * it.u_new
+            ci.append(c)
+            ai.append(a)
+            act.append(_scalar_factor(x, mt, Ma[a], Ua[a], mt_vec[Pa[a]]))
+    if not ci:
+        new_f = [1.0] * len(Pc)
+    return new_f, ci, ai, act
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_slowdown_same_device_is_the_sequential_scalar_loop(seed):
+    items = _sd_items(seed)
+    tables = _tables(np.random.default_rng(100 + seed))
+    got = sk.slowdown_same_device(items, tables[2], tables[3], tables[1],
+                                  tables[0], KAPPA)
+    for it, (nf, ci, ai, pf) in zip(items, got):
+        w_nf, w_ci, w_ai, w_pf = _scalar_same_device(it, tables)
+        assert nf.tolist() == w_nf
+        assert ci.tolist() == w_ci and ai.tolist() == w_ai
+        assert pf.tolist() == w_pf
+    assert got[1][1].numel() == 0 and got[1][0].tolist() == [1.0] * 4
+    assert 0 < got[2][1].numel() < 12 * 4       # device 1's candidates: none
+
+
+def test_same_device_stack_offsets_split_results_back_exactly():
+    items = _sd_items(7) + _sd_items(8)[2:]
+    tables = _tables(np.random.default_rng(9))
+    R = 6
+    per = sk.slowdown_same_device_plain(items, tables[2], tables[3],
+                                        tables[1], tables[0], KAPPA)
+    run = [i for i, r in enumerate(per) if r[1].numel()]
+    cs = [None if it.summ[1] else torch.cumsum(it.na[it.Dc], 0)
+          for it in items]
+    rows, (nf, pairs, base, flags) = sk.same_device_layout(
+        [items[i] for i in run], [per[i][1].numel() for i in run], R,
+        [cs[i] for i in run])
+    f = {name: k for k, name in enumerate(sk.SD_FIELDS)}
+    assert nf == sum(items[i].Pc.numel() for i in run)
+    assert pairs == sum(per[i][1].numel() for i in run)
+    # each item's regions follow the previous item's, without a gap
+    end = {"newf_off": 0, "pair_off": 0, "base_off": 0, "flag_off": 0}
+    for row, i in zip(rows, run):
+        it = items[i]
+        single = bool(row[f["single"]])
+        assert single == it.summ[1] and row[f["K"]] == per[i][1].numel()
+        sizes = {"newf_off": it.Pc.numel(), "pair_off": row[f["K"]],
+                 "base_off": (R + 1) * (it.summ[3] if single
+                                        else it.Pa.numel()),
+                 "flag_off": 0 if single else it.na.numel()}
+        for k, size in sizes.items():
+            assert row[f[k]] == end[k]
+            end[k] += size
+        assert row[f["base_lo"]] == (it.summ[2] if single else 0)
+        assert row[f["Pa"]] == it.Pa.data_ptr()
+        assert row[f["cs"]] == (0 if single else cs[i].data_ptr())
+        assert np.int64(row[f["u_new"]]).view(np.float64) == it.u_new
+        assert np.int64(row[f["mem_new"]]).view(np.float64) == it.mem_new
+    assert (end["base_off"], end["flag_off"]) == (base, flags)
+    # the buffers as the kernel fills them, split back per item
+    new_f = torch.full((nf,), float("nan"), dtype=torch.float64)
+    ci = torch.full((pairs,), -1)
+    ai = torch.full((pairs,), -1)
+    pf = torch.full((pairs,), float("nan"), dtype=torch.float64)
+    for row, i in zip(rows, run):
+        o, p, k = row[f["newf_off"]], row[f["pair_off"]], row[f["K"]]
+        new_f[o:o + row[f["C"]]] = per[i][0]
+        ci[p:p + k], ai[p:p + k], pf[p:p + k] = per[i][1:]
+    assert not new_f.isnan().any() and (ci >= 0).all()
+    for i, res in zip(run, sk.split_stack(rows, new_f, ci, ai, pf)):
+        assert all(torch.equal(a, b) for a, b in zip(res, per[i]))
+
+
+@pytest.mark.parametrize("case", ["dtype", "classes", "tables", "length"])
+def test_fused_factor_wrappers_raise_on_what_they_do_not_take(case):
+    args = list(_pool_inputs(8, 3, True))
+    items = _sd_items(3)
+    ncr, cap, mt_vec, beta = _tables(np.random.default_rng(3))
+    if case == "dtype":
+        args[0] = args[0].int()
+        with pytest.raises(TypeError):
+            sk.slowdown_pool(*args)
+        bad = items[0]._replace(Ua=items[0].Ua.float())
+        with pytest.raises(TypeError):
+            sk.slowdown_same_device([bad], mt_vec, beta, cap, ncr, KAPPA)
+    elif case == "classes":
+        args[8] = torch.zeros(sk.MAX_CLASSES + 1, dtype=torch.float64)
+        with pytest.raises(ValueError, match="classes"):
+            sk.slowdown_pool(*args)
+        x = torch.zeros((2, sk.MAX_CLASSES + 1), dtype=torch.float64)
+        v = torch.zeros(2, dtype=torch.float64)
+        with pytest.raises(ValueError, match="classes"):
+            sk.slowdown_factors(x, args[8], v, v, KAPPA)
+    elif case == "tables":
+        args[6] = args[6][:, :-1].contiguous()
+        with pytest.raises(ValueError, match="disagree"):
+            sk.slowdown_pool(*args)
+        with pytest.raises(ValueError):
+            sk.slowdown_same_device(items, mt_vec, beta, cap,
+                                    ncr[:, ::2], KAPPA)
+    else:
+        args[2] = args[2][:-1].clone()
+        with pytest.raises(ValueError, match="one length"):
+            sk.slowdown_pool(*args)
+        bad = items[0]._replace(Ma=items[0].Ma[:-1].clone())
+        with pytest.raises(ValueError, match="disagree"):
+            sk.slowdown_same_device([bad], mt_vec, beta, cap, ncr, KAPPA)
+
+
+# ---------------------------------------------------------------------------
 # B2 rate-advance (both forms)
 # ---------------------------------------------------------------------------
 def _ra_inputs(n, seed):
@@ -385,13 +643,15 @@ def test_settle_complete_plain_is_the_unfused_sequence(n):
 # wrappers
 # ---------------------------------------------------------------------------
 def test_wrappers_take_the_plain_version_on_cpu_and_count_no_launch():
-    before = (sk.launches, dict(tk.launches), dict(wk.launches))
+    before = (dict(sk.launches), dict(tk.launches), dict(wk.launches))
     test_slowdown_factors_inactive_rows_are_one()
+    test_slowdown_pool_is_the_sequential_scalar_loop(8, True)
+    test_slowdown_same_device_is_the_sequential_scalar_loop(0)
     test_segment_min_takes_offset_starts()
     test_settle_reprice_plain_is_the_unfused_sequence(4)
     test_settle_complete_plain_is_the_unfused_sequence(4)
     test_scan_reduce_matches_oracle((8, 6), "plain")
-    assert (sk.launches, dict(tk.launches), dict(wk.launches)) == before
+    assert (dict(sk.launches), dict(tk.launches), dict(wk.launches)) == before
 
 
 @pytest.mark.parametrize("case", ["dtype", "contiguous", "shape", "ndim"])
