@@ -7,11 +7,14 @@ Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``
 (one ``nvcc`` per source, all started together) and holds each against
 its plain PyTorch version on the card: the scheduler's B1 (slowdown
 factors: the row form, the pool form of the DES repricing and the
-same-device form of the walk's constraint checks), B2 (rate-advance and
-its two fused in-place settle forms, reprice and complete), B3
-(segment-min), B4 / B4b (the scan-reduce, one scan or a ragged stack) and
-the model path's flash attention (B5: bfloat16 on the tensor cores,
-float32 on the CUDA cores) and LRU scan (B6, fed by TMA).  Each
+same-device form of the walk's constraint checks, each at 6 and at 44
+resource classes), B2 (rate-advance and its two fused in-place settle
+forms, reprice and complete), B3 (segment-min), B3 with B2's transfer
+form (the two fused in-place transfer kernels, reprice and complete),
+B4 / B4b (the scan-reduce, one scan or a ragged stack, up to the grid
+form of a 200000-PU scan) and the model path's flash attention (B5:
+bfloat16 on the tensor cores, float32 on the CUDA cores) and LRU scan
+(B6, fed by TMA).  Each
 kernel's row has ``ms`` (CUDA events around back-to-back calls of the
 Python wrapper: the launch path included) and ``body_ms``
 (the kernel's own device time: every kernel's calls traced in one
@@ -22,6 +25,9 @@ Then it drives the port's two paths through their public entry points:
   made on the card and copied to a CPU model; forward, prefill, 8
   teacher-forced decode steps and a ``ServeEngine`` run, card (kernels)
   against CPU (plain versions);
+* ``vr``: the paper's VR session (its testbed: 5 edges, 3 servers; 30
+  frames, 1050 tasks; then the mult=8 fleet, 4 frames), card vs CPU, the
+  transfer kernels' path;
 * ``x8`` / ``x128``: the offline scheduler session (map -> execute) on the
   Fig. 13 mining fleet at mult=8 (card vs CPU vs the port's own reference
   event loop) and at full width, mult=128 (8448 PUs, 4608 tasks), whose
@@ -36,10 +42,13 @@ Then it drives the port's two paths through their public entry points:
 * ``serve_full``: ``repro_torch.launch.serve`` at full width (tenant
   placement on the simulated TPU fleet, then 8 requests over 4 slots).
 
-One JSON object per line; the last line is ``{"ok": true, "device":
-{...}}``.  Any failing phase raises, and the script exits non-zero without
-printing a result.  Without a CUDA device it fails at once: there is no CPU
-path.
+The phases run in the order kernels, ``model_x_smoke``, ``x8``, ``vr``,
+``x128``, ``model_full``, ``serve_full``.  ``--compare PARENT --session
+vr|x128`` instead runs a session of the tree at PARENT and of this one in
+turns, each in a fresh process.  One JSON object per line; the last line
+is ``{"ok": true, "device": {...}}``.  Any failing phase raises, and the
+script exits non-zero without printing a result.  Without a CUDA device
+it fails at once: there is no CPU path.
 """
 from __future__ import annotations
 
@@ -47,13 +56,18 @@ import argparse
 import json
 import os
 import gc
+import math
 import statistics
 import subprocess
 import sys
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
-sys.path.insert(0, os.path.join(HERE, "src"))
+# the port this process imports: this checkout's, or in a turn of
+# --compare the one of the tree that --tree names
+TREE = (os.path.abspath(sys.argv[sys.argv.index("--tree") + 1])
+        if "--tree" in sys.argv[:-1] else HERE)
+sys.path.insert(0, os.path.join(TREE, "src"))
 
 import numpy as np          # noqa: E402
 import torch                # noqa: E402
@@ -64,7 +78,8 @@ import repro_torch.core.slowdown as sd_mod                   # noqa: E402
 import repro_torch.launch.serve as serve_launch              # noqa: E402
 from repro_torch import device as rt_device                  # noqa: E402
 from repro_torch.configs import get_config                   # noqa: E402
-from repro_torch.core.workloads import mining_workload       # noqa: E402
+from repro_torch.core.workloads import (mining_workload,     # noqa: E402
+                                         vr_workload)
 from repro_torch.kernels import (build, slowdown_kernel,     # noqa: E402
                                  timeline_kernel, walk_kernel)
 from repro_torch.kernels import flash_attention as fa_kernel  # noqa: E402
@@ -144,17 +159,18 @@ def time_ms(fn, iters: int = 200, warm: int = 20) -> float:
 
 class _Body:
     """A kernel-body measurement: ``iters`` calls of ``fn``, each launching
-    the kernel whose traced name holds ``kernel`` once, traced by
+    ``per_call`` kernels whose traced names hold ``kernel``, traced by
     :func:`measure_bodies` after the last timed phase (a torch.profiler
     trace can leave later launches of its process slower, so no phase is
-    timed after one)."""
+    timed after one); the body is their device time per call."""
 
-    def __init__(self, fn, kernel: str, iters: int) -> None:
+    def __init__(self, fn, kernel: str, iters: int, per_call: int) -> None:
         self.fn, self.kernel, self.iters = fn, kernel, iters
+        self.per_call = per_call
 
 
-def body_ms(fn, kernel: str, iters: int = 200) -> _Body:
-    return _Body(fn, kernel, iters)
+def body_ms(fn, kernel: str, iters: int = 200, per_call: int = 1) -> _Body:
+    return _Body(fn, kernel, iters, per_call)
 
 
 BODY_PAUSE_S = 0.1          # device idle between two bodies' loops
@@ -216,10 +232,10 @@ def measure_bodies(rows: list[dict]) -> None:
     for d, run in zip(slots, runs):
         b = d["body_ms"]
         durs = [e - s for s, e, name in run if b.kernel in name]
-        if len(durs) < b.iters // 2:
+        if len(durs) < b.iters * b.per_call // 2:
             raise AssertionError(f"the trace shows {len(durs)} launches of "
                                  f"{b.kernel} for {b.iters} calls")
-        d["body_ms"] = sum(durs) / len(durs) / 1e6
+        d["body_ms"] = sum(durs) * b.per_call / len(durs) / 1e6
 
 
 def max_err(a: torch.Tensor, b: torch.Tensor) -> tuple[float, float]:
@@ -270,30 +286,60 @@ def check_slowdown(dev, rng) -> dict:
     n, r = 4223, 6
     nbytes = 8 * (n * r + r + 3 * n)
     flops = n * (r * 6 + 2)
+    # more classes than the kernel's registers hold: the row read in place
+    r = WIDE_R
+    x = rng.uniform(0.0, 3.0, (n, r))
+    x[rng.random((n, r)) < 0.5] = 0.0
+    wide = [torch.as_tensor(a, device=dev) for a in (
+        x, _wide_beta(rng), rng.uniform(0.05, 1.0, n), rng.uniform(0.0, 2.0, n))]
+    got = slowdown_kernel.slowdown_factors(*wide, kappa)
+    ref = slowdown_kernel.slowdown_factors_plain(*wide, kappa)
+    torch.cuda.synchronize()
+    if not _bit_equal(got, ref):
+        raise AssertionError(f"slowdown_factors N={n} R={r} is not "
+                             "bit-equal to its plain version")
+    wide_shape = dict(
+        ms=time_ms(lambda: slowdown_kernel.slowdown_factors(*wide, kappa)),
+        body_ms=body_ms(lambda: slowdown_kernel.slowdown_factors(*wide, kappa),
+                        "slowdown_factors_kernel"),
+        plain_ms=time_ms(lambda: slowdown_kernel.slowdown_factors_plain(
+            *wide, kappa), 50, 5),
+        **bound(8 * (n * r + r + 3 * n), n * (r * 6 + 2)))
     return dict(name="slowdown_factors", route="cuda",
                 source="src/repro_torch/kernels/csrc/slowdown_factors.cu",
                 replaces="src/repro/kernels/slowdown_kernel.py:47",
-                shape=f"N={n} R={r}", max_abs_err=0.0, max_rel_err=0.0,
+                shape=f"N={n} R=6", max_abs_err=0.0, max_rel_err=0.0,
                 tolerance="bit-equal", ms=ms, body_ms=body, plain_ms=plain,
-                **bound(nbytes, flops), library_ms=None)
+                **bound(nbytes, flops), library_ms=None,
+                other_shapes={f"N={n} R={WIDE_R}": wide_shape})
 
 
-# the snapshot's size at mult=128: 8448 PUs, 6 resource classes
+# the snapshot's size at mult=128: 8448 PUs, 6 resource classes; WIDE_R
+# classes: the paper's testbed with one class per storage node, past the
+# 16 a kernel keeps in registers
 SD_PUS, SD_R = 8448, 6
+WIDE_R = 44
 SD_KAPPA = 0.12
 
 
-def _sd_tables(dev, rng) -> tuple:
+def _wide_beta(rng) -> np.ndarray:
+    b = rng.uniform(0.05, 0.45, WIDE_R)
+    b[::7] = 0.0
+    return b
+
+
+def _sd_tables(dev, rng, R: int = SD_R) -> tuple:
     """Snapshot tables at mult=128's size: ``ncr_rclass`` (int16, classes
     -1..R-1 drawn at random), ``mem_cap`` (inf, some PUs capped),
-    ``mt_vec``, ``beta`` (one class inactive)."""
+    ``mt_vec``, ``beta`` (some classes inactive)."""
     g = torch.Generator(device=dev).manual_seed(int(rng.integers(1 << 30)))
-    ncr = torch.randint(-1, SD_R, (SD_PUS, SD_PUS), generator=g, device=dev,
+    ncr = torch.randint(-1, R, (SD_PUS, SD_PUS), generator=g, device=dev,
                         dtype=torch.int16)
     cap = np.full(SD_PUS, np.inf)
     cap[rng.random(SD_PUS) < 0.2] = 0.3
     mt_vec = rng.uniform(0.2, 0.5, SD_PUS)
-    beta = np.array([0.0884, 0.1330, 0.1107, 0.1786, 0.4196, 0.0])
+    beta = (np.array([0.0884, 0.1330, 0.1107, 0.1786, 0.4196, 0.0])
+            if R == SD_R else _wide_beta(rng))
     return (ncr, *(torch.as_tensor(a, device=dev)
                    for a in (cap, mt_vec, beta)))
 
@@ -325,26 +371,32 @@ def _pool_bytes(args) -> tuple[int, int]:
     P = args[1][args[0]].cpu().numpy()
     n = len(P)
     u = len(np.unique(P))
-    return 56 * n + 2 * (u * u - u) + 8 * SD_R + 8 * n, n * n + 40 * n
+    R = args[8].shape[0]
+    return 56 * n + 2 * (u * u - u) + 8 * R + 8 * n, n * n + 40 * n
 
 
-def check_slowdown_pool(dev, rng, tables) -> dict:
+def check_slowdown_pool(dev, rng, tables, wide_tables) -> dict:
     """The pool form (the DES repricing) against its plain version, bit for
     bit, at n = 2, 8, 384, 4608 members, in both modes (distinct members,
-    uid-masked), PU ties included, a NaN usage at n=384; timed at 8 (with
-    384 and 4608 beside)."""
-    for n in (2, 8, 384, 4608):
-        for args in _pool_case(dev, rng, n, tables, nan=n == 384):
-            got = slowdown_kernel.slowdown_pool(*args)
-            ref = slowdown_kernel.slowdown_pool_plain(*args)
-            torch.cuda.synchronize()
-            if not _bit_equal(got, ref):
-                raise AssertionError(f"slowdown_pool n={n} distinct="
-                                     f"{args[-1]} is not bit-equal to its "
-                                     "plain version")
+    uid-masked), PU ties included, a NaN usage at n=384, on the 6-class
+    and the 44-class table; timed at 8 (with 384 and 4608 beside, and 8
+    and 4608 at 44 classes)."""
+    for tabs in (tables, wide_tables):
+        for n in (2, 8, 384, 4608):
+            for args in _pool_case(dev, rng, n, tabs, nan=n == 384):
+                got = slowdown_kernel.slowdown_pool(*args)
+                ref = slowdown_kernel.slowdown_pool_plain(*args)
+                torch.cuda.synchronize()
+                if not _bit_equal(got, ref):
+                    raise AssertionError(
+                        f"slowdown_pool n={n} R={args[8].shape[0]} distinct="
+                        f"{args[-1]} is not bit-equal to its plain version")
     shapes = {}
-    for n, plain_iters in ((8, 50), (384, 10), (4608, 2)):
-        args = _pool_case(dev, rng, n, tables)[0]
+    for n, plain_iters, tabs in ((8, 50, tables), (384, 10, tables),
+                                 (4608, 2, tables), ("R=44 n=8", 50, wide_tables),
+                                 ("R=44 n=4608", 2, wide_tables)):
+        args = _pool_case(dev, rng, n if isinstance(n, int)
+                          else int(n.split("=")[-1]), tabs)[0]
 
         def fn(args=args):
             return slowdown_kernel.slowdown_pool(*args)
@@ -364,7 +416,8 @@ def check_slowdown_pool(dev, rng, tables) -> dict:
                 shape="n=8 members, 8448-PU snapshot", max_abs_err=0.0,
                 max_rel_err=0.0, tolerance="bit-equal", **shapes[8],
                 library_ms=None, other_shapes={
-                    f"n={n}": shapes[n] for n in (384, 4608)})
+                    (f"n={n}" if isinstance(n, int) else n): shapes[n]
+                    for n in (384, 4608, "R=44 n=8", "R=44 n=4608")})
 
 
 def _sd_view(dev, rng, A, per_dev=6):
@@ -427,32 +480,39 @@ def _sd_bytes(items, R=SD_R) -> tuple[int, int]:
     return nbytes, ops
 
 
-def check_slowdown_same_device(dev, rng, tables) -> dict:
+def check_slowdown_same_device(dev, rng, tables, wide_tables) -> dict:
     """The same-device form (the walk's constraint checks) against its
     plain version, bit for bit, on ragged stacks over views of A = 2, 8,
     384 and 4608 actives (single- and several-device items, an empty
-    device, a candidate with no same-device active, a dead pair); timed
-    on a wave-depth stack of 16 single-device items over 8-active device
-    views, and on the several-device stack at A=4608."""
+    device, a candidate with no same-device active, a dead pair), on the
+    6-class and the 44-class table; timed on a wave-depth stack of 16
+    single-device items over 8-active device views, and on the
+    several-device stack at A=4608 (and the wave at 44 classes)."""
     ncr, cap, mt_vec, beta = tables
     tail = (mt_vec, beta, cap, ncr, SD_KAPPA)
-    for A in (2, 8, 384, 4608):
-        items, _ = _sd_stack(dev, rng, A)
-        got = slowdown_kernel.slowdown_same_device(items, *tail)
-        ref = slowdown_kernel.slowdown_same_device_plain(items, *tail)
-        torch.cuda.synchronize()
-        for i, (g, r) in enumerate(zip(got, ref)):
-            if not all(_bit_equal(a, b) for a, b in zip(g, r)):
-                raise AssertionError(f"slowdown_same_device A={A} item {i} "
-                                     "is not bit-equal to its plain version")
+    wncr, wcap, wmt_vec, wbeta = wide_tables
+    wide_tail = (wmt_vec, wbeta, wcap, wncr, SD_KAPPA)
+    for tl in (tail, wide_tail):
+        for A in (2, 8, 384, 4608):
+            items, _ = _sd_stack(dev, rng, A)
+            got = slowdown_kernel.slowdown_same_device(items, *tl)
+            ref = slowdown_kernel.slowdown_same_device_plain(items, *tl)
+            torch.cuda.synchronize()
+            for i, (g, r) in enumerate(zip(got, ref)):
+                if not all(_bit_equal(a, b) for a, b in zip(g, r)):
+                    raise AssertionError(
+                        f"slowdown_same_device A={A} R={tl[1].shape[0]} "
+                        f"item {i} is not bit-equal to its plain version")
     wave = [_sd_stack(dev, rng, 8)[0][0] for _ in range(16)]
     big = _sd_stack(dev, rng, 4608)[0][2:]
     shapes = {}
-    for label, items, plain_iters in (("wave", wave, 20), ("big", big, 2)):
-        def fn(items=items):
+    for label, items, plain_iters, tl in (
+            ("wave", wave, 20, tail), ("big", big, 2, tail),
+            ("wide", wave, 20, wide_tail)):
+        def fn(items=items, tail=tl):
             return slowdown_kernel.slowdown_same_device(items, *tail)
 
-        def plain_fn(items=items):
+        def plain_fn(items=items, tail=tl):
             return slowdown_kernel.slowdown_same_device_plain(items, *tail)
         shapes[label] = dict(
             ms=time_ms(fn), body_ms=body_ms(fn, "slowdown_same_device_kernel"),
@@ -466,7 +526,8 @@ def check_slowdown_same_device(dev, rng, tables) -> dict:
                 shape="16 single-device items, 6 candidates x 8 actives",
                 max_abs_err=0.0, max_rel_err=0.0, tolerance="bit-equal",
                 **shapes["wave"], library_ms=None, other_shapes={
-                    "3 several-device items over 4608 actives": shapes["big"]})
+                    "3 several-device items over 4608 actives": shapes["big"],
+                    f"the wave at R={WIDE_R}": shapes["wide"]})
 
 
 def _ra_inputs(dev, rng, n):
@@ -616,7 +677,150 @@ def check_segment_min(dev, rng) -> dict:
                 **bound(nbytes, K), library_ms=lib)
 
 
+# the transfer table: 8192 slots (the VR session's transfers, grown by
+# doubling), 64 edges; a flush reprices 1 to 4608 of them
+XFER_SLOTS, XFER_EDGES = 8192, 64
+XTOL = 1e-6
+
+
+def _xfer_state(rng):
+    """Transfer columns (xW, xrate, xt_last, xeta, xstamp), CSR rows
+    (xe_flat, xe_start, xe_cnt: routes of 0-6 edges, starts offset), the
+    edge table (edge_bw with zero-bandwidth edges and a NaN one, edge_mem)
+    and the new counts of some edges: numpy arrays."""
+    cnt = rng.integers(0, 7, XFER_SLOTS)
+    cnt[::50] = 0
+    start = np.cumsum(cnt) - cnt + 5
+    flat = rng.integers(0, XFER_EDGES, int(cnt.sum()) + 5)
+    bw = rng.uniform(1e6, 1e9, XFER_EDGES)
+    bw[::9] = 0.0
+    bw[4] = np.nan
+    mem = rng.integers(0, 6, XFER_EDGES)
+    W = rng.uniform(0.0, 5e6, XFER_SLOTS)
+    W[::4] = 0.0
+    rate = rng.uniform(1e5, 1e8, XFER_SLOTS)
+    rate[::7] = 0.0
+    t_last = rng.uniform(0.0, 1.0, XFER_SLOTS)
+    rate[1::97] = np.inf
+    t_last[1::97] = 1.5
+    cols = [W, rate, t_last, rng.uniform(0.0, 9.0, XFER_SLOTS),
+            rng.integers(0, 1000, XFER_SLOTS) // 3]
+    return cols, [flat, start, cnt], bw, mem
+
+
+def _xfer_calls(dev, rng, n):
+    """The two fused transfer forms over n distinct slots and their plain
+    versions, each on a copy of one state: (reprice, reprice plain,
+    complete, complete plain, the copies, the route shares' layout)."""
+    cols, csr, bw, mem = _xfer_state(rng)
+    ks = np.sort(rng.permutation(XFER_SLOTS)[:n])
+    upd = np.sort(rng.permutation(XFER_EDGES)[:int(rng.integers(0, 9))])
+    upd_c = rng.integers(0, 6, len(upd))
+    cuda = [torch.as_tensor(a, device=dev) for a in (*cols, *csr, bw, mem)]
+    ks_t, upd_t, updc_t = (torch.as_tensor(a, device=dev)
+                           for a in (ks, upd, upd_c))
+    done = ks_t[torch.argsort(cuda[4][ks_t], stable=True)]
+    rk, rp, ck, cp = ([c.clone() for c in cuda] for _ in range(4))
+    tk = timeline_kernel
+    new_mem = mem.copy()
+    new_mem[upd] = upd_c
+    return (lambda: tk.transfer_reprice(*rk, ks_t, upd_t, updc_t, 1.5, 77),
+            lambda: tk.transfer_reprice_plain(*rp, ks_t, upd_t, updc_t, 1.5,
+                                              77),
+            lambda: tk.transfer_complete(*ck[:4], done, 1.5, XTOL),
+            lambda: tk.transfer_complete_plain(*cp[:4], done, 1.5, XTOL),
+            (rk, rp, ck, cp), (csr, bw, new_mem, ks, len(upd)))
+
+
+def _bits(t: torch.Tensor) -> torch.Tensor:
+    return t.view(torch.int64) if t.dtype == torch.float64 else t
+
+
+def _route_entries(layout) -> np.ndarray:
+    """The route edges of the affected transfers, in slot order."""
+    (flat, start, cnt), _, _, ks, _ = layout
+    return np.concatenate([flat[start[k]:start[k] + cnt[k]] for k in ks])
+
+
+def check_transfer(dev, rng) -> list[dict]:
+    """B3 with B2's transfer form: the two fused in-place transfer kernels
+    against their plain versions (the unfused op sequence), bit for bit
+    (every column, the edge column and the completion pairs), at n = 1,
+    16, 384 and 4608 affected transfers, routes of 0-6 edges, zero- and
+    NaN-bandwidth edges, zero and infinite old rates, stamp ties; timed
+    at 16 (with 384 and 4608 beside).  ``library_ms``: torch.segment_reduce
+    over the same route shares laid out contiguously, the segment-min
+    part alone."""
+    for n in (1, 16, 384, 4608):
+        rk, rp, ck, cp, (a, b, c, d), _ = _xfer_calls(dev, rng, n)
+        rk()
+        rp()
+        pk = ck()
+        pp = cp()
+        torch.cuda.synchronize()
+        for name, got, ref in (("transfer_reprice", a, b),
+                               ("transfer_complete", c[:4] + [pk],
+                                d[:4] + [pp])):
+            if not all(torch.equal(_bits(x), _bits(y))
+                       for x, y in zip(got, ref)):
+                raise AssertionError(f"{name} at n={n} is not bit-equal to "
+                                     "its plain version")
+    out = []
+    for name, idx in (("transfer_reprice", 0), ("transfer_complete", 2)):
+        shapes = {}
+        for n in (16, 384, 4608):
+            calls = _xfer_calls(dev, rng, n)
+            kern, plain_fn = calls[idx], calls[idx + 1]
+            (_, _, cnt), bw, mem, ks, u = calls[5]
+            entries = _route_entries(calls[5])
+            if idx == 0:
+                # per transfer its slot, CSR row, the settle columns read
+                # and written, rate, eta and stamp written (88 bytes); 8 per
+                # route entry, 16 per distinct edge read, 24 per changed
+                # count; a division and a compare per entry
+                cost = bound(88 * n + 8 * len(entries)
+                             + 16 * len(np.unique(entries)) + 24 * u,
+                             3 * len(entries) + 8 * n)
+                # the yardstick: the segment-min of the same shares
+                shares = torch.as_tensor(
+                    bw[entries] / np.maximum(mem[entries], 1), device=dev)
+                lengths = torch.as_tensor(cnt[ks], device=dev)
+                cost["library_ms"] = time_ms(
+                    lambda: torch.segment_reduce(shares, "min",
+                                                 lengths=lengths,
+                                                 initial=float("inf")))
+            else:
+                # per transfer its slot, the settle columns, eta and its
+                # pair (72 bytes)
+                cost = dict(bound(72 * n, 5 * n), library_ms=None)
+            shapes[n] = dict(
+                ms=time_ms(kern), body_ms=body_ms(kern, f"{name}_kernel"),
+                plain_ms=time_ms(plain_fn, 50, 5), **cost)
+        out.append(dict(
+            name=name, route="cuda",
+            source="src/repro_torch/kernels/csrc/transfer.cu",
+            replaces=("src/repro/kernels/timeline_kernel.py:109 and :59 "
+                      "(segment_min_pallas and rate_advance_pallas at the "
+                      "transfer reprice, src/repro/core/timeline.py _flush)"
+                      if idx == 0 else
+                      "src/repro/kernels/timeline_kernel.py:59 "
+                      "(rate_advance_pallas at the transfer completions, "
+                      "src/repro/core/timeline.py _complete_transfers)"),
+            shape="N=16 affected transfers", max_abs_err=0.0,
+            max_rel_err=0.0, tolerance="bit-equal", **shapes[16],
+            library_call=("torch.segment_reduce (min), the segment-min part"
+                          if idx == 0 else "none exists"),
+            other_shapes={f"N={n}": shapes[n] for n in (384, 4608)}))
+    return out
+
+
 LQC = 5e-6                  # the walk's local query cost
+# a root scan past one block (the mining fleet at mult ~3030): 40000
+# device nodes of 5 PUs; its overhead held to the bound the block form
+# showed against the plain version (6e-14 relative), here against the
+# exactly rounded sum
+GRID_SCAN = (40000, 5)
+GRID_REL_TOL = 6e-14
 
 
 def _scan_case(rng, n_dev, per_dev, mode):
@@ -648,8 +852,27 @@ def _scan_case(rng, n_dev, per_dev, mode):
 def _scan_stack(dev, rng, shapes, modes):
     """A ragged stack: the concatenated columns on the card, the plan pool
     (one plan per scan) and the per-scan offsets."""
-    cases = [_scan_case(rng, nd, pd, modes[i % len(modes)])
-             for i, (nd, pd) in enumerate(shapes)]
+    return _stack_of(dev, [_scan_case(rng, nd, pd, modes[i % len(modes)])
+                           for i, (nd, pd) in enumerate(shapes)])
+
+
+def _exact_overhead(case) -> float:
+    """The exactly rounded sum of one scan's feasible node terms (each
+    term rounded as the kernel and the plain version round it), 0 when
+    its root is infeasible."""
+    (ok, *_), (lo, hi, leaf, _, hop, dep) = case
+    P = len(ok)
+    cs = np.concatenate([[0], np.cumsum(ok)])
+    feas = cs[np.minimum(hi, P)] > cs[np.minimum(lo, P)]
+    if not feas[0]:
+        return 0.0
+    terms = np.asarray(hop) + LQC * np.asarray(leaf, dtype=np.float64) \
+        * (np.asarray(dep) + 1.0)
+    return math.fsum(terms[feas])
+
+
+def _stack_of(dev, cases):
+    """:func:`_scan_stack` of given numpy cases."""
     cols = [torch.as_tensor(np.concatenate(c), device=dev)
             for c in zip(*[c for c, _ in cases])]
     pool = [sum((list(p[j]) for _, p in cases), []) for j in range(6)]
@@ -723,8 +946,53 @@ def check_scan_reduce(dev, rng) -> list[dict]:
         torch.cuda.synchronize()
         e = _rows_agree(got, ref, f"scan_reduce_batch (rotation {rot})")
         bworst = (max(bworst[0], e[0]), max(bworst[1], e[1]))
+    # past one block's 131072 PUs: the grid form, alone and in a stack.
+    # Decisions and gathered columns exact against the plain version, the
+    # overhead within REL_TOL of the plain version's (the rows' worst) and
+    # within GRID_REL_TOL of the exactly rounded sum of its feasible terms
+    # (the plain version's own sum of 40000 equal terms drifts further
+    # from it)
+    grid_err = {"kernel": 0.0, "plain": 0.0}
+
+    def exact_err(val, case):
+        ex = _exact_overhead(case)
+        return abs(val - ex) / abs(ex) if ex else abs(val)
+    cases = [_scan_case(rng, *GRID_SCAN, mode) for mode in modes]
+    for case, mode in zip(cases, modes):
+        args = [torch.as_tensor(c, device=dev) for c in case[0]]
+        arr = walk_kernel.ScanPlanArrays.from_lists(*case[1], dev)
+        got = walk_kernel.scan_reduce(*args, arr, LQC)
+        ref = _one_scan_plain(args, arr)
+        torch.cuda.synchronize()
+        e = _rows_agree(got, ref, f"scan_reduce P={len(case[0][0])} {mode}")
+        worst = (max(worst[0], e[0]), max(worst[1], e[1]))
+        grid_err["kernel"] = max(grid_err["kernel"],
+                                 exact_err(float(got[3]), case))
+        grid_err["plain"] = max(grid_err["plain"],
+                                exact_err(float(ref[3]), case))
+    stack = [_scan_case(rng, 1, 6, "plain"), cases[0],
+             _scan_case(rng, 1, 1, "ties"), _scan_case(rng, 24, 6, "allinf"),
+             cases[1]]
+    cols, arr, offs = _stack_of(dev, stack)
+    got = walk_kernel.scan_reduce_batch(*cols, arr, offs, LQC)
+    ref = walk_kernel.scan_reduce_batch_plain(
+        *cols, *arr.tensors(), torch.as_tensor(offs, dtype=torch.int64,
+                                               device=dev), LQC)
+    torch.cuda.synchronize()
+    e = _rows_agree(got, ref, "scan_reduce_batch with grid-form scans")
+    bworst = (max(bworst[0], e[0]), max(bworst[1], e[1]))
+    for i, case in enumerate(stack):
+        grid_err["kernel"] = max(grid_err["kernel"],
+                                 exact_err(float(got[i, 3]), case))
+        grid_err["plain"] = max(grid_err["plain"],
+                                exact_err(float(ref[i, 3]), case))
+    if not grid_err["kernel"] <= GRID_REL_TOL:
+        raise AssertionError(f"grid-form overhead {grid_err['kernel']} "
+                             f"relative to the exact sum, over {GRID_REL_TOL}")
     single = {}
-    for label, n_dev, per_dev in (("P=6", 1, 6), ("P=8448", 1408, 6)):
+    for label, n_dev, per_dev in (("P=6", 1, 6), ("P=8448", 1408, 6),
+                                  (f"P={GRID_SCAN[0] * GRID_SCAN[1]}",
+                                   *GRID_SCAN)):
         cols, plan = _scan_case(rng, n_dev, per_dev, "plain")
         args = [torch.as_tensor(c, device=dev) for c in cols]
         arr = walk_kernel.ScanPlanArrays.from_lists(*plan, dev)
@@ -735,17 +1003,27 @@ def check_scan_reduce(dev, rng) -> list[dict]:
 
         def plain_fn(args=args, arr=arr):
             return _one_scan_plain(args, arr)
+        grid = P > walk_kernel.BLOCK_MAX_P
         single[label] = dict(
-            ms=time_ms(fn), body_ms=body_ms(fn, "scan_reduce_batch_kernel"),
-            plain_ms=time_ms(plain_fn, 50, 5),
+            ms=time_ms(fn, 50 if grid else 200),
+            body_ms=(body_ms(fn, "big_", 50, per_call=4) if grid else
+                     body_ms(fn, "scan_reduce_batch_kernel")),
+            plain_ms=time_ms(plain_fn, 10 if grid else 50, 2 if grid else 5),
             **bound(_scan_bytes(P, Nn, plain_fn(), False), 2 * P + 6 * Nn))
+    grid_label = f"P={GRID_SCAN[0] * GRID_SCAN[1]}"
+    single[grid_label]["form"] = "grid (four launches)"
     rows = [dict(
         name="scan_reduce", route="cuda",
         source="src/repro_torch/kernels/csrc/scan_reduce.cu",
         replaces="src/repro/kernels/walk_kernel.py:150",
         shape="P=6 (device scan), a stack of one", max_abs_err=worst[0],
-        max_rel_err=worst[1], **single["P=6"], library_ms=None,
-        other_shapes={"P=8448": single["P=8448"]})]
+        max_rel_err=worst[1],
+        grid_form_overhead_rel_err_to_exact_sum=grid_err["kernel"],
+        grid_form_tolerance=GRID_REL_TOL,
+        plain_overhead_rel_err_to_exact_sum=grid_err["plain"],
+        **single["P=6"], library_ms=None,
+        other_shapes={"P=8448": single["P=8448"],
+                      grid_label: single[grid_label]})]
     # the phase-1 wave at mult=128: 1152 device scans of 6 PUs, each with
     # its own one-node plan
     S = 1152
@@ -990,9 +1268,17 @@ def bound(nbytes: int, flops: int, peak: float = FP64_FLOPS) -> dict:
 # ---------------------------------------------------------------------------
 # the main path
 # ---------------------------------------------------------------------------
-SCHED_KERNELS = ("slowdown_pool", "slowdown_same_device", "rate_advance",
-                 "settle_reprice", "settle_complete", "segment_min",
+SCHED_KERNELS = ("slowdown_pool", "slowdown_same_device", "settle_reprice",
+                 "settle_complete", "transfer_reprice", "transfer_complete",
                  "scan_reduce", "scan_reduce_batch")
+# kernels held against their plain versions that no path runs any more:
+# the engine's transfer sites run the fused transfer_reprice and
+# transfer_complete in their place
+OFF_PATH_KERNELS = {"rate_advance": "transfer_reprice, transfer_complete",
+                    "segment_min": "transfer_reprice"}
+# the transfer kernels' launches are counted on their own path, the VR
+# session (the mining session's transfers all start and end together)
+VR_KERNELS = ("transfer_reprice", "transfer_complete")
 MODEL_KERNELS = ("flash_attention", "lru_scan")
 
 
@@ -1021,6 +1307,26 @@ def run_session(mult: int, device, seed: int):
     t0 = time.perf_counter()
     tb = core.build_testbed(edge_counts=ec, server_counts=sc, device=device)
     cfg = mining_workload(tb, n_sensors=12 * mult, n_readings=1)
+    return _drive(tb, cfg, seed, t0)
+
+
+def run_vr(mult, n_frames: int, device, seed: int):
+    """The paper's VR discipline: build_testbed (its default 5 edges and 3
+    servers, or the mining fleet's ratios at ``mult``) -> vr_workload ->
+    build_orchestrators -> SchedulerSession.map_pending / execute.
+    Returns what :func:`run_session` returns."""
+    t0 = time.perf_counter()
+    if mult is None:
+        tb = core.build_testbed(device=device)
+    else:
+        ec, sc = mining_counts(mult)
+        tb = core.build_testbed(edge_counts=ec, server_counts=sc,
+                                device=device)
+    cfg = vr_workload(tb, n_frames=n_frames)
+    return _drive(tb, cfg, seed, t0)
+
+
+def _drive(tb, cfg, seed: int, t0: float):
     g = tb.graph
     root = core.build_orchestrators(g, core.heye_traverser(g))
     truth = core.ground_truth_traverser(
@@ -1051,16 +1357,7 @@ def session_x8(seed: int) -> dict:
     gs, gcfg, gg, gsess, gsecs = run_session(8, None, seed)
     counts = read_counts()
     cs, ccfg, _, _, csecs = run_session(8, "cpu", seed)
-    gm, gf = by_order(gs, gcfg)
-    cm, cf = by_order(cs, ccfg)
-    if gm != cm:
-        bad = [i for i, (a, b) in enumerate(zip(gm, cm)) if a != b]
-        raise AssertionError(f"x8: card and CPU placements differ at {bad[:5]}")
-    if len(gs.unmapped) != len(cs.unmapped):
-        raise AssertionError("x8: card and CPU unmapped counts differ")
-    dt = max(abs(a - b) for a, b in zip(gf, cf))
-    if not dt <= T_TOL:
-        raise AssertionError(f"x8: card vs CPU finish times differ by {dt}")
+    dt = _card_vs_cpu("x8", gs, gcfg, cs, ccfg)
     # the port's fused engine against the port's own reference event loop,
     # same mapping, each with a fresh generator from the same seed
     trav = core.ground_truth_traverser(gg, rng=np.random.default_rng(seed))
@@ -1074,6 +1371,59 @@ def session_x8(seed: int) -> dict:
                 max_finish_diff_fused_vs_reference=de, tolerance=T_TOL,
                 unmapped=len(gs.unmapped), cuda=gsecs, cpu=csecs,
                 launches=counts)
+
+
+def _card_vs_cpu(what: str, gs, gcfg, cs, ccfg) -> float:
+    """Placements identical, nothing unmapped, finish times within T_TOL;
+    returns the largest finish-time difference."""
+    gm, gf = by_order(gs, gcfg)
+    cm, cf = by_order(cs, ccfg)
+    if gm != cm:
+        bad = [i for i, (a, b) in enumerate(zip(gm, cm)) if a != b]
+        raise AssertionError(f"{what}: card and CPU placements differ at "
+                             f"{bad[:5]}")
+    if gs.unmapped or cs.unmapped:
+        raise AssertionError(f"{what}: {len(gs.unmapped)} tasks unmapped on "
+                             f"the card, {len(cs.unmapped)} on the CPU")
+    dt = max(abs(a - b) for a, b in zip(gf, cf))
+    if not dt <= T_TOL:
+        raise AssertionError(f"{what}: card vs CPU finish times differ by "
+                             f"{dt}")
+    return dt
+
+
+# the VR phase: the paper's testbed at its 30 frames (1050 tasks), then
+# the mining fleet's ratios at mult=8 (80 edges, 24 servers) for 4 frames
+VR_RUNS = (("paper", None, 30), ("x8", 8, 4))
+
+
+def session_vr(seed: int) -> tuple[dict, dict]:
+    """The VR session on the card and on the CPU, through the public entry
+    points: placements identical, finish times within 1e-9, nothing
+    unmapped, both fused transfer kernels launched on the card.  Returns
+    the phase's line and the paper run's launch counts."""
+    out: dict = {}
+    first = None
+    for label, mult, frames in VR_RUNS:
+        reset_counts()
+        gs, gcfg, g, _, gsecs = run_vr(mult, frames, None, seed)
+        counts = read_counts()
+        syncs = rt_device.sync_count()
+        cs, ccfg, _, _, csecs = run_vr(mult, frames, "cpu", seed)
+        dt = _card_vs_cpu(f"vr {label}", gs, gcfg, cs, ccfg)
+        for name in VR_KERNELS:
+            if counts[name] <= 0:
+                raise AssertionError(f"vr {label}: {name} was never launched")
+        if first is None:
+            first = counts
+        out[label] = dict(
+            mult=mult, pus=len(g.compiled().pu_names), frames=frames,
+            tasks=len(gcfg), mapped=len(gs.mapping),
+            unmapped=len(gs.unmapped), placements_identical=True,
+            max_finish_diff_cuda_vs_cpu=dt, tolerance=T_TOL, cuda=gsecs,
+            cpu=csecs, qos_failures=gs.qos_failures(gcfg),
+            device_to_host_syncs=syncs, launches=counts)
+    return out, first
 
 
 def _spread(xs: list) -> dict:
@@ -1530,6 +1880,71 @@ def profile_model(seed: int, out: str) -> None:
             written=path))
 
 
+def session_turn(kind: str, seed: int) -> dict:
+    """One turn of :func:`compare`, in a process of its own on the port of
+    the tree ``--tree`` names, through the entry points both trees share:
+    a small warm-up session, the timed one (``kind`` "vr": the paper's
+    testbed at 30 frames, warm-up 2; "x128": the mining fleet at full
+    width, warm-up mult=8), then the timed one once more under
+    torch.profiler for its device-op count."""
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as tprofile
+
+    def run(small: bool):
+        if kind == "vr":
+            return run_vr(None, 2 if small else 30, None, seed)
+        return run_session(8 if small else FULL_MULT, None, seed)
+    run(True)
+    stats, cfg, _, _, secs = run(False)
+    with tprofile(activities=[ProfilerActivity.CUDA]) as prof:
+        run(False)
+        torch.cuda.synchronize()
+    placements, finish = by_order(stats, cfg)
+    return dict(secs, tasks=len(cfg), unmapped=len(stats.unmapped),
+                placements=placements, finish=finish,
+                device_ops=len(_device_events(prof)))
+
+
+def compare(parent: str, kind: str, pairs: int, seed: int) -> None:
+    """Parent tree against this one on one session (``kind`` "vr" or
+    "x128"), each run a :func:`session_turn` in a fresh process, in turns
+    (parent, change, change, parent, ...) for ``pairs`` pairs: map and
+    execute seconds per run, each tree's device-op count, and the results
+    held equal (placements identical, finish times within 1e-9)."""
+    trees = {"parent": os.path.abspath(parent), "change": HERE}
+    order = [("parent", "change") if i % 2 == 0 else ("change", "parent")
+             for i in range(pairs)]
+    runs: dict = {"parent": [], "change": []}
+    for turn in order:
+        for name in turn:
+            out = subprocess.run(
+                [sys.executable, os.path.abspath(__file__), "--session-turn",
+                 kind, "--seed", str(seed), "--tree", trees[name]],
+                capture_output=True, text=True, check=True).stdout
+            r = json.loads(out.strip().splitlines()[-1])["session_turn"]
+            runs[name].append(r)
+            emit("compare_turn", dict(
+                tree=name, session=kind, map_pending_s=r["map_pending_s"],
+                execute_s=r["execute_s"], device_ops=r["device_ops"]))
+    ref = runs["parent"][0]
+    for r in runs["parent"] + runs["change"]:
+        dt = max(abs(a - b) for a, b in zip(r["finish"], ref["finish"]))
+        if r["placements"] != ref["placements"] or not dt <= T_TOL \
+                or r["unmapped"]:
+            raise AssertionError(f"compare {kind}: the trees' sessions "
+                                 "differ")
+    summary = {}
+    for key in ("map_pending_s", "execute_s", "device_ops"):
+        p = [r[key] for r in runs["parent"]]
+        c = [r[key] for r in runs["change"]]
+        summary[key] = dict(parent=p, change=c,
+                            parent_median=statistics.median(p),
+                            change_median=statistics.median(c),
+                            change_lower_pairs=sum(b < a for a, b in
+                                                   zip(p, c)))
+    emit(f"compare_{kind}", dict(pairs=pairs, tasks=ref["tasks"], **summary))
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--seed", type=int, default=0)
@@ -1543,10 +1958,23 @@ def main() -> None:
                          "full width (bf16 prefill and decode: device busy "
                          "share, kernels by device time) into --out; prints "
                          "no ok line")
+    ap.add_argument("--compare", default=None, metavar="PARENT",
+                    help="instead of the checks: a session of the tree at "
+                         "PARENT against this one's, in turns, each run in "
+                         "a fresh process; prints no ok line")
+    ap.add_argument("--session", default="vr", choices=("vr", "x128"),
+                    help="the session --compare runs")
+    ap.add_argument("--pairs", type=int, default=4,
+                    help="parent/change pairs of --compare")
+    ap.add_argument("--session-turn", default=None, choices=("vr", "x128"),
+                    help="one turn of --compare: the session's line, on the "
+                         "port of --tree")
+    ap.add_argument("--tree", default=HERE,
+                    help="the tree whose port --session-turn runs")
     ap.add_argument("--out", default="profile_out",
                     help="directory for the profiles' files")
     ap.add_argument("--stop-after", default=None,
-                    choices=("kernels", "model_x_smoke", "x8", "x128",
+                    choices=("kernels", "model_x_smoke", "x8", "vr", "x128",
                              "model_full"),
                     help="debugging: end (without the ok line) after a phase")
     args = ap.parse_args()
@@ -1556,6 +1984,9 @@ def main() -> None:
     # float32 means float32: no TF32 in matmuls or convolutions
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if args.session_turn:
+        emit("session_turn", session_turn(args.session_turn, args.seed))
+        return
     t_start = time.perf_counter()
     dev = torch.device("cuda", 0)
     smi = subprocess.run(
@@ -1578,6 +2009,9 @@ def main() -> None:
     if args.profile_model:
         profile_model(args.seed, args.out)
         raise SystemExit("profiling run: no result line")
+    if args.compare:
+        compare(args.compare, args.session, args.pairs, args.seed)
+        raise SystemExit("comparison run: no result line")
     phases: dict = {}
     mark = [time.perf_counter()]
 
@@ -1597,11 +2031,14 @@ def main() -> None:
 
     rng = np.random.default_rng(args.seed)
     tables = _sd_tables(dev, rng)
-    kernels = [check_slowdown(dev, rng), check_slowdown_pool(dev, rng, tables),
-               check_slowdown_same_device(dev, rng, tables),
+    wide_tables = _sd_tables(dev, rng, WIDE_R)
+    kernels = [check_slowdown(dev, rng),
+               check_slowdown_pool(dev, rng, tables, wide_tables),
+               check_slowdown_same_device(dev, rng, tables, wide_tables),
                check_rate_advance(dev, rng),
                *check_settle(dev, rng), check_segment_min(dev, rng),
-               *check_scan_reduce(dev, rng)]
+               *check_transfer(dev, rng), *check_scan_reduce(dev, rng)]
+    del tables, wide_tables
     for k in kernels:
         if not (k["max_rel_err"] <= REL_TOL):
             raise AssertionError(
@@ -1623,6 +2060,10 @@ def main() -> None:
     emit("session_x8", session_x8(args.seed))
     done("x8")
     stop("x8")
+    vr, vcounts = session_vr(args.seed)
+    emit("session_vr", vr)
+    done("vr")
+    stop("vr")
     full, counts = session_full(args.seed)
     emit(f"session_x{FULL_MULT}", full)
     done(f"x{FULL_MULT}")
@@ -1641,8 +2082,12 @@ def main() -> None:
 
     # launches: each kernel's count from the run of its own path
     for k in kernels:
-        k["launches"] = (mcounts if k["name"] in MODEL_KERNELS
+        k["launches"] = (mcounts if k["name"] in MODEL_KERNELS else
+                         vcounts if k["name"] in VR_KERNELS
                          else counts)[k["name"]]
+        if k["name"] in OFF_PATH_KERNELS:
+            k["on_main_path"] = False
+            k["path_runs_instead"] = OFF_PATH_KERNELS[k["name"]]
     emit("total", dict(seconds=time.perf_counter() - t_start,
                        phases=phases))
     print(smi, flush=True)

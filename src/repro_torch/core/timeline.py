@@ -22,9 +22,14 @@ identical; what changes is the representation and the unit of work:
   and one launch of the fused settle-reprice kernel, both in place on
   the job columns.
 * **Batched link repricing** — the bottleneck share of each affected
-  transfer is a segment-min over its route edges, evaluated for the
-  whole dirty set at once by the segment-min kernel, which consumes the
-  CSR route-edge layout where it lies on the device.
+  transfer is the min over its route edges' fair shares, evaluated for
+  the whole dirty set in one launch of the fused transfer-reprice
+  kernel, which walks the CSR route-edge rows where they lie on the
+  device, stamps, settles and re-projects every affected transfer in
+  place, and lands the flush's changed per-edge member counts in the
+  device's edge column (one packed upload: the affected slots, the
+  changed edges, their counts).  A timestamp's finished transfers
+  settle in one launch of the fused transfer-complete kernel.
 
 Host and device: the control plane is host Python — the event heap,
 dependency lists, tenancy counters, dirty sets, per-slot scalars that
@@ -172,6 +177,8 @@ class TimelineEngine:
                 ("U", 1.0), ("memraw", 1.0))
     _JCOLS_I = ("cstamp", "pu_i", "uid_col")
     _XCOLS_F = (("xW", 0.0), ("xrate", 1.0), ("xt_last", 0.0), ("xeta", _INF))
+    # reprice stamps and each transfer's CSR row (start, count) in xe_flat
+    _XCOLS_I = ("xstamp", "xe_start_col", "xe_cnt_col")
 
     def _grow_cols(self, fcols, icols, cap: int) -> None:
         """Reallocate device columns at ``cap`` slots.  Fresh slots carry
@@ -196,7 +203,7 @@ class TimelineEngine:
         self._grow_cols(self._JCOLS_F, self._JCOLS_I, cap)
 
     def _xgrow(self, cap: int) -> None:
-        self._grow_cols(self._XCOLS_F, ("xstamp",), cap)
+        self._grow_cols(self._XCOLS_F, self._XCOLS_I, cap)
 
     def _init_state(self) -> None:
         g = self.graph
@@ -253,22 +260,26 @@ class TimelineEngine:
         self.xconsumer: list[int] = []
         self.xlat: list[float] = []
         # per-transfer route edges in CSR form on the device:
-        # xe_flat[xe_start[k] : xe_start[k] + xe_cnt[k]] are transfer k's
-        # edge indices (host mirrors: xe_edges / xe_start / xe_cnt)
+        # xe_flat[xe_start_col[k] : xe_start_col[k] + xe_cnt_col[k]] are
+        # transfer k's edge indices (host mirrors: xe_edges / xe_start /
+        # xe_cnt)
         self.xe_flat = torch.zeros(256, dtype=INT, device=self.device)
         self.xe_top = 0
         self.xe_edges: list[list[int]] = []
         self.xe_start: list[int] = []
         self.xe_cnt: list[int] = []
         self._xe_synced = 0          # transfers whose CSR rows are on device
-        self._xe_start_arr: Optional[torch.Tensor] = None
-        self._xe_cnt_arr: Optional[torch.Tensor] = None
         # transfer launches queued for the next batched write: (k, bytes, t)
         self._pend_x: list[tuple[int, float, float]] = []
         self.edge_idx: dict[int, int] = {}
         self.edge_objs: list[EdgeAttr] = []
         self.edge_bw: list[float] = []
+        # device copies of edge_bw / edge_members, rebuilt whole when a
+        # route brings new edges; between rebuilds the counts of the edges
+        # in _edge_unsynced land with the next transfer reprice
         self._edge_bw_arr: Optional[torch.Tensor] = None
+        self._edge_mem_arr: Optional[torch.Tensor] = None
+        self._edge_unsynced: set[int] = set()
         self.edge_members: list[int] = []
         self.edge_xfers: dict[int, set[int]] = {}
         self.route_cache: dict[tuple[str, str], tuple[list[int], float]] = {}
@@ -568,24 +579,30 @@ class TimelineEngine:
                 while cap < self.xn:
                     cap *= 2
                 self._xgrow(cap)
-            idx = i64([p[0] for p in self._pend_x], dev)
-            self.xW[idx] = f64([p[1] for p in self._pend_x], dev)
-            self.xt_last[idx] = f64([p[2] for p in self._pend_x], dev)
+            # the queued launches are the new slots [lo, xn), in order
+            lo, hi = self._xe_synced, self.xn
+            m = hi - lo
+            pend = self._pend_x
+            assert pend[0][0] == lo and len(pend) == m
             self._pend_x = []
-            # CSR rows of the new transfers
-            lo = self._xe_synced
+            flts = f64([p[1] for p in pend] + [p[2] for p in pend], dev)
+            self.xW[lo:hi] = flts[:m]
+            self.xt_last[lo:hi] = flts[m:]
+            # CSR rows of the new transfers: one upload of their starts,
+            # counts and edges
             flat = [e for row in self.xe_edges[lo:] for e in row]
-            top0 = self.xe_start[lo] if lo < len(self.xe_start) else self.xe_top
+            top0 = self.xe_start[lo]
             if self.xe_top > self.xe_flat.shape[0]:
                 buf = torch.zeros(max(2 * self.xe_flat.shape[0], self.xe_top),
                                   dtype=INT, device=dev)
                 buf[:top0] = self.xe_flat[:top0]
                 self.xe_flat = buf
+            ints = i64(self.xe_start[lo:] + self.xe_cnt[lo:] + flat, dev)
+            self.xe_start_col[lo:hi] = ints[:m]
+            self.xe_cnt_col[lo:hi] = ints[m:2 * m]
             if flat:
-                self.xe_flat[top0:self.xe_top] = i64(flat, dev)
-            self._xe_synced = len(self.xe_edges)
-            self._xe_start_arr = i64(self.xe_start, dev)
-            self._xe_cnt_arr = i64(self.xe_cnt, dev)
+                self.xe_flat[top0:self.xe_top] = ints[2 * m:]
+            self._xe_synced = hi
 
     # -- repricing ----------------------------------------------------------
     def _pool_factors(self, mem_list: list[int],
@@ -676,40 +693,28 @@ class TimelineEngine:
                 xs = xfers.get(e)
                 if xs:
                     affected |= xs
+            self._edge_unsynced |= self.dirty_edges
             self.dirty_edges.clear()
             if affected:
-                ks_l = sorted(affected)
-                ks = i64(ks_l, dev)
-                n_k = len(ks_l)
-                self.xstamp[ks] = torch.arange(self._stamp, self._stamp + n_k,
-                                               device=dev)
-                self._stamp += n_k
-                starts = self._xe_start_arr[ks]
-                counts = self._xe_cnt_arr[ks]
-                xe_cnt = self.xe_cnt
-                K = sum(xe_cnt[k] for k in ks_l)
-                seg_starts = torch.cumsum(counts, 0) - counts
-                if K:
-                    within = torch.arange(K, device=dev) \
-                        - torch.repeat_interleave(seg_starts, counts,
-                                                  output_size=K)
-                    flat = self.xe_flat[torch.repeat_interleave(
-                        starts, counts, output_size=K) + within]
-                else:
-                    flat = torch.zeros(0, dtype=INT, device=dev)
                 if self._edge_bw_arr is None:
                     self._edge_bw_arr = f64(self.edge_bw, dev)
-                edge_mem = i64(self.edge_members, dev)
-                shares = self._edge_bw_arr[flat] / torch.clamp_min(
-                    edge_mem[flat], 1).to(FLOAT)
-                bw = tk.segment_min(shares, seg_starts, counts)
-                W2, _ = tk.rate_advance(self.xW[ks], self.xrate[ks],
-                                        self.xt_last[ks], t)
-                self.xW[ks] = W2
-                self.xt_last[ks] = t
-                self.xrate[ks] = bw
-                self.xeta[ks] = t + torch.where(
-                    bw > 0.0, W2 / bw, torch.full_like(W2, _INF))
+                    self._edge_mem_arr = i64(self.edge_members, dev)
+                    self._edge_unsynced.clear()
+                ks_l = sorted(affected)
+                upd = sorted(self._edge_unsynced)
+                self._edge_unsynced.clear()
+                n_k, u = len(ks_l), len(upd)
+                members = self.edge_members
+                # one upload: the slots, the changed edges, their counts
+                pack = i64(ks_l + upd + [members[e] for e in upd], dev)
+                # stamp, bottleneck share, settle and project in one launch
+                tk.transfer_reprice(self.xW, self.xrate, self.xt_last,
+                                    self.xeta, self.xstamp, self.xe_flat,
+                                    self.xe_start_col, self.xe_cnt_col,
+                                    self._edge_bw_arr, self._edge_mem_arr,
+                                    pack[:n_k], pack[n_k:n_k + u],
+                                    pack[n_k + u:], t, self._stamp)
+                self._stamp += n_k
                 flushed = True
         return flushed
 
@@ -731,17 +736,10 @@ class TimelineEngine:
         t = self.time
         if done.shape[0] > 1:   # simultaneous: settle in reprice-stamp order
             done = done[torch.argsort(self.xstamp[done], stable=True)]
-        W2, eta = tk.rate_advance(self.xW[done], self.xrate[done],
-                                  self.xt_last[done], t)
-        self.xW[done] = W2
-        self.xt_last[done] = t
-        fin = W2 <= XTOL
-        done_l, fin_l = host_list(torch.stack([done, fin.to(INT)]))
-        dev = self.device
-        if not all(fin_l):
-            pos = i64([i for i, ok in enumerate(fin_l) if not ok], dev)
-            self.xeta[done[pos]] = eta[pos]
-        self.xeta[i64([k for k, ok in zip(done_l, fin_l) if ok], dev)] = _INF
+        # settle in place; finished transfers get eta = +inf, a residue
+        # keeps running with a fresh estimate
+        done_l, fin_l = host_list(tk.transfer_complete(
+            self.xW, self.xrate, self.xt_last, self.xeta, done, t, XTOL))
         self.n_events += len(done_l)
         members = self.edge_members
         for k, ok in zip(done_l, fin_l):

@@ -47,27 +47,41 @@ _F64 = ctypes.c_double
 _INT = ctypes.c_int
 _F32 = ctypes.c_float
 
-# C signatures (all return the cudaError_t of the launch as int)
+# C signatures (all return the cudaError_t of the launch as int, but the
+# size queries of _RESTYPES)
 _SIGNATURES = {
     "heye_slowdown_factors": [_PTR, _PTR, _PTR, _PTR, _PTR, _I64, _INT,
                               _F64, _PTR],
     "heye_slowdown_pool": [_PTR, _I64, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR,
-                           _I64, _PTR, _PTR, _INT, _F64, _INT, _PTR, _PTR],
+                           _I64, _PTR, _PTR, _INT, _F64, _INT, _PTR, _PTR,
+                           _I64, _PTR],
+    "heye_slowdown_pool_wide_len": [_I64, _INT],
+    "heye_slowdown_same_device_wide_len": [_INT, _INT],
     "heye_slowdown_same_device": [_PTR, _INT, _INT, _PTR, _I64, _PTR, _PTR,
                                   _PTR, _INT, _F64, _PTR, _PTR, _PTR, _PTR,
-                                  _PTR, _PTR, _PTR],
+                                  _PTR, _PTR, _PTR, _I64, _PTR],
     "heye_rate_advance": [_PTR, _PTR, _PTR, _PTR, _PTR, _I64, _F64, _PTR],
     "heye_settle_reprice": [_PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _I64,
                             _F64, _I64, _PTR],
     "heye_settle_complete": [_PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _I64, _F64,
                              _F64, _PTR],
     "heye_segment_min": [_PTR, _PTR, _PTR, _PTR, _I64, _PTR],
-    "heye_scan_reduce_batch": [_PTR] * 12 + [_I64, _I64, _I64, _I64, _F64,
-                                             _PTR, _PTR],
+    "heye_transfer_reprice": [_PTR] * 11 + [_I64, _PTR, _PTR, _I64, _F64,
+                                            _I64, _PTR],
+    "heye_transfer_complete": [_PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _I64,
+                               _F64, _F64, _PTR],
+    "heye_scan_reduce_batch": [_PTR] * 12 + [_I64, _I64, _I64, _I64, _I64,
+                                             _F64, _PTR, _PTR],
+    "heye_scan_reduce_big": [_PTR] * 11 + [_I64, _I64, _I64, _I64, _F64,
+                                           _PTR, _PTR, _I64, _PTR],
+    "heye_scan_reduce_big_bytes": [_I64, _I64],
     "heye_lru_scan": [_PTR, _PTR, _PTR, _I64, _I64, _I64, _PTR],
     "heye_flash_attention": [_PTR, _PTR, _PTR, _PTR, _INT, _INT, _INT, _INT,
                              _INT, _INT, _INT, _INT, _F32, _F32, _PTR],
 }
+_RESTYPES = {"heye_scan_reduce_big_bytes": _I64,
+             "heye_slowdown_pool_wide_len": _I64,
+             "heye_slowdown_same_device_wide_len": _I64}
 
 
 def sources() -> list[Path]:
@@ -167,7 +181,7 @@ def load() -> ctypes.CDLL:
         for name, argtypes in _SIGNATURES.items():
             fn = getattr(lib, name)
             fn.argtypes = argtypes
-            fn.restype = _INT
+            fn.restype = _RESTYPES.get(name, _INT)
         _LIB = lib
     return _LIB
 

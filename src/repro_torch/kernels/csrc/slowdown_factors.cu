@@ -7,7 +7,7 @@
 // (slowdown_factors_pallas / _factors_kernel), which aggregates pressure
 // rows that the host built around every call.
 //
-// * row:  one thread per given (N, R) pressure row (R <= 16).
+// * row:  one thread per given (N, R) pressure row.
 // * pool: the DES repricing.  Thread i is member i of a co-running pool;
 //   it walks j = 0..n-1 in ascending order over tiles of the members'
 //   gathered columns in shared memory, adds U[j] to its tenancy pressure
@@ -22,6 +22,15 @@
 //   segment, then every (candidate, active) pair row: the active's base
 //   plus the newcomer's join term.
 //
+// A row's class pressures live in registers up to SD_REG_CLASSES classes
+// (Pressures).  A snapshot with more classes takes the same kernels
+// instantiated on WidePressures: each thread's pressures in a strided
+// global scratch the wrapper allocates (class c of thread g at
+// c * stride + g, so a warp's accesses are coalesced), the same sums in
+// the same order.  The register path is the scheduler's (6 classes on
+// the paper's testbed); the wide one exists so that no snapshot is
+// refused.
+//
 // Pressures are summed in ascending co-runner (ledger) order, one sum per
 // thread and no atomics, and every product and sum is rounded on its own
 // (__dmul_rn / __dadd_rn: no fused contraction), so each form agrees to
@@ -31,11 +40,12 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#define SD_MAX_CLASSES 16
+#define SD_REG_CLASSES 16
 #define POOL_THREADS 128
 #define SD_THREADS 128
 #define SD_PREFETCH 8
-#define SD_MT SD_MAX_CLASSES     // put()'s key of the tenancy pressure
+#define SD_MT SD_REG_CLASSES     // put()'s key of the tenancy pressure
+#define SD_MT_WIDE 0x40000000    // the same key where classes reach past 16
 
 // term(b, x) as the plain version rounds it: (b * x) * (1 + kappa * x)
 __device__ __forceinline__ double pterm(double b, double x, double kappa) {
@@ -48,17 +58,21 @@ __device__ __forceinline__ double pterm(double b, double x, double kappa) {
 // compile-time index (a run-time index would put the row in local memory,
 // one dependent round trip per pair).
 struct Pressures {
-    double x[SD_MAX_CLASSES];
+    static constexpr int MT = SD_MT;
+    double x[SD_REG_CLASSES];
     double mt;
 
+    // registers need no scratch
+    __device__ __forceinline__ void bind(double*, long long, long long,
+                                         int) {}
     __device__ __forceinline__ void zero() {
 #pragma unroll
-        for (int c = 0; c < SD_MAX_CLASSES; ++c) x[c] = 0.0;
+        for (int c = 0; c < SD_REG_CLASSES; ++c) x[c] = 0.0;
         mt = 0.0;
     }
     __device__ __forceinline__ void add(int r, double v) {
 #pragma unroll
-        for (int c = 0; c < SD_MAX_CLASSES; ++c)
+        for (int c = 0; c < SD_REG_CLASSES; ++c)
             if (c == r) x[c] = __dadd_rn(x[c], v);
     }
     // v to class k, to the tenancy pressure (k == SD_MT), or nowhere
@@ -73,12 +87,93 @@ struct Pressures {
                                              double kappa) const {
         double prod = 1.0;
 #pragma unroll
-        for (int c = 0; c < SD_MAX_CLASSES; ++c)
+        for (int c = 0; c < SD_REG_CLASSES; ++c)
             if (c < R)
                 prod = __dmul_rn(prod, __dadd_rn(1.0, __dmul_rn(
                     pterm(beta[c], x[c], kappa), m)));
         const double f = __dmul_rn(__dadd_rn(1.0, mt_term), prod);
         return (f != f) ? f : (f > 1.0 ? f : 1.0);
+    }
+    // row[0..R) = the class pressures, row[R] = the tenancy pressure
+    __device__ __forceinline__ void store(double* row, int R) const {
+#pragma unroll
+        for (int c = 0; c < SD_REG_CLASSES; ++c)
+            if (c < R) row[c] = x[c];
+        row[R] = mt;
+    }
+    // the factor of the pressures row[0..R) with v added to class r
+    // (r < 0: nothing added)
+    static __device__ __forceinline__ double pair_factor(
+        const double* row, int R, int r, double v, const double* beta,
+        double m, double mt_term, double kappa) {
+        Pressures acc;
+#pragma unroll
+        for (int c = 0; c < SD_REG_CLASSES; ++c)
+            acc.x[c] = c < R ? row[c] : 0.0;
+        if (r >= 0) acc.add(r, v);
+        return acc.factor(beta, R, m, mt_term, kappa);
+    }
+};
+
+__device__ __forceinline__ double finish_factor(double prod, double mt_term) {
+    const double f = __dmul_rn(__dadd_rn(1.0, mt_term), prod);
+    return (f != f) ? f : (f > 1.0 ? f : 1.0);
+}
+
+// Any number of classes: a thread's pressures at x[c * stride], in global
+// scratch (a run-time class index costs a memory round trip per pair
+// here, which only snapshots past SD_REG_CLASSES classes pay).
+struct WidePressures {
+    static constexpr int MT = SD_MT_WIDE;
+    double* x;
+    long long stride;
+    int R;
+    double mt;
+
+    // thread g of a grid of s threads, at scratch + g
+    __device__ __forceinline__ void bind(double* scratch, long long g,
+                                         long long s, int r) {
+        x = scratch + g;
+        stride = s;
+        R = r;
+    }
+    __device__ __forceinline__ void zero() {
+        for (int c = 0; c < R; ++c) x[c * stride] = 0.0;
+        mt = 0.0;
+    }
+    __device__ __forceinline__ void add(int r, double v) {
+        if (r >= 0 && r < R) {
+            double* p = x + r * stride;
+            *p = __dadd_rn(*p, v);
+        }
+    }
+    __device__ __forceinline__ void put(int k, double v) {
+        if (k == MT) mt = __dadd_rn(mt, v);
+        else add(k, v);
+    }
+    __device__ __forceinline__ double factor(const double* beta, int Rn,
+                                             double m, double mt_term,
+                                             double kappa) const {
+        double prod = 1.0;
+        for (int c = 0; c < Rn; ++c)
+            prod = __dmul_rn(prod, __dadd_rn(1.0, __dmul_rn(
+                pterm(beta[c], x[c * stride], kappa), m)));
+        return finish_factor(prod, mt_term);
+    }
+    __device__ __forceinline__ void store(double* row, int Rn) const {
+        for (int c = 0; c < Rn; ++c) row[c] = x[c * stride];
+        row[Rn] = mt;
+    }
+    static __device__ __forceinline__ double pair_factor(
+        const double* row, int Rn, int r, double v, const double* beta,
+        double m, double mt_term, double kappa) {
+        double prod = 1.0;
+        for (int c = 0; c < Rn; ++c) {
+            const double xc = c == r ? __dadd_rn(row[c], v) : row[c];
+            prod = __dmul_rn(prod, __dadd_rn(1.0, __dmul_rn(
+                pterm(beta[c], xc, kappa), m)));
+        }
+        return finish_factor(prod, mt_term);
     }
 };
 
@@ -98,10 +193,17 @@ __global__ void slowdown_factors_kernel(const double* __restrict__ x,
     long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
     if (i >= n) return;
     const double* row = x + i * (long long)R;
-    Pressures acc;
+    if (R <= SD_REG_CLASSES) {
+        Pressures acc;
 #pragma unroll
-    for (int c = 0; c < SD_MAX_CLASSES; ++c) acc.x[c] = c < R ? row[c] : 0.0;
-    out[i] = acc.factor(beta, R, mem[i], mt[i], kappa);
+        for (int c = 0; c < SD_REG_CLASSES; ++c)
+            acc.x[c] = c < R ? row[c] : 0.0;
+        out[i] = acc.factor(beta, R, mem[i], mt[i], kappa);
+    } else {
+        // more classes: the row is read where it lies
+        out[i] = WidePressures::pair_factor(row, R, -1, 0.0, beta, mem[i],
+                                            mt[i], kappa);
+    }
 }
 
 extern "C" int heye_slowdown_factors(const void* x, const void* beta,
@@ -109,7 +211,7 @@ extern "C" int heye_slowdown_factors(const void* x, const void* beta,
                                      void* out, long long n, int R,
                                      double kappa, void* stream) {
     if (n <= 0) return 0;
-    if (R > SD_MAX_CLASSES) return (int)cudaErrorInvalidValue;
+    if (R < 0) return (int)cudaErrorInvalidValue;
     const int threads = 128;
     const unsigned blocks = (unsigned)((n + threads - 1) / threads);
     slowdown_factors_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
@@ -121,6 +223,7 @@ extern "C" int heye_slowdown_factors(const void* x, const void* beta,
 // ---------------------------------------------------------------------------
 // pool form
 // ---------------------------------------------------------------------------
+template <class Acc>
 __global__ void __launch_bounds__(POOL_THREADS)
 slowdown_pool_kernel(const long long* __restrict__ members, long long n,
                      const long long* __restrict__ pu_i,
@@ -131,7 +234,8 @@ slowdown_pool_kernel(const long long* __restrict__ members, long long n,
                      const int16_t* __restrict__ ncr, long long nP,
                      const double* __restrict__ mt_vec,
                      const double* __restrict__ beta, int R, double kappa,
-                     int distinct, double* __restrict__ out) {
+                     int distinct, double* __restrict__ out,
+                     double* __restrict__ wide) {
     __shared__ long long sP[POOL_THREADS];
     __shared__ long long sUid[POOL_THREADS];
     __shared__ double sU[POOL_THREADS];
@@ -148,7 +252,8 @@ slowdown_pool_kernel(const long long* __restrict__ members, long long n,
         uidi = uid[m];
     }
     const int16_t* nrow = ncr + Pi * nP;
-    Pressures acc;
+    Acc acc;
+    acc.bind(wide, i, (long long)gridDim.x * POOL_THREADS, R);
     acc.zero();
     for (long long j0 = 0; j0 < n; j0 += POOL_THREADS) {
         const long long j = j0 + threadIdx.x;
@@ -176,7 +281,7 @@ slowdown_pool_kernel(const long long* __restrict__ members, long long n,
                     const bool skip = jb + u >= cnt ||
                         (distinct ? (j0 + jj == i) : (sUid[jj] == uidi));
                     const bool same = sP[jj] == Pi;
-                    acc.put(skip ? -1 : (same ? SD_MT : rr[u]),
+                    acc.put(skip ? -1 : (same ? Acc::MT : rr[u]),
                             same ? sU[jj] : sM[jj]);
                 }
             }
@@ -189,22 +294,44 @@ slowdown_pool_kernel(const long long* __restrict__ members, long long n,
                             kappa);
 }
 
+// doubles of class scratch a launch of the pool form over n members
+// takes: none where the pressures fit in registers, else R per thread of
+// its grid
+extern "C" long long heye_slowdown_pool_wide_len(long long n, int R) {
+    if (n <= 0 || R <= SD_REG_CLASSES) return 0;
+    return (long long)R * ((n + POOL_THREADS - 1) / POOL_THREADS)
+           * POOL_THREADS;
+}
+
 extern "C" int heye_slowdown_pool(const void* members, long long n,
                                   const void* pu_i, const void* U,
                                   const void* memraw, const void* uid,
                                   const void* mem_cap, const void* ncr,
                                   long long nP, const void* mt_vec,
                                   const void* beta, int R, double kappa,
-                                  int distinct, void* out, void* stream) {
+                                  int distinct, void* out, void* wide,
+                                  long long wide_len, void* stream) {
     if (n <= 0) return 0;
-    if (R > SD_MAX_CLASSES) return (int)cudaErrorInvalidValue;
     const unsigned blocks = (unsigned)((n + POOL_THREADS - 1) / POOL_THREADS);
-    slowdown_pool_kernel<<<blocks, POOL_THREADS, 0, (cudaStream_t)stream>>>(
-        (const long long*)members, n, (const long long*)pu_i,
-        (const double*)U, (const double*)memraw, (const long long*)uid,
-        (const double*)mem_cap, (const int16_t*)ncr, nP,
-        (const double*)mt_vec, (const double*)beta, R, kappa, distinct,
-        (double*)out);
+    if (R <= SD_REG_CLASSES) {
+        slowdown_pool_kernel<Pressures><<<blocks, POOL_THREADS, 0,
+                                          (cudaStream_t)stream>>>(
+            (const long long*)members, n, (const long long*)pu_i,
+            (const double*)U, (const double*)memraw, (const long long*)uid,
+            (const double*)mem_cap, (const int16_t*)ncr, nP,
+            (const double*)mt_vec, (const double*)beta, R, kappa, distinct,
+            (double*)out, nullptr);
+    } else {
+        if (wide == nullptr || wide_len < heye_slowdown_pool_wide_len(n, R))
+            return (int)cudaErrorInvalidValue;
+        slowdown_pool_kernel<WidePressures><<<blocks, POOL_THREADS, 0,
+                                              (cudaStream_t)stream>>>(
+            (const long long*)members, n, (const long long*)pu_i,
+            (const double*)U, (const double*)memraw, (const long long*)uid,
+            (const double*)mem_cap, (const int16_t*)ncr, nP,
+            (const double*)mt_vec, (const double*)beta, R, kappa, distinct,
+            (double*)out, (double*)wide);
+    }
     return (int)cudaGetLastError();
 }
 
@@ -266,8 +393,9 @@ __device__ __forceinline__ double clamp_max(double cap, double v) {
 // the pressures on PU p (ncr row nrow) of the ledger rows [lo, lo + cnt),
 // in ledger order, skipping rows of uid skip: same-PU usage to mt, memory
 // usage to the pair's class; a group's lookups are issued before its sums
+template <class Acc>
 __device__ __forceinline__ void segment_pressures(
-    Pressures& acc, long long lo, long long cnt, long long skip, long long p,
+    Acc& acc, long long lo, long long cnt, long long skip, long long p,
     const int16_t* __restrict__ nrow, const long long* __restrict__ Pa,
     const double* __restrict__ Ua, const double* __restrict__ Ma,
     const long long* __restrict__ uid_a) {
@@ -285,12 +413,13 @@ __device__ __forceinline__ void segment_pressures(
             const long long a = min(a0 + u, hi - 1);
             const bool same = pp[u] == p;
             acc.put(a0 + u >= hi || uid_a[a] == skip ? -1
-                        : (same ? SD_MT : rr[u]),
+                        : (same ? Acc::MT : rr[u]),
                     same ? Ua[a] : Ma[a]);
         }
     }
 }
 
+template <class Acc>
 __global__ void __launch_bounds__(SD_THREADS)
 slowdown_same_device_kernel(const long long* __restrict__ tab, int nfields,
                             const int16_t* __restrict__ ncr, long long nP,
@@ -302,7 +431,8 @@ slowdown_same_device_kernel(const long long* __restrict__ tab, int nfields,
                             long long* __restrict__ ai,
                             double* __restrict__ act_pf,
                             double* __restrict__ base,
-                            int* __restrict__ flags) {
+                            int* __restrict__ flags,
+                            double* __restrict__ wide) {
     const SdItem it = load_item(tab + (long long)blockIdx.x * nfields);
     const int R1 = R + 1;
     double* bs = base + it.base_off;           // (rows, R + 1) per active
@@ -319,8 +449,10 @@ slowdown_same_device_kernel(const long long* __restrict__ tab, int nfields,
 
     // candidates' rows, then the actives' base pressures
     const long long n_act = it.single ? it.n0 : it.A;
+    const long long g = (long long)blockIdx.x * SD_THREADS + threadIdx.x;
     for (long long w = threadIdx.x; w < it.C + n_act; w += SD_THREADS) {
-        Pressures acc;
+        Acc acc;
+        acc.bind(wide, g, (long long)gridDim.x * SD_THREADS, R);
         acc.zero();
         if (w < it.C) {
             const long long c = w;
@@ -348,11 +480,7 @@ slowdown_same_device_kernel(const long long* __restrict__ tab, int nfields,
             const long long pa = it.Pa[a];
             segment_pressures(acc, lo, cnt, it.uid_a[a], pa, ncr + pa * nP,
                               it.Pa, it.Ua, it.Ma, it.uid_a);
-            double* row = bs + (a - it.base_lo) * R1;
-#pragma unroll
-            for (int c = 0; c < SD_MAX_CLASSES; ++c)
-                if (c < R) row[c] = acc.x[c];
-            row[R] = acc.mt;
+            acc.store(bs + (a - it.base_lo) * R1, R);
         }
     }
     __syncthreads();
@@ -379,37 +507,53 @@ slowdown_same_device_kernel(const long long* __restrict__ tab, int nfields,
         const long long pa = it.Pa[a];
         const bool live = it.uid_a[a] != it.uid_new;
         const double* row = bs + (a - it.base_lo) * R1;
-        Pressures acc;
-#pragma unroll
-        for (int r = 0; r < SD_MAX_CLASSES; ++r)
-            acc.x[r] = r < R ? row[r] : 0.0;
         const int rac = ncr[pa * nP + pc];
-        if (live && pa != pc && rac >= 0)
-            acc.add(rac, clamp_max(mem_cap[pc], it.mem_new));
+        const int join = (live && pa != pc && rac >= 0) ? rac : -1;
         const double same = (live && pa == pc) ? 1.0 : 0.0;
         const double mtp = __dadd_rn(row[R], __dmul_rn(same, it.u_new));
         const long long o = it.pair_off + k;
-        act_pf[o] = acc.factor(
-            beta, R, it.Ma[a],
+        act_pf[o] = Acc::pair_factor(
+            row, R, join, clamp_max(mem_cap[pc], it.mem_new), beta, it.Ma[a],
             __dmul_rn(pterm(mt_vec[pa], mtp, kappa), it.Ua[a]), kappa);
         ci[o] = c;
         ai[o] = a;
     }
 }
 
+// doubles of class scratch a launch of the same-device form over n_items
+// items takes: none where the pressures fit in registers, else R per
+// thread of its grid
+extern "C" long long heye_slowdown_same_device_wide_len(int n_items, int R) {
+    if (n_items <= 0 || R <= SD_REG_CLASSES) return 0;
+    return (long long)R * n_items * SD_THREADS;
+}
+
 extern "C" int heye_slowdown_same_device(
     const void* tab, int n_items, int nfields, const void* ncr, long long nP,
     const void* mt_vec, const void* mem_cap, const void* beta, int R,
     double kappa, void* new_f, void* ci, void* ai, void* act_pf, void* base,
-    void* flags, void* stream) {
+    void* flags, void* wide, long long wide_len, void* stream) {
     if (n_items <= 0) return 0;
-    if (R > SD_MAX_CLASSES || nfields != SD_NFIELDS)
-        return (int)cudaErrorInvalidValue;
-    slowdown_same_device_kernel<<<n_items, SD_THREADS, 0,
-                                  (cudaStream_t)stream>>>(
-        (const long long*)tab, nfields, (const int16_t*)ncr, nP,
-        (const double*)mt_vec, (const double*)mem_cap, (const double*)beta, R,
-        kappa, (double*)new_f, (long long*)ci, (long long*)ai,
-        (double*)act_pf, (double*)base, (int*)flags);
+    if (nfields != SD_NFIELDS) return (int)cudaErrorInvalidValue;
+    if (R <= SD_REG_CLASSES) {
+        slowdown_same_device_kernel<Pressures><<<n_items, SD_THREADS, 0,
+                                                 (cudaStream_t)stream>>>(
+            (const long long*)tab, nfields, (const int16_t*)ncr, nP,
+            (const double*)mt_vec, (const double*)mem_cap,
+            (const double*)beta, R, kappa, (double*)new_f, (long long*)ci,
+            (long long*)ai, (double*)act_pf, (double*)base, (int*)flags,
+            nullptr);
+    } else {
+        if (wide == nullptr
+                || wide_len < heye_slowdown_same_device_wide_len(n_items, R))
+            return (int)cudaErrorInvalidValue;
+        slowdown_same_device_kernel<WidePressures><<<n_items, SD_THREADS, 0,
+                                                     (cudaStream_t)stream>>>(
+            (const long long*)tab, nfields, (const int16_t*)ncr, nP,
+            (const double*)mt_vec, (const double*)mem_cap,
+            (const double*)beta, R, kappa, (double*)new_f, (long long*)ci,
+            (long long*)ai, (double*)act_pf, (double*)base, (int*)flags,
+            (double*)wide);
+    }
     return (int)cudaGetLastError();
 }

@@ -31,8 +31,13 @@ each agrees with its plain version to the bit:
   wave depth.
 
 Pressures are summed sequentially in ledger order (the order of the
-reference's ``np.bincount`` / ``np.add.at``); no atomics.  All three are
-bound by launch latency at the scheduler's sizes (bytes beyond that).
+reference's ``np.bincount`` / ``np.add.at``); no atomics.  Any number of
+resource classes is taken, as the reference takes it: up to 16 the
+kernels keep a row's pressures in registers, above it in a strided
+scratch the wrapper allocates at the size the C side asks for (same sums,
+same order).
+All three are bound by launch latency at the scheduler's sizes (bytes
+beyond that).
 
 The wrappers take the plain version for CPU tensors and launch the kernel
 for CUDA tensors (or raise: there is no fallback).
@@ -52,9 +57,6 @@ from . import build
 # launches per form: the row kernel, the pool form, the same-device form
 launches = {"slowdown_factors": 0, "slowdown_pool": 0,
             "slowdown_same_device": 0}
-
-# the kernels keep one pressure per class in registers
-MAX_CLASSES = 16
 
 _F64 = torch.float64
 _I64 = torch.int64
@@ -259,9 +261,6 @@ def slowdown_factors(x: torch.Tensor, beta: torch.Tensor, mem: torch.Tensor,
         raise ValueError("shape mismatch: x %s beta %s mem %s mt_term %s" % (
             tuple(x.shape), tuple(beta.shape), tuple(mem.shape),
             tuple(mt_term.shape)))
-    if r > MAX_CLASSES:
-        raise ValueError(f"{r} resource classes; the kernels take at most "
-                         f"{MAX_CLASSES}")
     if dev.type == "cpu":
         return slowdown_factors_plain(x, beta, mem, mt_term, kappa)
     if dev.type != "cuda":
@@ -291,10 +290,18 @@ def _check_tables(mem_cap, ncr_rclass, mt_vec, beta, dev) -> tuple[int, int]:
         raise ValueError(f"snapshot tables disagree: mem_cap {nP}, "
                          f"ncr_rclass {tuple(ncr_rclass.shape)}, mt_vec "
                          f"{mt_vec.shape[0]}")
-    if R > MAX_CLASSES:
-        raise ValueError(f"{R} resource classes; the kernels take at most "
-                         f"{MAX_CLASSES}")
     return nP, R
+
+
+def _wide_scratch(length: int, dev) -> tuple:
+    """(tensor, pointer) of a launch's class scratch of ``length`` doubles,
+    the size the C side's query gives (0 where the pressures fit in
+    registers: no scratch).  The caller holds the tensor until the launch
+    is queued."""
+    if length == 0:
+        return None, None
+    buf = torch.empty(length, dtype=_F64, device=dev)
+    return buf, buf.data_ptr()
 
 
 def slowdown_pool(members: torch.Tensor, pu_i: torch.Tensor, U: torch.Tensor,
@@ -325,14 +332,18 @@ def slowdown_pool(members: torch.Tensor, pu_i: torch.Tensor, U: torch.Tensor,
     out = torch.empty(n, dtype=_F64, device=dev)
     if n == 0:
         return out
+    R = beta.shape[0]
     lib = build.load()
+    wide_len = lib.heye_slowdown_pool_wide_len(n, R)
+    _keep, wide = _wide_scratch(wide_len, dev)
     with torch.cuda.device(dev):
         err = lib.heye_slowdown_pool(
             members.data_ptr(), n, pu_i.data_ptr(), U.data_ptr(),
             memraw.data_ptr(), uid.data_ptr(), mem_cap.data_ptr(),
             ncr_rclass.data_ptr(), mem_cap.shape[0], mt_vec.data_ptr(),
-            beta.data_ptr(), beta.shape[0], kappa, int(bool(distinct)),
-            out.data_ptr(), torch.cuda.current_stream().cuda_stream)
+            beta.data_ptr(), R, kappa, int(bool(distinct)),
+            out.data_ptr(), wide, wide_len,
+            torch.cuda.current_stream().cuda_stream)
     build.check_launch(err, "slowdown_pool")
     launches["slowdown_pool"] += 1
     return out
@@ -458,13 +469,15 @@ def slowdown_same_device(items: Sequence[SameDeviceItem], mt_vec, beta,
     scratch = torch.empty(max(base, 1), dtype=_F64, device=dev)
     iscratch = torch.empty(max(flags, 1), dtype=torch.int32, device=dev)
     lib = build.load()
+    wide_len = lib.heye_slowdown_same_device_wide_len(len(run), R)
+    _keep, wide = _wide_scratch(wide_len, dev)
     with torch.cuda.device(dev):
         err = lib.heye_slowdown_same_device(
             tab.data_ptr(), len(run), len(SD_FIELDS),
             ncr_rclass.data_ptr(), mem_cap.shape[0], mt_vec.data_ptr(),
             mem_cap.data_ptr(), beta.data_ptr(), R, kappa,
             new_f.data_ptr(), ci.data_ptr(), ai.data_ptr(), act_pf.data_ptr(),
-            scratch.data_ptr(), iscratch.data_ptr(),
+            scratch.data_ptr(), iscratch.data_ptr(), wide, wide_len,
             torch.cuda.current_stream().cuda_stream)
     build.check_launch(err, "slowdown_same_device")
     launches["slowdown_same_device"] += 1

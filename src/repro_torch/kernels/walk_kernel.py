@@ -30,10 +30,12 @@ C++ kernel in float64/int64 (``csrc/scan_reduce.cu``) over a *ragged*
 stack: ``ok``/``key``/``sa``/``f``/``cm`` concatenated with per-scan
 offsets, the plan arrays concatenated with per-scan node offsets
 (:class:`ScanPlanArrays`, checked once per plan), one warp per scan of at
-most ``WARP_MAX_P`` PUs and one block per larger scan (up to ``MAX_P``).  A single scan is
-the stack of one (:func:`scan_reduce`); a phase-1 wave's entry scans are
-one launch (:func:`scan_reduce_batch`).  Bound by bytes moved and, at
-the walk's sizes, by launch latency.  ``winner``/``queries``/``hops`` and
+most ``WARP_MAX_P`` PUs and one block per larger scan up to
+``BLOCK_MAX_P``; a scan of more PUs takes the whole grid in four launches
+of its own (the reference has no cap, so neither has the port).  A single
+scan is the stack of one (:func:`scan_reduce`); a phase-1 wave's entry
+scans are one launch (:func:`scan_reduce_batch`).  Bound by bytes moved
+and, at the walk's sizes, by launch latency.  ``winner``/``queries``/``hops`` and
 the gathered columns are exact; ``overhead`` may differ from a
 sequential sum by float-associativity ulps (the decisions never read it).
 
@@ -54,9 +56,10 @@ launches = {"scan_reduce": 0, "scan_reduce_batch": 0}
 
 # scans of at most this many PUs take one warp (a lane per PU), larger
 # ones a block of their own, whose bit words of `ok` fill 32 KB of shared
-# memory at MAX_P PUs (csrc/scan_reduce.cu)
+# memory at BLOCK_MAX_P PUs; a scan of more PUs takes the grid form, its
+# bit words in a global scratch (csrc/scan_reduce.cu)
 WARP_MAX_P = 32
-MAX_P = 131072
+BLOCK_MAX_P = 131072
 
 _F64 = torch.float64
 _I64 = torch.int64
@@ -199,16 +202,35 @@ def _check_columns(ok, key, sa, f, cm, dev) -> int:
 
 
 def _launch(ok, key, sa, f, cm, plan: ScanPlanArrays, meta, S: int,
-            n_small: int, P0: int, lqc: float, out: torch.Tensor) -> None:
+            n_small: int, n_large: int, P0: int, lqc: float,
+            out: torch.Tensor) -> None:
     lib = build.load()
     with torch.cuda.device(ok.device):
         err = lib.heye_scan_reduce_batch(
             ok.data_ptr(), key.data_ptr(), sa.data_ptr(), f.data_ptr(),
             cm.data_ptr(), *(t.data_ptr() for t in plan.tensors()),
-            None if meta is None else meta.data_ptr(), S, n_small, P0,
-            plan.n, lqc, out.data_ptr(),
+            None if meta is None else meta.data_ptr(), S, n_small, n_large,
+            P0, plan.n, lqc, out.data_ptr(),
             torch.cuda.current_stream().cuda_stream)
     build.check_launch(err, "scan_reduce_batch")
+
+
+def _launch_grid(ok, key, sa, f, cm, plan: ScanPlanArrays, ok_off: int,
+                 P: int, node_off: int, Nn: int, lqc: float,
+                 out: torch.Tensor, row: int) -> None:
+    """The grid form of one scan (more than ``BLOCK_MAX_P`` PUs) into row
+    ``row`` of ``out``: four launches through a scratch of its own."""
+    lib = build.load()
+    scratch = torch.empty(lib.heye_scan_reduce_big_bytes(P, Nn),
+                          dtype=torch.uint8, device=ok.device)
+    with torch.cuda.device(ok.device):
+        err = lib.heye_scan_reduce_big(
+            ok.data_ptr(), key.data_ptr(), sa.data_ptr(), f.data_ptr(),
+            cm.data_ptr(), *(t.data_ptr() for t in plan.tensors()),
+            ok_off, P, node_off, Nn, lqc, out.data_ptr() + 56 * row,
+            scratch.data_ptr(), scratch.shape[0],
+            torch.cuda.current_stream().cuda_stream)
+    build.check_launch(err, "scan_reduce (grid form)")
 
 
 def scan_reduce(ok: torch.Tensor, key: torch.Tensor, sa: torch.Tensor,
@@ -220,8 +242,6 @@ def scan_reduce(ok: torch.Tensor, key: torch.Tensor, sa: torch.Tensor,
     P = _check_columns(ok, key, sa, f, cm, dev)
     if P < plan.span:
         raise ValueError("the plan's node ranges reach past the scan")
-    if P > MAX_P:
-        raise ValueError(f"a scan takes at most {MAX_P} PUs, got {P}")
     lqc = float(lqc)
     if dev.type == "cpu":
         meta = torch.tensor([[0, P, 0, plan.n]], dtype=_I64)
@@ -230,8 +250,12 @@ def scan_reduce(ok: torch.Tensor, key: torch.Tensor, sa: torch.Tensor,
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
     out = torch.empty(7, dtype=_F64, device=dev)
-    _launch(ok, key, sa, f, cm, plan, None, 1, int(P <= WARP_MAX_P), P, lqc,
-            out)
+    if P > BLOCK_MAX_P:
+        _launch_grid(ok, key, sa, f, cm, plan, 0, P, 0, plan.n, lqc, out, 0)
+    else:
+        small = int(P <= WARP_MAX_P)
+        _launch(ok, key, sa, f, cm, plan, None, 1, small, 1 - small, P, lqc,
+                out)
     launches["scan_reduce"] += 1
     return out
 
@@ -251,7 +275,7 @@ def scan_reduce_batch(ok: torch.Tensor, key: torch.Tensor, sa: torch.Tensor,
     S = m.shape[0]
     o, p, no, nn = m.T
     bad = (o < 0) | (p < 0) | (o + p > n_ok) | (no < 0) | (nn < 1) \
-        | (no + nn > plan.n) | (p > MAX_P)
+        | (no + nn > plan.n)
     if S and not bad.any():
         # each scan's largest node end, over its own nodes
         first = np.cumsum(nn) - nn
@@ -259,8 +283,7 @@ def scan_reduce_batch(ok: torch.Tensor, key: torch.Tensor, sa: torch.Tensor,
         bad = np.maximum.reduceat(plan.hi[nodes], first) > p
     if bad.any():
         raise ValueError(f"scan {np.flatnonzero(bad)[0]} lies outside its "
-                         f"columns or plan, its nodes reach past its PUs, "
-                         f"or it holds more than {MAX_P} PUs")
+                         f"columns or plan, or its nodes reach past its PUs")
     lqc = float(lqc)
     if dev.type == "cpu":
         return scan_reduce_batch_plain(ok, key, sa, f, cm, *plan.tensors(),
@@ -270,11 +293,17 @@ def scan_reduce_batch(ok: torch.Tensor, key: torch.Tensor, sa: torch.Tensor,
     out = torch.empty((S, 7), dtype=_F64, device=dev)
     if S == 0:
         return out
-    # the rows, then the scans in launch order: warp-sized ones first
+    # the rows, then the scans in launch order: warp-sized ones first, then
+    # the block-sized ones; the rest take the grid form one by one
     small = p <= WARP_MAX_P
+    grid = p > BLOCK_MAX_P
+    large = ~small & ~grid
     meta = torch.from_numpy(np.concatenate(
-        [m.ravel(), np.flatnonzero(small), np.flatnonzero(~small)])).to(dev)
-    _launch(ok, key, sa, f, cm, plan, meta, S, int(small.sum()), 0, lqc,
-            out)
+        [m.ravel(), np.flatnonzero(small), np.flatnonzero(large)])).to(dev)
+    _launch(ok, key, sa, f, cm, plan, meta, S, int(small.sum()),
+            int(large.sum()), 0, lqc, out)
+    for i in np.flatnonzero(grid):
+        _launch_grid(ok, key, sa, f, cm, plan, int(o[i]), int(p[i]),
+                     int(no[i]), int(nn[i]), lqc, out, int(i))
     launches["scan_reduce_batch"] += 1
     return out

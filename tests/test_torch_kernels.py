@@ -77,15 +77,26 @@ KAPPA = 0.12
 BETA6 = np.array([0.0884, 0.1330, 0.1107, 0.0, 0.4196, 0.2679])  # one off
 
 
-def _tables(rng, n_pus=24):
-    """Snapshot tables: ncr_rclass (-1..5, int16), mem_cap (inf or a cap),
-    mt_vec, beta (class 3 inactive)."""
-    ncr = rng.integers(-1, 6, (n_pus, n_pus)).astype(np.int16)
+def _beta(R):
+    """BETA6, or for another class count R betas drawn from R, a few of
+    them inactive."""
+    if R == 6:
+        return BETA6
+    b = np.random.default_rng(R).uniform(0.05, 0.45, R)
+    b[::7] = 0.0
+    return b
+
+
+def _tables(rng, n_pus=24, R=6):
+    """Snapshot tables: ncr_rclass (-1..R-1, int16), mem_cap (inf or a
+    cap), mt_vec, beta (class 3 inactive at R=6)."""
+    ncr = rng.integers(-1, R, (n_pus, n_pus)).astype(np.int16)
     cap = np.where(rng.random(n_pus) < 0.3, 0.3, np.inf)
-    return (t(ncr), t(cap), t(rng.uniform(0.2, 0.5, n_pus)), t(BETA6))
+    return (t(ncr), t(cap), t(rng.uniform(0.2, 0.5, n_pus)), t(_beta(R)))
 
 
-def _scalar_factor(x: dict, mt: float, m: float, u: float, b_mt: float):
+def _scalar_factor(x: dict, mt: float, m: float, u: float, b_mt: float,
+                   beta=BETA6):
     """One factor as the reference's scalar loop rounds it (classes in
     ascending order, inactive ones skipped)."""
     mt_term = 0.0
@@ -93,16 +104,16 @@ def _scalar_factor(x: dict, mt: float, m: float, u: float, b_mt: float):
         mt_term = b_mt * mt * (1.0 + KAPPA * mt) * u
     prod = 1.0
     for r in sorted(x):
-        b = BETA6[r]
+        b = beta[r]
         if x[r] > 0.0 and b > 0.0:
             prod *= 1.0 + b * x[r] * (1.0 + KAPPA * x[r]) * m
     f = (1.0 + mt_term) * prod
     return f if f > 1.0 or f != f else 1.0
 
 
-def _pool_inputs(n, seed, distinct):
+def _pool_inputs(n, seed, distinct, R=6):
     rng = np.random.default_rng(seed)
-    ncr, cap, mt_vec, beta = _tables(rng)
+    ncr, cap, mt_vec, beta = _tables(rng, R=R)
     rows = 3 * n + 4
     pu_i = rng.integers(0, 24, rows) if n > 8 else rng.integers(0, 4, rows)
     U = rng.uniform(0.2, 1.5, rows)
@@ -113,13 +124,10 @@ def _pool_inputs(n, seed, distinct):
             beta, KAPPA, distinct)
 
 
-@pytest.mark.parametrize("distinct", [True, False])
-@pytest.mark.parametrize("n", [1, 2, 7, 8, 64])
-def test_slowdown_pool_is_the_sequential_scalar_loop(n, distinct):
-    args = _pool_inputs(n, 40 + n, distinct)
-    members, pu_i, U, memraw, uid, cap, ncr, mt_vec = (
-        a.numpy() for a in args[:8])
-    got = sk.slowdown_pool(*args)
+def _scalar_pool(args, n, distinct):
+    """The pool's factors as the reference's scalar loop sums them."""
+    members, pu_i, U, memraw, uid, cap, ncr, mt_vec, beta = (
+        a.numpy() for a in args[:9])
     P = pu_i[members]
     M = np.minimum(memraw[members], cap[P])
     want = []
@@ -134,8 +142,19 @@ def test_slowdown_pool_is_the_sequential_scalar_loop(n, distinct):
             elif ncr[P[i], P[j]] >= 0:
                 r = int(ncr[P[i], P[j]])
                 x[r] = x.get(r, 0.0) + M[j]
-        want.append(_scalar_factor(x, mt, M[i], U[members[i]], mt_vec[P[i]]))
-    assert got.dtype == torch.float64 and got.tolist() == want
+        want.append(_scalar_factor(x, mt, M[i], U[members[i]], mt_vec[P[i]],
+                                   beta))
+    return want
+
+
+@pytest.mark.parametrize("distinct", [True, False])
+@pytest.mark.parametrize("n", [1, 2, 7, 8, 64])
+def test_slowdown_pool_is_the_sequential_scalar_loop(n, distinct):
+    args = _pool_inputs(n, 40 + n, distinct)
+    got = sk.slowdown_pool(*args)
+    assert got.dtype == torch.float64 and got.tolist() == _scalar_pool(
+        args, n, distinct)
+    P = args[1].numpy()[args[0].numpy()]
     assert n < 8 or len(set(P.tolist())) < n        # PU ties exercised
 
 
@@ -179,7 +198,7 @@ def _sd_items(seed, A=12, nd=6):
 def _scalar_same_device(it, tables):
     """Per item, the reference's loops written out: candidates in order,
     each against its device segment in ledger order."""
-    ncr, cap, mt_vec, _ = (a.numpy() for a in tables)
+    ncr, cap, mt_vec, beta = (a.numpy() for a in tables)
     Pc, Dc, Pa, Ua, Ma, uid_a, Da, astart, na = (
         getattr(it, k).numpy() for k in ("Pc", "Dc", "Pa", "Ua", "Ma",
                                          "uid_a", "Da", "astart", "na"))
@@ -212,10 +231,11 @@ def _scalar_same_device(it, tables):
             elif ncr[Pc[c], Pa[a]] >= 0:
                 r = int(ncr[Pc[c], Pa[a]])
                 x[r] = x.get(r, 0.0) + Ma[a]
-        new_f.append(_scalar_factor(x, mt, mc, it.u_new, mt_vec[Pc[c]]))
+        new_f.append(_scalar_factor(x, mt, mc, it.u_new, mt_vec[Pc[c]],
+                                    beta))
         for a in seg(Dc[c]):
             x, mt = base(a)
-            x = {r: x.get(r, 0.0) for r in range(6)}
+            x = {r: x.get(r, 0.0) for r in range(len(beta))}
             live = uid_a[a] != it.uid_new
             r = int(ncr[Pa[a], Pc[c]])
             if live and Pa[a] != Pc[c] and r >= 0:
@@ -223,7 +243,8 @@ def _scalar_same_device(it, tables):
             mt += (1.0 if live and Pa[a] == Pc[c] else 0.0) * it.u_new
             ci.append(c)
             ai.append(a)
-            act.append(_scalar_factor(x, mt, Ma[a], Ua[a], mt_vec[Pa[a]]))
+            act.append(_scalar_factor(x, mt, Ma[a], Ua[a], mt_vec[Pa[a]],
+                                      beta))
     if not ci:
         new_f = [1.0] * len(Pc)
     return new_f, ci, ai, act
@@ -242,6 +263,52 @@ def test_slowdown_same_device_is_the_sequential_scalar_loop(seed):
         assert pf.tolist() == w_pf
     assert got[1][1].numel() == 0 and got[1][0].tolist() == [1.0] * 4
     assert 0 < got[2][1].numel() < 12 * 4       # device 1's candidates: none
+
+
+@pytest.mark.parametrize("R", [17, 44])
+@pytest.mark.parametrize("form", ["row", "pool", "same_device"])
+def test_b1_plain_forms_take_any_number_of_classes(form, R):
+    """Past the kernels' register path (16 classes) the wrappers take the
+    snapshot as the reference does: each form bit for bit against the
+    scalar loop written out, at 17 and 44 classes (the paper's testbed
+    with one class per resource node)."""
+    rng = np.random.default_rng(R)
+    if form == "row":
+        n = 40
+        x = rng.uniform(0.0, 3.0, (n, R))
+        x[rng.random((n, R)) < 0.5] = 0.0
+        beta = _beta(R)
+        mem = rng.uniform(0.05, 1.0, n)
+        mt = rng.uniform(0.0, 2.0, n)
+        got = sk.slowdown_factors(t(x), t(beta), t(mem), t(mt), KAPPA)
+        want = []
+        for i in range(n):
+            prod = 1.0
+            for r in range(R):
+                if x[i, r] > 0.0 and beta[r] > 0.0:
+                    prod *= 1.0 + beta[r] * x[i, r] * (1.0 + KAPPA * x[i, r]) \
+                        * mem[i]
+            f = (1.0 + mt[i]) * prod
+            want.append(f if f > 1.0 else 1.0)
+        assert got.tolist() == want
+        np.testing.assert_allclose(
+            got.numpy(), ref.slowdown_factors_ref(x, beta, mem, mt, KAPPA),
+            rtol=F64_RTOL, atol=0)
+    elif form == "pool":
+        for distinct in (True, False):
+            args = _pool_inputs(64, R, distinct, R=R)
+            assert sk.slowdown_pool(*args).tolist() == _scalar_pool(
+                args, 64, distinct)
+    else:
+        items = _sd_items(R)
+        tables = _tables(np.random.default_rng(200 + R), R=R)
+        got = sk.slowdown_same_device(items, tables[2], tables[3],
+                                      tables[1], tables[0], KAPPA)
+        for it, (nf, ci, ai, pf) in zip(items, got):
+            w_nf, w_ci, w_ai, w_pf = _scalar_same_device(it, tables)
+            assert nf.tolist() == w_nf
+            assert ci.tolist() == w_ci and ai.tolist() == w_ai
+            assert pf.tolist() == w_pf
 
 
 def test_same_device_stack_offsets_split_results_back_exactly():
@@ -305,13 +372,15 @@ def test_fused_factor_wrappers_raise_on_what_they_do_not_take(case):
         with pytest.raises(TypeError):
             sk.slowdown_same_device([bad], mt_vec, beta, cap, ncr, KAPPA)
     elif case == "classes":
-        args[8] = torch.zeros(sk.MAX_CLASSES + 1, dtype=torch.float64)
-        with pytest.raises(ValueError, match="classes"):
+        # any number of classes is taken (17: one past the kernels'
+        # registers); a class axis of the wrong shape is not
+        args[8] = torch.zeros((2, 17), dtype=torch.float64)
+        with pytest.raises(ValueError, match="dims"):
             sk.slowdown_pool(*args)
-        x = torch.zeros((2, sk.MAX_CLASSES + 1), dtype=torch.float64)
+        x = torch.zeros((2, 17), dtype=torch.float64)
         v = torch.zeros(2, dtype=torch.float64)
-        with pytest.raises(ValueError, match="classes"):
-            sk.slowdown_factors(x, args[8], v, v, KAPPA)
+        with pytest.raises(ValueError, match="shape mismatch"):
+            sk.slowdown_factors(x, v, v, v, KAPPA)
     elif case == "tables":
         args[6] = args[6][:, :-1].contiguous()
         with pytest.raises(ValueError, match="disagree"):
@@ -536,19 +605,44 @@ def test_scan_reduce_batch_of_nothing_and_bad_offsets():
     assert rows[0] == wk.scan_reduce(*args, 5e-6).tolist()
     assert rows[1] == [-1.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0]
     for bad in [(1, n, 0, nn), (0, n, 0, 0), (0, n, 1, nn), (-1, 2, 0, 1),
-                (0, wk.MAX_P + 1, 0, nn)]:
+                (0, n + 1, 0, nn)]:
         with pytest.raises(ValueError):
             wk.scan_reduce_batch(*args, [bad], 5e-6)
     with pytest.raises(ValueError):           # the plan reaches past the scan
         wk.scan_reduce(*(a[:n - 1] for a in args[:5]), arr, 5e-6)
-    big = wk.MAX_P + 1                        # more PUs than a block holds
-    with pytest.raises(ValueError):
-        wk.scan_reduce(torch.zeros(big, dtype=torch.bool),
-                       *(torch.zeros(big, dtype=torch.float64)
-                         for _ in range(4)), arr, 5e-6)
     with pytest.raises(ValueError):
         wk.ScanPlanArrays.from_lists([0, 3], [6, 2], [0, 1], [1, 0],
                                      [0.0, 0.0], [0.0, 1.0], "cpu")
+
+
+@pytest.mark.parametrize("mode", ["plain", "ties", "allinf", "infeasible"])
+def test_scan_reduce_takes_scans_past_the_block_cap(mode):
+    """A root scan of more PUs than one block holds (the mining fleet past
+    mult ~1985) is taken, as the reference takes it: one scan of
+    BLOCK_MAX_P + 8643 PUs and a stack mixing it with small scans, row by
+    row against ``scan_reduce_ref``."""
+    per_dev = 6
+    n_dev = (wk.BLOCK_MAX_P + 8643) // per_dev
+    ok, key, cols, plan = _scan((n_dev, per_dev), mode, 31)
+    P = len(ok)
+    assert P > wk.BLOCK_MAX_P
+    arr = wk.ScanPlanArrays.from_lists(*plan, "cpu")
+    got = wk.scan_reduce(t(ok), t(key), *(t(c) for c in cols), arr,
+                         5e-6).tolist()
+    want = scan_reduce_ref(ok, key, *plan, 5e-6)
+    _assert_row(got, want, ok, cols, 1e-12)
+    sok, skey, scols, splan = _scan((1, 6), mode, 32)
+    pool = wk.ScanPlanArrays.from_lists(
+        *(np.concatenate([a, b]) for a, b in zip(plan, splan)), "cpu")
+    cat = [t(np.concatenate([a, b])) for a, b in
+           zip((ok, key) + cols, (sok, skey) + scols)]
+    nn = len(plan[0])
+    rows = wk.scan_reduce_batch(*cat, pool, [(0, P, 0, nn), (P, 6, nn, 1),
+                                             (0, P, 0, nn)], 5e-6).tolist()
+    _assert_row(rows[0], want, ok, cols, 1e-12)
+    _assert_row(rows[1], scan_reduce_ref(sok, skey, *splan, 5e-6), sok,
+                scols, 1e-12)
+    assert rows[2] == rows[0]
 
 
 def test_scan_reduce_batch_refuses_nodes_past_their_scan():
@@ -640,6 +734,172 @@ def test_settle_complete_plain_is_the_unfused_sequence(n):
 
 
 # ---------------------------------------------------------------------------
+# B3 with B2's transfer form: the fused transfer sites against the unfused
+# op sequence the engine ran before them
+# ---------------------------------------------------------------------------
+XTOL = 1e-6
+
+
+def _bits(a: torch.Tensor) -> torch.Tensor:
+    """A column's bits, so a NaN equals the same NaN."""
+    return a.view(torch.int64) if a.dtype == torch.float64 else a
+
+
+def _transfers(n_x, n_edges, seed):
+    """Transfer columns for ``n_x`` slots (xW, xrate, xt_last, xeta,
+    xstamp, then the CSR rows: xe_flat, xe_start, xe_cnt, starts offset
+    into a larger buffer), routes of 0-6 edges (slot 0 empty, slot 1 an
+    infinite old rate), edge bandwidths with zeros and a NaN, and old /
+    new per-edge member counts (some changed)."""
+    rng = np.random.default_rng(seed)
+    cnt = rng.integers(0, 7, n_x)
+    cnt[0] = 0
+    cnt[2:4] = np.maximum(cnt[2:4], 1)
+    start = np.cumsum(cnt) - cnt + 3
+    flat = rng.integers(1, n_edges, int(cnt.sum()) + 3)
+    bw = rng.uniform(1e6, 1e9, n_edges)
+    bw[::5] = 0.0
+    bw[3] = np.nan
+    flat[flat == 3] = 1
+    flat[start[2]] = 3                        # slot 2 crosses the NaN edge,
+    flat[start[3]] = 0                        # slot 3 a zero-bandwidth one
+    old = rng.integers(0, 5, n_edges)
+    new = old.copy()
+    changed = rng.random(n_edges) < 0.4
+    new[changed] = rng.integers(0, 5, int(changed.sum()))
+    W = rng.uniform(0.0, 5e6, n_x)
+    W[::4] = 0.0
+    rate = rng.uniform(1e5, 1e8, n_x)
+    rate[::7] = 0.0                           # not yet priced: eta +inf
+    t_last = rng.uniform(0.0, 1.0, n_x)
+    rate[1], t_last[1] = np.inf, 1.5          # inf * 0: NaN residue -> 0
+    cols = [t(W), t(rate), t(t_last), t(rng.uniform(0.0, 9.0, n_x)),
+            t(rng.integers(0, 100, n_x))]
+    return cols, [t(flat), t(start), t(cnt)], t(bw), old, new
+
+
+def _unfused_reprice(cols, csr, bw_arr, members, ks_l, now, stamp):
+    """The engine's link reprice before it was fused (its CSR rows and
+    member counts as host lists then)."""
+    xW, xrate, xt_last, xeta, xstamp = cols
+    xe_flat, xe_start, xe_cnt = csr
+    ks = t(ks_l)
+    n_k = len(ks_l)
+    xstamp[ks] = torch.arange(stamp, stamp + n_k)
+    starts = xe_start[ks]
+    counts = xe_cnt[ks]
+    K = sum(int(xe_cnt[k]) for k in ks_l)
+    seg_starts = torch.cumsum(counts, 0) - counts
+    if K:
+        within = torch.arange(K) - torch.repeat_interleave(
+            seg_starts, counts, output_size=K)
+        flat = xe_flat[torch.repeat_interleave(starts, counts,
+                                               output_size=K) + within]
+    else:
+        flat = torch.zeros(0, dtype=torch.int64)
+    edge_mem = t(list(members))
+    shares = bw_arr[flat] / torch.clamp_min(edge_mem[flat], 1).to(
+        torch.float64)
+    bw = tk.segment_min(shares, seg_starts, counts)
+    W2, _ = tk.rate_advance(xW[ks], xrate[ks], xt_last[ks], now)
+    xW[ks] = W2
+    xt_last[ks] = now
+    xrate[ks] = bw
+    xeta[ks] = now + torch.where(bw > 0.0, W2 / bw,
+                                 torch.full_like(W2, float("inf")))
+
+
+@pytest.mark.parametrize("n", [1, 16, 384])
+def test_transfer_reprice_plain_is_the_unfused_sequence(n):
+    """Empty routes, zero-bandwidth and NaN edges, zero and infinite old
+    rates; the changed member counts land in the edge column."""
+    cols, csr, bw, old, new = _transfers(2 * n + 5, 12, n)
+    ks_l = sorted(np.random.default_rng(n).permutation(2 * n + 5)[:n]
+                  .tolist())
+    ks_l = sorted(set(ks_l) | {0, 1, 2, 3})
+    upd = np.flatnonzero(old != new)
+    fused = [c.clone() for c in cols]
+    mem = t(old)
+    tk.transfer_reprice(*fused, *csr, bw, mem, t(ks_l), t(upd),
+                        t(new[upd]), 1.5, 77)
+    _unfused_reprice(cols, csr, bw, new, ks_l, 1.5, 77)
+    for a, b in zip(fused, cols):
+        assert torch.equal(_bits(a), _bits(b))
+    assert mem.tolist() == new.tolist()
+    xrate, xeta = fused[1], fused[3]
+    assert xrate[0] == float("inf") and xeta[0] == 1.5   # no edge: +inf
+    routes = [csr[0][int(csr[1][k]):int(csr[1][k]) + int(csr[2][k])]
+              .tolist() for k in ks_l]
+    nan = [i for i, r in enumerate(routes) if any(bw[e].isnan() for e in r)]
+    zero = [i for i, r in enumerate(routes)
+            if i not in nan and any(bw[e] == 0.0 for e in r)]
+    assert 2 in nan and 3 in zero            # positions = slots here
+    assert all(xrate[ks_l[i]].isnan() and xeta[ks_l[i]] == float("inf")
+               for i in nan)
+    assert all(xrate[ks_l[i]] == 0.0 and xeta[ks_l[i]] == float("inf")
+               for i in zero)
+
+
+@pytest.mark.parametrize("n", [1, 16, 384])
+def test_transfer_complete_plain_is_the_unfused_sequence(n):
+    """Simultaneous completions in reprice-stamp order (ties kept in slot
+    order), finished and residual transfers, zero, NaN and infinite
+    rates."""
+    cols, _, _, _, _ = _transfers(2 * n + 5, 12, n + 50)
+    xW, xrate, xt_last, xeta, xstamp = cols
+    xrate[2] = float("nan")
+    xstamp[:] = xstamp // 10                    # stamp ties
+    rng = np.random.default_rng(n)
+    done = t(rng.permutation(2 * n + 5)[:n])
+    done = done[torch.argsort(xstamp[done], stable=True)]
+    fused = [c.clone() for c in cols[:4]]
+    pairs = tk.transfer_complete(*fused, done, 1.5, XTOL)
+    # the completion's sequence before it was fused
+    W2, eta = tk.rate_advance(xW[done], xrate[done], xt_last[done], 1.5)
+    xW[done] = W2
+    xt_last[done] = 1.5
+    fin = W2 <= XTOL
+    done_l, fin_l = torch.stack([done, fin.to(torch.int64)]).tolist()
+    if not all(fin_l):
+        pos = t([i for i, ok in enumerate(fin_l) if not ok])
+        xeta[done[pos]] = eta[pos]
+    xeta[t([k for k, ok in zip(done_l, fin_l) if ok],
+           dtype=torch.int64)] = float("inf")
+    assert pairs.dtype == torch.int64
+    assert pairs.tolist() == [done_l, fin_l]
+    for a, b in zip(fused, cols[:4]):
+        assert torch.equal(_bits(a), _bits(b))
+    assert n < 16 or 0 < sum(fin_l) < n
+
+
+@pytest.mark.parametrize("case", ["dtype", "length", "edges"])
+def test_fused_transfer_wrappers_raise_on_what_they_do_not_take(case):
+    cols, csr, bw, old, _ = _transfers(8, 6, 0)
+    mem = t(old)
+    ks, none = t([1, 3]), torch.zeros(0, dtype=torch.int64)
+    if case == "dtype":
+        with pytest.raises(TypeError):
+            tk.transfer_reprice(*cols, *csr, bw.float(), mem, ks, none,
+                                none, 0.0, 0)
+        with pytest.raises(TypeError):
+            tk.transfer_complete(*cols[:4], ks.int(), 0.0, XTOL)
+    elif case == "length":
+        with pytest.raises(ValueError):
+            tk.transfer_reprice(*cols, csr[0], csr[1][:7].clone(), csr[2],
+                                bw, mem, ks, none, none, 0.0, 0)
+        with pytest.raises(ValueError):
+            tk.transfer_complete(cols[0], cols[1][:7].clone(), *cols[2:4],
+                                 ks, 0.0, XTOL)
+    else:
+        with pytest.raises(ValueError):
+            tk.transfer_reprice(*cols, *csr, bw, mem[:5].clone(), ks, none,
+                                none, 0.0, 0)
+        with pytest.raises(ValueError):
+            tk.transfer_reprice(*cols, *csr, bw, mem, ks, t([1, 2]), t([0]),
+                                0.0, 0)
+
+
+# ---------------------------------------------------------------------------
 # wrappers
 # ---------------------------------------------------------------------------
 def test_wrappers_take_the_plain_version_on_cpu_and_count_no_launch():
@@ -650,6 +910,8 @@ def test_wrappers_take_the_plain_version_on_cpu_and_count_no_launch():
     test_segment_min_takes_offset_starts()
     test_settle_reprice_plain_is_the_unfused_sequence(4)
     test_settle_complete_plain_is_the_unfused_sequence(4)
+    test_transfer_reprice_plain_is_the_unfused_sequence(16)
+    test_transfer_complete_plain_is_the_unfused_sequence(16)
     test_scan_reduce_matches_oracle((8, 6), "plain")
     assert (dict(sk.launches), dict(tk.launches), dict(wk.launches)) == before
 

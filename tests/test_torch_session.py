@@ -11,8 +11,8 @@ import repro.core as R
 import repro.core.workloads as Rwork
 import repro_torch.core as T
 import repro_torch.core.workloads as Twork
-from torch_port_util import (TOL, in_order, make_testbeds, session_pair,
-                             workload)
+from torch_port_util import (TOL, in_order, make_testbeds,
+                             one_class_per_resource, session_pair, workload)
 
 CASES = [("mining", 1), ("mining", 2), ("vr", None), ("vr", 1)]
 
@@ -52,7 +52,7 @@ def test_run_stats_metrics_match(runs):
     assert ts.qos_failure_rate(tcfg) == pytest.approx(
         rs.qos_failure_rate(rcfg), abs=TOL)
     assert ts.mean_overhead_ratio(tcfg) == pytest.approx(
-        rs.mean_overhead_ratio(rcfg), rel=1e-6)
+        rs.mean_overhead_ratio(rcfg), rel=TOL)
     want = rs.latency_percentiles(rcfg)
     got = ts.latency_percentiles(tcfg)
     for q in want:
@@ -81,6 +81,51 @@ def test_runtime_and_baseline_policies_match(policy):
     np.testing.assert_allclose(in_order(ts.timeline.finish, tcfg),
                                in_order(rs.timeline.finish, rcfg),
                                rtol=0, atol=TOL)
+
+
+def _session_run(pkg, tb, cfg, seed=0):
+    g = tb.graph
+    root = pkg.build_orchestrators(g, pkg.heye_traverser(g))
+    sess = pkg.SchedulerSession(
+        g, root, truth=pkg.ground_truth_traverser(g, seed=seed))
+    return sess.run(cfg)
+
+
+def _assert_same_run(rs, rcfg, ts, tcfg):
+    assert in_order(ts.mapping, tcfg) == in_order(rs.mapping, rcfg)
+    assert not ts.unmapped and not rs.unmapped
+    for got, want in ((in_order(ts.timeline.finish, tcfg),
+                       in_order(rs.timeline.finish, rcfg)),
+                      (in_order(ts.overhead, tcfg),
+                       in_order(rs.overhead, rcfg))):
+        np.testing.assert_allclose(got, want, rtol=0, atol=TOL)
+
+
+def test_more_classes_than_registers_match_reference():
+    """The paper's testbed with one resource class per resource node (44
+    classes, past the kernels' 16 register-held ones): the mining session
+    of the port against the reference, seeded."""
+    rtb, ttb = make_testbeds(None)
+    one_class_per_resource(rtb.graph)
+    one_class_per_resource(ttb.graph)
+    n_classes = len(ttb.graph.compiled().rclass_names)
+    assert n_classes == len(rtb.graph.compiled().rclass_names) == 44
+    rcfg = workload(Rwork, rtb, "mining", 1)
+    tcfg = workload(Twork, ttb, "mining", 1)
+    _assert_same_run(_session_run(R, rtb, rcfg, seed=3), rcfg,
+                     _session_run(T, ttb, tcfg, seed=3), tcfg)
+
+
+def test_vr_session_at_30_frames_matches_reference():
+    """The paper's VR workload at its default length (5 edges x 30 frames,
+    1050 tasks), transfer-heavy: the port's session against the
+    reference's."""
+    rtb, ttb = make_testbeds(None)
+    rcfg = Rwork.vr_workload(rtb, n_frames=30)
+    tcfg = Twork.vr_workload(ttb, n_frames=30)
+    assert len(tcfg) == 1050
+    _assert_same_run(_session_run(R, rtb, rcfg), rcfg,
+                     _session_run(T, ttb, tcfg), tcfg)
 
 
 def test_incremental_submit_and_percentiles():

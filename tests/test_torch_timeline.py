@@ -143,3 +143,50 @@ def test_fused_settle_sites_take_distinct_slots_and_match_reference(
     assert diff(in_order(got.finish, tcfg), in_order(want.finish, rcfg)) \
         <= TOL
     assert seen["settle_reprice"] > 0 and seen["settle_complete"] > 0
+
+
+def test_fused_transfer_sites_keep_the_edge_column_and_match_reference(
+        case, monkeypatch):
+    """The DES's two transfer sites go through the fused in-place forms:
+    each call hands them distinct slots in order, and the changed edges in
+    ascending order; after every flush the device's per-edge member counts
+    equal the host's, but for edges whose change waits for the next
+    reprice; the finish times are the reference's."""
+    from repro_torch.core.timeline import TimelineEngine
+    from repro_torch.kernels import timeline_kernel as tk
+    seen = {"transfer_reprice": 0, "transfer_complete": 0}
+    real_rep, real_com, real_flush = (tk.transfer_reprice,
+                                      tk.transfer_complete,
+                                      TimelineEngine._flush)
+
+    def reprice(*args):
+        ks, upd_e = args[10].tolist(), args[11].tolist()
+        assert ks == sorted(set(ks)) and upd_e == sorted(set(upd_e))
+        seen["transfer_reprice"] += 1
+        return real_rep(*args)
+
+    def complete(*args):
+        done = args[4].tolist()
+        assert len(set(done)) == len(done)
+        seen["transfer_complete"] += 1
+        return real_com(*args)
+
+    def flush(self):
+        out = real_flush(self)
+        if self._edge_bw_arr is not None:
+            dev = self._edge_mem_arr.tolist()
+            assert all(dev[e] == self.edge_members[e]
+                       for e in range(len(dev))
+                       if e not in self._edge_unsynced)
+        return out
+
+    monkeypatch.setattr(tk, "transfer_reprice", reprice)
+    monkeypatch.setattr(tk, "transfer_complete", complete)
+    monkeypatch.setattr(TimelineEngine, "_flush", flush)
+    rtb, rcfg, rmap, ttb, tcfg, tmap = case
+    rt, tt = travs(rtb, ttb, True)
+    want = rt.traverse(rcfg, rmap)
+    got = tt.traverse(tcfg, tmap)
+    assert diff(in_order(got.finish, tcfg), in_order(want.finish, rcfg)) \
+        <= TOL
+    assert seen["transfer_reprice"] > 0 and seen["transfer_complete"] > 0

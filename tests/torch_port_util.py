@@ -42,6 +42,16 @@ def make_testbeds(mult=None):
             T.build_testbed(edge_counts=ec, server_counts=sc, device="cpu"))
 
 
+def one_class_per_resource(g) -> None:
+    """Give every storage node of ``g`` (caches, memories) a resource class
+    of its own (``attrs["rclass"]``); the next ``compiled()`` rebuilds.
+    On the default testbed: 43 storage classes and the NICs' one."""
+    for name, node in g.nodes.items():
+        if node.kind.value == "storage":
+            node.attrs["rclass"] = f"rc_{name}"
+    g._invalidate_paths()
+
+
 def workload(pkg_work, tb, kind: str, mult=None):
     if kind == "mining":
         return pkg_work.mining_workload(tb, n_sensors=12 * (mult or 1),
