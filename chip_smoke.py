@@ -19,7 +19,7 @@ kernel's row has ``ms`` (CUDA events around back-to-back calls of the
 Python wrapper: the launch path included) and ``body_ms``
 (the kernel's own device time: every kernel's calls traced in one
 torch.profiler session after the last timed phase).
-Then it drives the port's two paths through their public entry points:
+Then it drives the port's paths through their public entry points:
 
 * ``model_x_smoke``: recurrentgemma-9b ``.smoke()`` in float32, weights
   made on the card and copied to a CPU model; forward, prefill, 8
@@ -35,6 +35,17 @@ Then it drives the port's two paths through their public entry points:
   the same session runs once more under torch.profiler, for its
   device-op count), then B1's row form on its own path, the traverser's
   what-if query;
+* ``serve_x64``: the online path — ``ServeLoop`` over one
+  session-resident timeline with admission control, the reference's
+  ``benchmarks/serve.py::_serve_once(64)`` (the mining fleet at mult=64,
+  4224 PUs; Poisson ``svm`` and diurnal ``mlp`` tenants, ~1.1k requests),
+  card vs CPU request for request;
+* ``serve_churn``: the same loop at mult=8 under a seeded wireless churn
+  schedule (a ``Churn`` wave every horizon/8) and an edge's death and
+  revival, card vs CPU, every batch absorbed as one snapshot delta;
+* ``bwchurn_x128``: ``benchmarks/des.py::_bwchurn(128)``, eight
+  bandwidth waves each followed by a mapping wave of 576 tasks, card vs
+  CPU placements, no rebuild and no topology-layer copy;
 * ``model_full``: recurrentgemma-9b at full width (38 layers, d=4096,
   ~8.5 B float32 parameters from a seeded generator): prefill(1, 4096) in
   float32 through the kernels against the plain route, then prefill(2,
@@ -43,7 +54,8 @@ Then it drives the port's two paths through their public entry points:
   placement on the simulated TPU fleet, then 8 requests over 4 slots).
 
 The phases run in the order kernels, ``model_x_smoke``, ``x8``, ``vr``,
-``x128``, ``model_full``, ``serve_full``.  ``--compare PARENT --session
+``x128``, ``serve_x64``, ``serve_churn``, ``bwchurn_x128``,
+``model_full``, ``serve_full``.  ``--compare PARENT --session
 vr|x128`` instead runs a session of the tree at PARENT and of this one in
 turns, each in a fresh process.  One JSON object per line; the last line
 is ``{"ok": true, "device": {...}}``.  Any failing phase raises, and the
@@ -1550,6 +1562,326 @@ def session_traced(seed: int) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# the online path: ServeLoop on the session-resident timeline, and churn
+# absorbed as snapshot deltas
+# ---------------------------------------------------------------------------
+# benchmarks/serve.py::_serve_once: per-mult request rates over a horizon
+# of 10/mult s (about 1.1k requests at any mult)
+SERVE_MULT = 64
+SERVE_HORIZON = 10.0
+SERVE_MINING_RATE = 75.0
+SERVE_VISION_BASE, SERVE_VISION_PEAK = 20.0, 60.0
+CHURN_MULT = 8               # serve_churn: the same loop, a wave per 1/8
+CHURN_WAVES = 8
+CHURN_SEED = 1234            # the wireless schedule's seed (both drivers)
+BWCHURN_MULT = 128           # benchmarks/des.py::_bwchurn(mult=128)
+# the scheduler kernels whose launches the serving run must show
+SERVE_KERNELS = ("slowdown_pool", "settle_reprice", "settle_complete")
+
+
+def _serve_loop(mult: int, device, interventions=None):
+    """benchmarks/serve.py::_serve_once rebuilt from the port's own
+    modules: the mining fleet at ``mult``, a Poisson ``svm`` tenant from
+    edges[0] (SLA 0.10 s) and a diurnal ``mlp`` tenant from edges[1] (SLA
+    0.15 s) over ``horizon`` = 10/mult s, ``AdmissionController(slack=4,
+    defer_delay=0.005, max_defers=1)``, per-arrival admission.
+    ``interventions(tb, horizon)`` gives the loop's (t, Churn) list.
+    Returns (loop, stats, graph)."""
+    from repro_torch.serve.admission import AdmissionController
+    ec, sc = mining_counts(mult)
+    tb = core.build_testbed(edge_counts=ec, server_counts=sc, device=device)
+    g = tb.graph
+    root = core.build_orchestrators(g, core.heye_traverser(g))
+    horizon = SERVE_HORIZON / mult
+    tenants = [
+        core.TenantSpec("mining", core.PoissonArrivals(
+            rate=SERVE_MINING_RATE * mult, seed=11),
+            core.single_task_request("svm", origin=tb.edges[0], sla=0.10),
+            sla=0.10),
+        core.TenantSpec("vision", core.DiurnalArrivals(
+            base_rate=SERVE_VISION_BASE * mult,
+            peak_rate=SERVE_VISION_PEAK * mult, period=horizon, seed=12),
+            core.single_task_request("mlp", origin=tb.edges[1], sla=0.15),
+            sla=0.15)]
+    loop = core.ServeLoop(
+        g, root, tenants,
+        truth=core.ground_truth_traverser(g, rng=np.random.default_rng(0)),
+        admission=AdmissionController(slack=4.0, defer_delay=0.005,
+                                      max_defers=1),
+        batch_window=0.0, horizon=horizon,
+        interventions=interventions(tb, horizon) if interventions else ())
+    st = loop.run()
+    if g.device.type == "cuda":
+        torch.cuda.synchronize()
+    return loop, st, g
+
+
+def _serve_card_vs_cpu(what: str, gl, gs, cl, cs) -> float:
+    """Accepted and rejected sets, reject reasons, deferrals and
+    placements identical card vs CPU, finish times within T_TOL; returns
+    the largest finish-time difference."""
+    if len(gs.requests) != len(cs.requests):
+        raise AssertionError(f"{what}: {len(gs.requests)} requests on the "
+                             f"card, {len(cs.requests)} on the CPU")
+    dt = 0.0
+    for a, b in zip(gs.requests, cs.requests):
+        if (a.rid, a.tenant, a.verdict, a.reject_reason, a.defers,
+                a.arrival) != (b.rid, b.tenant, b.verdict, b.reject_reason,
+                               b.defers, b.arrival):
+            raise AssertionError(f"{what}: request {a.rid} differs card vs "
+                                 f"CPU: {a.verdict}/{a.reject_reason} vs "
+                                 f"{b.verdict}/{b.reject_reason}")
+        if a.verdict == "accepted":
+            pa = [gl.session.mapping[t.uid] for t in a.tasks]
+            pb = [cl.session.mapping[t.uid] for t in b.tasks]
+            if pa != pb:
+                raise AssertionError(f"{what}: request {a.rid} placed on "
+                                     f"{pa} on the card, {pb} on the CPU")
+        if math.isnan(a.finish) != math.isnan(b.finish):
+            raise AssertionError(f"{what}: request {a.rid} finished on one "
+                                 "side only")
+        if not math.isnan(a.finish):
+            dt = max(dt, abs(a.finish - b.finish))
+    if not dt <= T_TOL:
+        raise AssertionError(f"{what}: card vs CPU finish times differ by "
+                             f"{dt}")
+    if gs.deferrals != cs.deferrals:
+        raise AssertionError(f"{what}: {gs.deferrals} deferrals on the card,"
+                             f" {cs.deferrals} on the CPU")
+    return dt
+
+
+def _serve_line(st, g, counts: dict, syncs: int, dt: float, cpu_st) -> dict:
+    s = st.summary()
+    n = len(st.requests)
+    return dict(
+        pus=len(g.compiled().pu_names), horizon_s=st.horizon, requests=n,
+        accepted=s["accepted"], rejected=s["rejected"],
+        reject_reasons=s["reject_reasons"], deferrals=s["deferrals"],
+        engine_opens=s["engine_opens"], n_events=s["n_events"],
+        p50_ms=s["p50_ms"], p99_ms=s["p99_ms"], p999_ms=s["p999_ms"],
+        sla_by_tenant=s["sla_by_tenant"], offered_rps=s["offered_rps"],
+        wall_s=st.wall_s, wall_rps=s["wall_rps"], phase_wall=st.phase_wall,
+        waves=len(st.wave_sizes), launches=counts,
+        launches_per_request={k: v / n for k, v in counts.items() if v},
+        device_to_host_syncs=syncs, syncs_per_request=syncs / n,
+        placements_identical=True, max_finish_diff_cuda_vs_cpu=dt,
+        tolerance=T_TOL, cpu_wall_s=cpu_st.wall_s,
+        cpu_wall_rps=cpu_st.wall_rps, cpu_phase_wall=cpu_st.phase_wall)
+
+
+def _check_serve_launches(what: str, st, counts: dict) -> None:
+    if st.engine_opens != 1:
+        raise AssertionError(f"{what}: {st.engine_opens} TimelineEngine "
+                             "builds (the resident timeline opens once)")
+    for name in SERVE_KERNELS:
+        if counts[name] <= 0:
+            raise AssertionError(f"{what}: kernel {name} was never launched")
+    if counts["scan_reduce"] + counts["scan_reduce_batch"] <= 0:
+        raise AssertionError(f"{what}: the walk's scan-reduce was never "
+                             "launched")
+
+
+def serve_x64() -> tuple[dict, dict]:
+    """benchmarks/serve.py::_serve_once(64) on the port: the card run (its
+    launches, syncs, serving metrics) against the same loop on the CPU.
+    The arrivals and the ground truth take the reference driver's own
+    seeds (11, 12, 0), not ``--seed``."""
+    reset_counts()
+    gl, gs, g = _serve_loop(SERVE_MULT, None)
+    counts = read_counts()
+    syncs = rt_device.sync_count()
+    cl, cs, _ = _serve_loop(SERVE_MULT, "cpu")
+    dt = _serve_card_vs_cpu(f"serve_x{SERVE_MULT}", gl, gs, cl, cs)
+    _check_serve_launches(f"serve_x{SERVE_MULT}", gs, counts)
+    out = _serve_line(gs, g, counts, syncs, dt, cs)
+    out.update(mult=SERVE_MULT, recompile_count=g.recompile_count,
+               delta_count=g.delta_count)
+    return out, counts
+
+
+class _ChurnLog:
+    """Records, around each ``HWGraph.apply_churn`` call of one graph, what
+    the call did to the graph's snapshot counters (outside the port: the
+    graph instance's method is wrapped)."""
+
+    KEYS = ("delta_count", "recompile_count", "route_holder_copies",
+            "route_overlay_copies")
+
+    def __init__(self, g) -> None:
+        self.g = g
+        self.calls: list[dict] = []
+        real = g.apply_churn
+
+        def logged(churn):
+            before = {k: getattr(g, k) for k in self.KEYS}
+            real(churn)
+            self.calls.append(dict(
+                kind=("bandwidth" if not (churn.dead or churn.alive)
+                      else "dead" if churn.dead else "alive"),
+                entries=len(churn),
+                **{k: getattr(g, k) - before[k] for k in self.KEYS}))
+        g.apply_churn = logged
+
+
+def _churn_interventions(logs: list):
+    """The serve_churn schedule: one wireless ``Churn`` wave every
+    horizon/8 (``wireless_churn_schedule(tb, 8, seed=1234)``, at the
+    middle of each eighth), then edges[1] dies at horizon/3 and revives
+    at 2 horizon/3 (the reference's test_serve_loop_with_mid_run_churn)."""
+    def make(tb, horizon):
+        logs.append(_ChurnLog(tb.graph))
+        waves = core.wireless_churn_schedule(tb, CHURN_WAVES, seed=CHURN_SEED)
+        iv = [((k + 0.5) * horizon / CHURN_WAVES, w)
+              for k, w in enumerate(waves)]
+        e = tb.edges[1]
+        iv += [(horizon / 3, core.Churn(dead=[e])),
+               (2 * horizon / 3, core.Churn(alive=[e]))]
+        return sorted(iv, key=lambda x: x[0])
+    return make
+
+
+def _edge_refresh(device) -> tuple[list, dict]:
+    """Transfers in flight through a bandwidth ``Churn``: four 8 MB inputs
+    from two edges to two servers, the uplinks throttled at 2 ms and one
+    restored at 40 ms (``Traverser.traverse`` with ``interventions``).
+    Returns the finish times and the launches of the run."""
+    tb = core.build_testbed(device=device)
+    cfg = core.TaskGraph()
+    ts = [core.make_task("render", origin=tb.edges[k % 2], input_bytes=8e6,
+                         release_time=1e-3 * k) for k in range(4)]
+    for t in ts:
+        cfg.add(t)
+    mapping = {t.uid: f"{tb.servers[k % 2]}.gpu" for k, t in enumerate(ts)}
+    iv = [(2e-3, core.Churn(bandwidth=[(f"link_{tb.edges[0]}", 5e5),
+                                       (f"link_{tb.edges[1]}", 2e6)])),
+          (4e-2, core.Churn(bandwidth=[(f"link_{tb.edges[1]}", 1e9)]))]
+    reset_counts()
+    tl = core.heye_traverser(tb.graph).traverse(cfg, mapping,
+                                                interventions=iv)
+    return [tl.finish[t.uid] for t in ts], read_counts()
+
+
+def serve_churn() -> tuple[dict, dict]:
+    """The serving loop at mult=8 under a wireless churn schedule and an
+    edge's death and revival, card vs CPU: every churn batch absorbed as
+    one delta, no rebuild, no topology-layer copy under a bandwidth
+    wave."""
+    logs: list = []
+    reset_counts()
+    gl, gs, g = _serve_loop(CHURN_MULT, None, _churn_interventions(logs))
+    counts = read_counts()
+    syncs = rt_device.sync_count()
+    cl, cs, _ = _serve_loop(CHURN_MULT, "cpu", _churn_interventions(logs))
+    dt = _serve_card_vs_cpu(f"serve_churn x{CHURN_MULT}", gl, gs, cl, cs)
+    _check_serve_launches(f"serve_churn x{CHURN_MULT}", gs, counts)
+    calls = logs[0].calls
+    if len(calls) != CHURN_WAVES + 2:
+        raise AssertionError(f"serve_churn: {len(calls)} churn batches "
+                             f"applied, {CHURN_WAVES + 2} scheduled")
+    bw = [c for c in calls if c["kind"] == "bandwidth"]
+    for c in calls:
+        if c["delta_count"] != 1 or c["recompile_count"] != 0:
+            raise AssertionError(f"serve_churn: a {c['kind']} batch was not "
+                                 f"absorbed as one delta: {c}")
+    if any(c["route_holder_copies"] for c in bw):
+        raise AssertionError("serve_churn: a bandwidth-only wave copied the "
+                             "route topology layer")
+    if logs[1].calls != calls:
+        raise AssertionError("serve_churn: the CPU run's deltas differ")
+    # the serving run's one-task requests run on their origin edge, so
+    # its transfer kernels may see no churn: the device edge column's
+    # refresh is held on a path of its own, card against CPU
+    gf, ecounts = _edge_refresh(None)
+    cf, _ = _edge_refresh("cpu")
+    de = max(abs(a - b) for a, b in zip(gf, cf))
+    if not de <= T_TOL or ecounts["transfer_reprice"] <= 0:
+        raise AssertionError(f"serve_churn: transfers under a bandwidth "
+                             f"churn differ card vs CPU by {de}, "
+                             f"{ecounts['transfer_reprice']} reprices")
+    out = _serve_line(gs, g, counts, syncs, dt, cs)
+    out.update(mult=CHURN_MULT, churn_batches=calls,
+               edge_refresh=dict(finish=gf, max_finish_diff_cuda_vs_cpu=de,
+                                 transfer_reprice=ecounts["transfer_reprice"],
+                                 transfer_complete=ecounts[
+                                     "transfer_complete"]),
+               recompile_count=g.recompile_count, delta_count=g.delta_count,
+               route_holder_copies=g.route_holder_copies,
+               route_overlay_copies=g.route_overlay_copies,
+               transfer_reprice=counts["transfer_reprice"])
+    return out, counts
+
+
+def _bwchurn(mult: int, device, n_waves: int = 8):
+    """benchmarks/des.py::_bwchurn on the port: seeded uplink degrade /
+    recover ``Churn`` waves interleaved with mapping waves over the mining
+    fleet; each wave ``session.churn(wave)``, then
+    ``mining_workload(n_sensors=12 mult / n_waves, n_readings=1)`` and
+    ``map_pending()``.  Returns (session, cfgs, per-wave map seconds,
+    counter deltas)."""
+    ec, sc = mining_counts(mult)
+    tb = core.build_testbed(edge_counts=ec, server_counts=sc, device=device)
+    g = tb.graph
+    g.compiled()                         # snapshot outside the churn timer
+    root = core.build_orchestrators(g, core.heye_traverser(g))
+    session = core.SchedulerSession(g, root)
+    waves = core.wireless_churn_schedule(tb, n_waves, seed=CHURN_SEED)
+    per_wave = max(1, (12 * mult) // n_waves)
+    before = {k: getattr(g, k) for k in _ChurnLog.KEYS}
+    cfgs, secs = [], []
+    for churn in waves:
+        t0 = time.perf_counter()
+        session.churn(churn)
+        cfg = mining_workload(tb, n_sensors=per_wave, n_readings=1)
+        session.submit(cfg)
+        session.map_pending()
+        if g.device.type == "cuda":
+            torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        cfgs.append(cfg)
+    moved = {k: getattr(g, k) - before[k] for k in _ChurnLog.KEYS}
+    return session, cfgs, secs, moved
+
+
+def bwchurn_x128() -> tuple[dict, dict]:
+    """The bandwidth-churn mapping driver at full width, card vs CPU."""
+    reset_counts()
+    gsess, gcfgs, gsecs, gmoved = _bwchurn(BWCHURN_MULT, None)
+    counts = read_counts()
+    syncs = rt_device.sync_count()
+    csess, ccfgs, csecs, cmoved = _bwchurn(BWCHURN_MULT, "cpu")
+    n_waves = len(gcfgs)
+    for what, moved in (("card", gmoved), ("CPU", cmoved)):
+        if moved["delta_count"] != n_waves or moved["recompile_count"] \
+                or moved["route_holder_copies"]:
+            raise AssertionError(f"bwchurn_x{BWCHURN_MULT} ({what}): "
+                                 f"{moved} over {n_waves} waves")
+    for sess in (gsess, csess):
+        if sess.unmapped:
+            raise AssertionError(f"bwchurn_x{BWCHURN_MULT}: "
+                                 f"{len(sess.unmapped)} tasks unmapped")
+    gp = [gsess.mapping[t.uid] for cfg in gcfgs for t in cfg]
+    cp = [csess.mapping[t.uid] for cfg in ccfgs for t in cfg]
+    if gp != cp:
+        bad = [i for i, (a, b) in enumerate(zip(gp, cp)) if a != b]
+        raise AssertionError(f"bwchurn_x{BWCHURN_MULT}: card and CPU "
+                             f"placements differ at {bad[:5]}")
+    n_tasks = len(gp)
+    if n_tasks != 12 * BWCHURN_MULT * 3:
+        raise AssertionError(f"bwchurn_x{BWCHURN_MULT}: {n_tasks} tasks")
+    if counts["scan_reduce"] + counts["scan_reduce_batch"] <= 0:
+        raise AssertionError(f"bwchurn_x{BWCHURN_MULT}: the walk's "
+                             "scan-reduce was never launched")
+    out = dict(mult=BWCHURN_MULT, waves=n_waves, tasks=n_tasks,
+               map_s_per_wave=gsecs, map_s=sum(gsecs),
+               tasks_per_s=n_tasks / sum(gsecs),
+               cpu_map_s_per_wave=csecs, cpu_tasks_per_s=n_tasks / sum(csecs),
+               placements_identical=True, unmapped=0, **gmoved,
+               device_to_host_syncs=syncs, launches=counts)
+    return out, counts
+
+
+# ---------------------------------------------------------------------------
 # the model path
 # ---------------------------------------------------------------------------
 def _logit_err(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -1975,6 +2307,7 @@ def main() -> None:
                     help="directory for the profiles' files")
     ap.add_argument("--stop-after", default=None,
                     choices=("kernels", "model_x_smoke", "x8", "vr", "x128",
+                             "serve_x64", "serve_churn", "bwchurn_x128",
                              "model_full"),
                     help="debugging: end (without the ok line) after a phase")
     args = ap.parse_args()
@@ -2068,6 +2401,18 @@ def main() -> None:
     emit(f"session_x{FULL_MULT}", full)
     done(f"x{FULL_MULT}")
     stop("x128")
+    sv, scounts = serve_x64()
+    emit(f"serve_x{SERVE_MULT}", sv)
+    done(f"serve_x{SERVE_MULT}")
+    stop("serve_x64")
+    sc, ccounts = serve_churn()
+    emit("serve_churn", sc)
+    done("serve_churn")
+    stop("serve_churn")
+    bw, bcounts = bwchurn_x128()
+    emit(f"bwchurn_x{BWCHURN_MULT}", bw)
+    done(f"bwchurn_x{BWCHURN_MULT}")
+    stop("bwchurn_x128")
     mfull, mcounts = model_full(args.seed)
     emit("model_full", mfull)
     done("model_full")
@@ -2085,6 +2430,15 @@ def main() -> None:
         k["launches"] = (mcounts if k["name"] in MODEL_KERNELS else
                          vcounts if k["name"] in VR_KERNELS
                          else counts)[k["name"]]
+        # and from each scheduler path of its own run (counts set to 0
+        # just before the path, read just after)
+        if k["name"] not in MODEL_KERNELS:
+            k["launches_by_path"] = {
+                f"x{FULL_MULT}": counts[k["name"]],
+                "vr": vcounts[k["name"]],
+                f"serve_x{SERVE_MULT}": scounts[k["name"]],
+                "serve_churn": ccounts[k["name"]],
+                f"bwchurn_x{BWCHURN_MULT}": bcounts[k["name"]]}
         if k["name"] in OFF_PATH_KERNELS:
             k["on_main_path"] = False
             k["path_runs_instead"] = OFF_PATH_KERNELS[k["name"]]

@@ -10,6 +10,9 @@ package's ``core``):
   Traverser / Timeline / TaskPrediction          — contention intervals (§3.4)
   Orchestrator / build_orchestrators / ActiveLedger — Alg. 1 (§3.5)
   SchedulerSession                               — batch-first mapping API
+  ServeLoop / ServeStats / TenantSpec            — online serving continuum
+  PoissonArrivals / DiurnalArrivals              — open-loop traffic models
+  ClosedLoopClients                              — closed-loop population
   build_testbed / build_tpu_fleet                — topology (Fig. 4, TPU fleet)
   Runtime / policies                             — experiment harness (§5)
 """
@@ -19,6 +22,9 @@ from .hwgraph import (Churn, EdgeAttr, HWGraph, Node, NodeKind, Predictable,
 from .orchestrator import (ActiveLedger, MapResult, OrcConfig, Orchestrator,
                            build_orchestrators)
 from .predict import CallableModel, PerfModel, ProfiledModel, RooflineModel
+from .serving import (ClosedLoopClients, DiurnalArrivals, PoissonArrivals,
+                      ServeLoop, ServeRequest, ServeStats, TenantSpec,
+                      single_task_request)
 from .session import RunStats, SchedulerSession, percentiles
 from .simulator import (AcePolicy, LatsPolicy, OrchestratorPolicy,
                         Runtime, ground_truth_traverser, heye_traverser)
@@ -30,6 +36,6 @@ from .topology import (EDGE_FPS, Testbed, build_edge_device, build_server,
                        vr_mining_profile)
 from .traverser import TaskPrediction, Timeline, Traverser
 from .workloads import (MINING_DEADLINE, mining_workload, vr_frame,
-                        vr_workload)
+                        vr_workload, wireless_churn_schedule)
 
 __all__ = [n for n in dir() if not n.startswith("_")]

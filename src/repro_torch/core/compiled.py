@@ -25,32 +25,57 @@ The HW-GRAPH lives in two layers:
 
   The **route table** stays on the host (numpy + ``EdgeAttr`` lists): it
   is written row by row by lazily run shortest-path searches and read a
-  scalar or a short row at a time by the control plane.  It is a single
-  layer here — the copy-on-write topology/bandwidth layering that
-  absorbs churn deltas belongs to a later slice; in this one a mutation
-  of the graph drops the whole snapshot.
+  scalar or a short row at a time by the control plane.  It is layered:
+  a *topology layer* (latency, routes, built rows; shared copy-on-write,
+  privately copied only by death/revival deltas) and a per-snapshot
+  *bandwidth overlay* (inverse-bandwidth row shadows owned by
+  ``set_bandwidth`` deltas), so bandwidth churn copies O(changed rows).
 
-``HWGraph.compiled()`` returns the current snapshot.
+``HWGraph.compiled()`` returns the current snapshot.  Construction-time
+mutations drop it for a full rebuild; the runtime mutations (deaths,
+revivals, bandwidth changes) go through :meth:`CompiledHWGraph.apply_delta`,
+which returns a copy-on-write clone with only the affected state patched.
+A device column the delta changes (``pu_alive``, and on a revival
+``path_mask`` / ``ncr_res`` / ``ncr_rclass`` / ``resource_rclass``) is
+cloned on the card and the clone patched — never written in place, since
+the previous snapshot may still be held by a walk's batch context or a
+timeline's frozen routes.  ``apply_delta`` returns ``None`` when the
+effects exceed what can be patched (a resource dying under still-alive
+PUs), and the graph then rebuilds.
+
 """
 from __future__ import annotations
 
 import threading
-from typing import Optional
+import weakref
+from typing import Optional, Sequence
 
 import numpy as np
 import torch
 
-from ..device import host_item
+from ..device import host_item, host_list
 from .hwgraph import EdgeAttr, HWGraph, NodeKind, ProcessingUnit
 
 
-class _RouteTable:
-    """Dense latency / inverse-bandwidth matrices over the routable
-    (GROUP) nodes, the concrete ``EdgeAttr`` route lists, and per-row
-    materialization state.  Host numpy: rows are filled lazily by
-    shortest-path searches and read by the control plane."""
+# bandwidth-overlay compaction threshold: fold the overlay back into a
+# solely-owned topology layer once this many distinct links are dirty
+_OVERLAY_COMPACT_DIRTY = 64
 
-    __slots__ = ("lat", "ibw", "routes", "built", "edge_ids", "fast")
+
+class _RouteTopo:
+    """The **topology layer** of the route table: dense latency matrix,
+    build-time base inverse-bandwidth matrix, concrete ``EdgeAttr`` route
+    lists, per-row materialization state, and the crossed-edge id set.
+
+    Shared copy-on-write across snapshots and privately copied only by
+    death/revival patches.  Lazy route-row builds *write through* to it,
+    so every sharer sees the same ``built`` flags and freshly built rows.
+    Built rows are never mutated while shared: bandwidth repricing lives
+    in the per-snapshot overlay (:class:`_RouteTable`), and
+    ``_invalidate_row`` only ever runs after a private topology copy."""
+
+    __slots__ = ("lat", "ibw", "routes", "built", "edge_ids", "fast",
+                 "owners")
 
     def __init__(self, D: int) -> None:
         self.lat = np.full((D, D), np.inf)
@@ -58,19 +83,119 @@ class _RouteTable:
         self.ibw = np.zeros((D, D))
         self.routes: dict[tuple[int, int], list[EdgeAttr]] = {}
         self.built = np.zeros(D, dtype=bool)
+        # ids of every EdgeAttr any built route crosses (delta prefilter)
         self.edge_ids: set[int] = set()
-        # rows built in batch: row -> (predecessor array
-        # over the global node space, sorted crossed edge ordinals); their
-        # EdgeAttr route lists materialize per pair on first access
+        # rows built in batch: row -> (predecessor array over the global
+        # node space, sorted crossed edge ordinals); their EdgeAttr route
+        # lists materialize per pair on first access
         self.fast: dict[int, tuple[np.ndarray, np.ndarray]] = {}
+        # the _RouteTables currently sharing this layer (weak: dead
+        # snapshots drop out) — overlay compaction is legal exactly when
+        # one table is the sole surviving sharer
+        self.owners: "weakref.WeakSet" = weakref.WeakSet()
 
+    def copy(self) -> "_RouteTopo":
+        c = object.__new__(_RouteTopo)
+        c.lat = self.lat.copy()
+        c.ibw = self.ibw.copy()
+        c.routes = dict(self.routes)
+        c.built = self.built.copy()
+        c.edge_ids = set(self.edge_ids)
+        c.fast = dict(self.fast)
+        c.owners = weakref.WeakSet()
+        return c
+
+
+class _RouteTable:
+    """One snapshot's route view: a shared :class:`_RouteTopo` plus a
+    private **bandwidth overlay** — per-row effective inverse-bandwidth
+    shadows (``over``) and the set of links repriced since the topology
+    layer was last privately owned (``dirty``).
+
+    A bandwidth delta clones through :meth:`overlay_clone` (the topology
+    layer stays shared, only the overlay dict is copied: O(changed
+    rows)); a death/revival delta clones through :meth:`copy` (a private
+    topology copy with the overlay flattened into the base ``ibw``:
+    O(D^2)).  Effective inverse bandwidth is read through :meth:`ibw_row`
+    / :meth:`ibw_col`; there is deliberately no ``.ibw`` attribute, so a
+    consumer reading the base matrix without the overlay fails loudly."""
+
+    __slots__ = ("topo", "over", "dirty", "__weakref__")
+
+    def __init__(self, D: int) -> None:
+        self.topo = _RouteTopo(D)
+        self.over: dict[int, np.ndarray] = {}
+        self.dirty: set[str] = set()
+        self.topo.owners.add(self)
+
+    # -- topology-layer views (shared; see _RouteTopo) -------------------
+    @property
+    def lat(self) -> np.ndarray:
+        return self.topo.lat
+
+    @property
+    def routes(self) -> dict:
+        return self.topo.routes
+
+    @property
+    def built(self) -> np.ndarray:
+        return self.topo.built
+
+    @property
+    def edge_ids(self) -> set:
+        return self.topo.edge_ids
+
+    @property
+    def fast(self) -> dict:
+        return self.topo.fast
+
+    # -- effective inverse bandwidth (base + overlay) --------------------
     def ibw_row(self, i: int) -> np.ndarray:
-        """Inverse-bandwidth row ``i``."""
-        return self.ibw[i]
+        """Effective inverse-bandwidth row ``i`` (overlay shadow wins)."""
+        r = self.over.get(i)
+        return r if r is not None else self.topo.ibw[i]
 
     def ibw_col(self, rows: np.ndarray, j: int) -> np.ndarray:
-        """Inverse bandwidth of the pairs ``(rows, j)``."""
-        return self.ibw[rows, j]
+        """Effective inverse bandwidth of the pairs ``(rows, j)``."""
+        col = self.topo.ibw[rows, j]
+        if self.over:
+            for k, i in enumerate(np.asarray(rows).tolist()):
+                r = self.over.get(int(i))
+                if r is not None:
+                    col[k] = r[j]
+        return col
+
+    # -- the two copy-on-write clones ------------------------------------
+    def overlay_clone(self) -> "_RouteTable":
+        """Bandwidth-delta clone: share the topology layer, copy the
+        overlay dict (row arrays stay shared until shadowed)."""
+        c = object.__new__(_RouteTable)
+        c.topo = self.topo
+        c.over = dict(self.over)
+        c.dirty = set(self.dirty)
+        self.topo.owners.add(c)
+        return c
+
+    def copy(self) -> "_RouteTable":
+        """Topology-delta clone: private topology copy with the overlay
+        flattened into the base ``ibw``."""
+        c = object.__new__(_RouteTable)
+        c.topo = self.topo.copy()
+        for i, row in self.over.items():
+            c.topo.ibw[i, :] = row
+        c.over = {}
+        c.dirty = set()
+        c.topo.owners.add(c)
+        return c
+
+    def compact(self) -> None:
+        """Fold the bandwidth overlay back into the (solely owned)
+        topology layer.  ``ibw_row``/``ibw_col`` read identical values
+        before and after; ONLY legal when ``len(topo.owners) == 1``."""
+        for i, row in self.over.items():
+            self.topo.ibw[i, :] = row
+        self.over = {}
+        self.dirty = set()
 
 
 def _have_scipy() -> bool:
@@ -348,7 +473,9 @@ class CompiledHWGraph:
 
     def _fill_fast_row(self, i: int, s: int, d: np.ndarray, p: np.ndarray,
                        ctx: _FastRouteCtx) -> None:
-        topo = self._rt
+        # writes go to the (possibly shared) topology layer: a lazy build
+        # is a write-through, so every sharer sees the same built flags
+        topo = self._rt.topo
         if topo.built[i]:
             for j in range(len(self.routable_names)):
                 topo.routes.pop((i, j), None)
@@ -415,7 +542,7 @@ class CompiledHWGraph:
         """(Re)compute all routes from source ``i`` against the current
         authoring graph — the unit of materialization without scipy."""
         g = self.graph
-        topo = self._rt
+        topo = self._rt.topo          # write-through (see _fill_fast_row)
         src = self.routable_names[i]
         topo.lat[i, :] = np.inf
         topo.lat[i, i] = 0.0
@@ -497,3 +624,379 @@ class CompiledHWGraph:
         if edges is None:
             raise KeyError(f"no path {src} -> {dst}")
         return edges
+
+    # ------------------------------------------------------------------
+    # incremental snapshot deltas (deaths / revivals / bandwidth changes)
+    # ------------------------------------------------------------------
+    def apply_delta(self, kind: str, names=(), edge_name: Optional[str] = None,
+                    edge_names: Sequence[str] = (),
+                    ) -> Optional["CompiledHWGraph"]:
+        """Patch this snapshot into a *new* snapshot reflecting one
+        authoring-layer mutation (already applied to ``self.graph``),
+        without a full recompile.
+
+        Returns a copy-on-write clone — only the state the mutation
+        touches is copied, device columns included — or ``None`` when the
+        effects exceed what can be patched (the caller then rebuilds).
+        ``kind="set_bandwidth"`` takes many links at once (``edge_names``:
+        a ``Churn`` bandwidth batch pays one overlay copy) and never
+        copies the topology layer.  Where several equal-latency shortest
+        paths exist, a patched route may differ from the one a fresh
+        search would pick; latency is exact either way."""
+        if kind == "set_bandwidth":
+            en = tuple(edge_names) or ((edge_name,) if edge_name else ())
+            return self._delta_bandwidth(en)
+        if kind in ("mark_dead", "mark_alive"):
+            return self._delta_alive(kind == "mark_alive", set(names))
+        return None
+
+    def _clone(self) -> "CompiledHWGraph":
+        c = object.__new__(CompiledHWGraph)
+        c.__dict__.update(self.__dict__)
+        c.version = self.version + 1
+        # the batched-builder ctx bakes in aliveness; re-derive post-delta
+        c.__dict__.pop("_fast_route_ctx", None)
+        return c
+
+    def _delta_bandwidth(self, edge_names: Sequence[str],
+                         ) -> "CompiledHWGraph":
+        # Shortest-path selection weighs latency only, so routes never
+        # change with bandwidth; the EdgeAttr objects are shared with the
+        # authoring layer, so route_edges already sees the new values.
+        # Only the effective inverse bandwidth of *built* rows crossing a
+        # changed link needs repair, and it lives in the private overlay:
+        # the topology layer stays shared (route_holder_copies stays 0)
+        # and no device column is touched.
+        g = self.graph
+        names = set(edge_names)
+        rt = self._rt
+        # overlay compaction (bounded shadows on long serving runs): once
+        # the dirty-link set is large and no other snapshot shares the
+        # topology layer, fold the overlay into it
+        if (len(rt.dirty) >= _OVERLAY_COMPACT_DIRTY
+                and len(rt.topo.owners) == 1):
+            rt.compact()
+            g.route_overlay_compactions += 1
+        c = self._clone()
+        changed_ids = {id(e) for adj in g._adj.values() for _, e in adj
+                       if e.name in names}
+        if not (changed_ids & rt.edge_ids):
+            return c          # no built route crosses a changed link:
+                              # share both layers untouched
+        c._rt = rt = rt.overlay_clone()
+        g.route_overlay_copies += 1
+        rt.dirty.update(names)
+        topo = rt.topo
+        # rows privately owned by *this* delta (safe to mutate in place);
+        # rows inherited from the parent overlay stay shared until copied
+        fresh: set[int] = set()
+        replayed: set[int] = set()
+        if topo.fast:
+            # a fast-built row whose shortest-path tree crosses a changed
+            # link is replayed against the live bandwidths into a private
+            # overlay row (the stored tree stays valid: no search, no
+            # shared-state mutation)
+            name_ords = np.asarray(
+                [o for o, e in enumerate(self._edge_ord_edges())
+                 if e.name in names], dtype=np.int64)
+            if name_ords.size:
+                ctx = c._fast_ctx()
+                for i, (p, eords) in topo.fast.items():
+                    if bool(np.isin(name_ords, eords).any()):
+                        rt.over[i] = c._overlay_row_from_tree(i, p, ctx)
+                        fresh.add(i)
+                        replayed.add(i)
+        # materialized routes are authoritative per pair: repair every
+        # pair crossing a changed link, and *all* materialized pairs of
+        # tree-replayed rows (a revival-mirror pair is materialized but
+        # invisible to the stored tree, so the replay zeroed it)
+        for (i, j), edges in topo.routes.items():
+            if not (i in replayed or any(e.name in names for e in edges)):
+                continue
+            row = rt.over.get(i)
+            if i not in fresh:
+                row = rt.over[i] = (row.copy() if row is not None
+                                    else topo.ibw[i].copy())
+                fresh.add(i)
+            bw = min((e.bandwidth for e in edges), default=float("inf"))
+            row[j] = 0.0 if bw == float("inf") else 1.0 / bw
+        return c
+
+    def _overlay_row_from_tree(self, i: int, p: np.ndarray,
+                               ctx: _FastRouteCtx) -> np.ndarray:
+        """Effective inverse-bandwidth row ``i`` replayed from the stored
+        shortest-path tree against the live edge bandwidths — the same
+        running max of reciprocals as ``_fill_fast_row``.  Hops into
+        nodes that died since the row was built gather nothing (their
+        columns were wiped, and the finite-latency mask zeroes them)."""
+        topo = self._rt.topo
+        row = np.zeros(len(self.routable_names))
+        vs = np.flatnonzero(p >= 0)
+        if not vs.size or not ctx.keys.size:
+            return row
+        s = int(ctx.idx[self.routable_names[i]])
+        pv = p[vs].astype(np.int64)
+        key = pv * ctx.N + vs
+        pos = np.searchsorted(ctx.keys, key).clip(0, len(ctx.keys) - 1)
+        eb = np.where(ctx.keys[pos] == key, ctx.hibw[pos], 0.0)
+        ibw_to = np.zeros(ctx.N)
+        known = np.zeros(ctx.N, dtype=bool)
+        known[s] = True
+        rem = np.arange(vs.size)
+        while rem.size:
+            ready = known[pv[rem]]
+            sel = rem[ready]
+            v = vs[sel]
+            ibw_to[v] = np.maximum(ibw_to[pv[sel]], eb[sel])
+            known[v] = True
+            rem = rem[~ready]
+        fin = known[ctx.r_idx] & np.isfinite(topo.lat[i, :])
+        row[:] = np.where(fin, ibw_to[ctx.r_idx], 0.0)
+        row[i] = 0.0
+        return row
+
+    def _delta_alive(self, alive: bool,
+                     names: set) -> Optional["CompiledHWGraph"]:
+        g = self.graph
+        c = self._clone()
+        # -- PU aliveness: a fresh device column, patched ----------------
+        rows = [self.pu_index[n] for n in names if n in self.pu_index]
+        c.pu_alive = self.pu_alive.clone()
+        if rows:
+            c.pu_alive[torch.as_tensor(rows, device=self.device)] = alive
+        # -- compute-path effects of dead/revived resources --------------
+        # (ABSTRACT nodes are included conservatively: they could sit on
+        # an intra-device shortest path even though they never appear in
+        # the STORAGE/CONTROLLER path lists themselves)
+        res_nodes = [n for n in names if g.nodes[n].kind in
+                     (NodeKind.STORAGE, NodeKind.CONTROLLER, NodeKind.ABSTRACT)]
+        if res_nodes:
+            res_devs = {self.device_name(n) for n in res_nodes}
+            stale = [i for i, p in enumerate(self.pu_names)
+                     if self._pu_device_name[p] in res_devs]
+            if not alive:
+                # a resource dying under still-alive PUs re-routes their
+                # compute paths: only the whole-subtree case is patchable
+                # (the stale NCR entries then belong to dead PUs, which
+                # eligibility masks filter; revival recomputes them)
+                if stale and bool(host_item(c.pu_alive[torch.as_tensor(
+                        stale, device=self.device)].any())):
+                    return None
+            elif stale:
+                c._refresh_ncr(stale)
+        # -- transfer routes --------------------------------------------
+        if not c._patch_routes(alive, names):
+            return None
+        return c
+
+    def _rclass_of(self, ncr: torch.Tensor) -> torch.Tensor:
+        return torch.where(ncr >= 0,
+                           self.resource_rclass[ncr.clamp(min=0).long()],
+                           -1).to(torch.int16)
+
+    def _refresh_ncr(self, rows: list) -> None:
+        """Recompute compute paths + NCR rows/columns for ``rows`` (PUs of
+        devices whose resources were revived), extending the resource
+        space when the snapshot was first built while they were dead.
+        Every device column touched here is a fresh copy."""
+        g = self.graph
+        dev = self.device
+        new_paths: dict[int, list[str]] = {}
+        for i in rows:
+            node = g.nodes[self.pu_names[i]]
+            new_paths[i] = (node.get_compute_path()
+                            if isinstance(node, ProcessingUnit)
+                            else g.resource_path(self.pu_names[i]))
+        # copy-on-write for everything this repair mutates
+        self.compute_paths = list(self.compute_paths)
+        self.resource_names = list(self.resource_names)
+        self.resource_index = dict(self.resource_index)
+        self.rclass_names = list(self.rclass_names)
+        rclass_index = {rc: k for k, rc in enumerate(self.rclass_names)}
+        fresh = [r for p in new_paths.values() for r in p
+                 if r not in self.resource_index]
+        if fresh:
+            res_rclass = host_list(self.resource_rclass)
+            for r in dict.fromkeys(fresh):
+                self.resource_index[r] = len(self.resource_names)
+                self.resource_names.append(r)
+                rc = g.nodes[r].attrs.get("rclass", "dram")
+                if rc not in rclass_index:
+                    rclass_index[rc] = len(self.rclass_names)
+                    self.rclass_names.append(rc)
+                res_rclass.append(rclass_index[rc])
+            self.resource_rclass = torch.as_tensor(
+                np.asarray(res_rclass, dtype=np.int64), device=dev)
+        P = len(self.pu_names)
+        R = len(self.resource_names)
+        mask = torch.zeros((P, R), dtype=torch.bool, device=dev)
+        mask[:, :self.path_mask.shape[1]] = self.path_mask
+        self.path_mask = mask
+        self.ncr_res = ncr = self.ncr_res.clone()
+        for i, path in new_paths.items():
+            self.compute_paths[i] = path
+            mask[i, :] = False
+            if path:
+                mask[i, torch.as_tensor([self.resource_index[r]
+                                         for r in path], device=dev)] = True
+        for i in rows:                       # rows of the refreshed PUs
+            row = torch.full((P,), -1, dtype=ncr.dtype, device=dev)
+            unset = torch.ones(P, dtype=torch.bool, device=dev)
+            for r in new_paths[i]:
+                ri = self.resource_index[r]
+                hit = unset & mask[:, ri]
+                row = torch.where(hit, ri, row)
+                unset &= ~hit
+            ncr[i, :] = row
+        # columns of the refreshed PUs: -1 wherever the other PU's path
+        # shares no resource with any refreshed path, so only the PUs
+        # whose paths meet one of those resources are scanned
+        rowset = set(rows)
+        cols = torch.as_tensor(rows, device=dev)
+        others = [j for j in range(P) if j not in rowset]
+        if others:
+            ncr[torch.as_tensor(others, device=dev)[:, None],
+                cols[None, :]] = -1
+        touched = {r for p in new_paths.values() for r in p}
+        for j in others:
+            path = self.compute_paths[j]
+            if touched.isdisjoint(path):
+                continue
+            val = torch.full((len(rows),), -1, dtype=ncr.dtype, device=dev)
+            unset = torch.ones(len(rows), dtype=torch.bool, device=dev)
+            for r in path:
+                ri = self.resource_index[r]
+                hit = unset & mask[cols, ri]
+                val = torch.where(hit, ri, val)
+                unset &= ~hit
+            ncr[j, cols] = val
+        self.ncr_rclass = ncr_rc = self.ncr_rclass.clone()
+        ncr_rc[cols, :] = self._rclass_of(ncr[cols, :])
+        ncr_rc[:, cols] = self._rclass_of(ncr[:, cols])
+
+    def _patch_routes(self, alive: bool, names: set) -> bool:
+        """Repair the route table after an aliveness flip of ``names``.
+
+        Death keeps the table warm: endpoints into the dead subtree
+        become unroutable; built routes *transiting* the subtree fall
+        back to lazy.  Revival invalidates exactly the built rows whose
+        routes can change: the revived sources themselves, rows a
+        boundary-node scan shows could improve through the revived
+        subtree, and rows of still-dead sources the scan cannot see."""
+        g = self.graph
+        if alive:
+            # private topology copy (overlay flattened): aliveness repair
+            # mutates lat/routes/built in place, which is only legal on
+            # an owned topology layer
+            self._rt = rt = self._rt.copy()
+            g.route_holder_copies += 1
+            r_s = sorted(self.routable_index[n] for n in names
+                         if n in self.routable_index)
+            for r in r_s:                # rows of revived sources (eager:
+                self._rebuild_route_row(r)   # their columns mirror below)
+            # mirror into the revived columns of built rows: undirected
+            # fabric, so the reverse of a fresh shortest path is exact
+            built = np.nonzero(rt.built)[0]
+            for r in r_s:
+                for j in built.tolist():
+                    if j == r or j in r_s:
+                        continue
+                    lat = rt.lat[r, j]
+                    if np.isfinite(lat):
+                        rt.routes[(j, r)] = list(
+                            reversed(rt.routes[(r, j)]))
+                        rt.lat[j, r] = lat
+                        rt.topo.ibw[j, r] = rt.topo.ibw[r, j]
+                    else:
+                        rt.routes.pop((j, r), None)
+                        rt.lat[j, r] = np.inf
+                        rt.topo.ibw[j, r] = 0.0
+            # transit improvements: a new shortest path through the
+            # revived subtree must pass one of its boundary nodes — one
+            # search per boundary node flags exactly the built rows that
+            # can improve; they fall back to lazy
+            invalid: set[int] = set()
+            boundary = [n for n in names
+                        if any(v not in names and g.nodes[v].alive
+                               for v, _ in g._adj.get(n, ()))]
+            for b in boundary:
+                dist, _ = g.sssp(b)
+                d = np.array([dist.get(nm, np.inf)
+                              for nm in self.routable_names])
+                thru = d[:, None] + d[None, :]
+                with np.errstate(invalid="ignore"):
+                    imp = np.nonzero((thru < rt.lat).any(axis=1))[0]
+                invalid.update(int(i) for i in imp if i not in r_s)
+            # rows of still-dead sources are invisible to the boundary
+            # scan (a dead node is unreachable as a destination but still
+            # routes outward as a source)
+            for j, nm in enumerate(self.routable_names):
+                if j not in r_s and not g.nodes[nm].alive:
+                    invalid.add(j)
+            for i in invalid:
+                if rt.built[i]:
+                    self._invalidate_row(i)
+            return True
+        rt = self._rt
+        # eid -> the subtree endpoints of that edge: a route *transits* the
+        # subtree iff it crosses an edge owned by a node that is not one of
+        # the route's own endpoints
+        eid_owners: dict[int, set] = {}
+        for n in names:
+            for _, e in g._adj.get(n, ()):
+                eid_owners.setdefault(id(e), set()).add(n)
+        touched = set(eid_owners) & rt.edge_ids
+        r_s = {self.routable_index[n] for n in names
+               if n in self.routable_index}
+        if not touched and not r_s:
+            return True      # a node no built route crosses died
+        self._rt = rt = rt.copy()    # private topology copy (see above)
+        g.route_holder_copies += 1
+        # endpoints into the dead subtree become unroutable; routes *from*
+        # dead sources stay valid (the search explores outward from them)
+        stale: set[int] = set()
+        for (i, j), edges in list(rt.routes.items()):
+            if j in r_s:
+                del rt.routes[(i, j)]
+                continue
+            si, sj = self.routable_names[i], self.routable_names[j]
+            for e in edges:
+                owners = eid_owners.get(id(e))
+                if owners and not owners <= {si, sj}:
+                    stale.add(i)
+                    break
+        if r_s:
+            cols = sorted(r_s)
+            rt.lat[:, cols] = np.inf
+            rt.topo.ibw[:, cols] = 0.0
+            for r in cols:
+                rt.lat[r, r] = 0.0
+        for i in stale:
+            self._invalidate_row(i)
+        # fast rows: unmaterialized pairs transiting the dead subtree are
+        # exactly those whose predecessor chain passes a dead node as an
+        # interior tree node (a dead *source* keeps routing outward)
+        if rt.fast:
+            _, idx = self._node_space()
+            da = np.asarray([idx[n] for n in names if n in idx],
+                            dtype=np.int64)
+            if da.size:
+                for i, (p, _) in list(rt.fast.items()):
+                    si = idx[self.routable_names[i]]
+                    hit = da[np.isin(da, p)]
+                    if any(int(x) != si for x in hit):
+                        self._invalidate_row(i)
+        return True
+
+    def _invalidate_row(self, i: int) -> None:
+        """Return row ``i`` to the unbuilt state (rebuilt on next access).
+        Only ever called on a privately owned topology layer."""
+        rt = self._rt
+        rt.built[i] = False
+        rt.lat[i, :] = np.inf
+        rt.lat[i, i] = 0.0
+        rt.topo.ibw[i, :] = 0.0
+        for j in range(len(self.routable_names)):
+            rt.routes.pop((i, j), None)
+        rt.fast.pop(i, None)
+        rt.over.pop(i, None)

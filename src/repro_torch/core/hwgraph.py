@@ -21,9 +21,9 @@ runtime.  It is host Python (the control plane).  Hot-path consumers (the
 slowdown model, the Traverser's contention repricing, the Orchestrator's
 candidate checks) evaluate against the dense **compiled layer** instead:
 a ``core.compiled.CompiledHWGraph`` snapshot of torch tensors on the
-graph's device, obtained via :meth:`HWGraph.compiled`.  In this slice a
-mutation drops the snapshot and the next ``compiled()`` rebuilds it
-(incremental deltas are a later slice).
+graph's device, obtained via :meth:`HWGraph.compiled`.  Runtime churn
+(deaths, revivals, bandwidth changes) patches the snapshot as a
+copy-on-write delta; construction-time mutations drop it for a rebuild.
 
 The graph carries the **device request** of everything built from it:
 ``HWGraph(device=None)`` means the CUDA device (``.device`` raises when
@@ -144,8 +144,12 @@ class ProcessingUnit(Node, Predictable):
 @dataclass(frozen=True)
 class Churn:
     """One batch of topology churn: deaths, then revivals, then
-    bandwidth changes (coalesced last-writer-wins per link).  Applied
-    through ``HWGraph.apply_churn``."""
+    bandwidth changes (coalesced last-writer-wins per link into one
+    multi-edge delta, so N link changes pay one overlay copy).  Applied
+    immediately (``HWGraph.apply_churn``), scheduled on a resident
+    timeline (``TimelineEngine.schedule``), applied at its clock
+    (``TimelineEngine.apply_churn``), or routed by
+    ``SchedulerSession.churn``."""
 
     dead: Sequence[str] = ()
     alive: Sequence[str] = ()
@@ -470,10 +474,18 @@ class HWGraph:
         self.apply_churn(Churn(bandwidth=((edge_name, bandwidth),)))
 
     def _after_mutation(self, kind: str, names=(), edge_names=()) -> None:
-        """Invalidate object-layer caches and drop the compiled snapshot:
-        deltas are not absorbed in this slice, so the next ``compiled()``
-        rebuilds (``recompile_count`` records it)."""
-        self._invalidate_paths()
+        """Invalidate object-layer caches, then delta-patch the compiled
+        snapshot instead of dropping it (a full rebuild only when the
+        delta engine declines — see ``CompiledHWGraph.apply_delta``)."""
+        for n in self.nodes.values():
+            if isinstance(n, ProcessingUnit):
+                n.invalidate()
+        if self._compiled is not None:
+            patched = self._compiled.apply_delta(kind, names=names,
+                                                 edge_names=edge_names)
+            self._compiled = patched
+            if patched is not None:
+                self.delta_count += 1
 
     def _invalidate_paths(self) -> None:
         for n in self.nodes.values():
@@ -483,9 +495,11 @@ class HWGraph:
 
     def compiled(self):
         """The array-native snapshot of the current topology version, on
-        this graph's device.  Built lazily on first use; any mutation
-        drops it, so callers may simply re-fetch it per decision.
-        ``recompile_count`` records the builds."""
+        this graph's device.  Built lazily on first use.  Construction-time
+        mutations drop the snapshot; runtime churn patches it through
+        ``apply_delta``, so callers may simply re-fetch it per decision.
+        ``recompile_count`` / ``delta_count`` record which path each
+        topology version took."""
         if self._compiled is None:
             from .compiled import CompiledHWGraph
             self._compiled = CompiledHWGraph(self)

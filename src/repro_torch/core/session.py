@@ -29,8 +29,12 @@ was not asked for).  The session itself is host control flow: waves,
 commits, overhead charging; all array math happens in the policy and the
 ground-truth traverser.
 
-Not in this slice: ``withdraw``, the session-resident timeline
-(``open_timeline`` / ``inject`` / ``finalize_online``) and ``churn``.
+Topology churn during a session (``churn``, or ``HWGraph.apply_churn``)
+is absorbed by ``CompiledHWGraph.apply_delta``: the session keeps mapping
+against copy-on-write patched snapshots instead of full recompiles.  The
+online half — ``withdraw``, the session-resident timeline
+(``open_timeline`` / ``inject`` / ``finalize_online``) — is what
+``core.serving.ServeLoop`` drives.
 """
 from __future__ import annotations
 
@@ -39,9 +43,10 @@ from typing import Callable, Iterable, Optional, Union
 
 import numpy as np
 
-from .hwgraph import HWGraph
+from .hwgraph import Churn, HWGraph
 from .orchestrator import MapResult, Orchestrator
 from .task import Task, TaskGraph
+from .timeline import TimelineEngine
 from .traverser import TaskPrediction, Timeline, Traverser
 
 
@@ -196,6 +201,10 @@ class SchedulerSession:
         self.results: dict[int, Optional[MapResult]] = {}
         self.mapping: dict[int, str] = {}
         self.unmapped: list[int] = []
+        # session-resident timeline (serving mode); opens count full engine
+        # builds — a healthy serving run opens exactly once
+        self.engine: Optional[TimelineEngine] = None
+        self.engine_opens = 0
 
     # -- submission ---------------------------------------------------------
     def submit(self, work: Union[TaskGraph, Iterable[Task]]) -> "SchedulerSession":
@@ -304,6 +313,85 @@ class SchedulerSession:
                         if touch is not None:
                             touch(comp.device_name(res.pu))
         return out
+
+    def withdraw(self, task: Task) -> None:
+        """Undo a mapping commit and drop ``task`` from the session — the
+        admission-rejection path.  Reverts the overhead charge, clears the
+        ledger belief and ``assigned_pu``, and removes the task from the
+        session CFG.  Tasks already injected into a resident timeline
+        cannot be withdrawn (their intervals are settled history)."""
+        if self.engine is not None and task.uid in self.engine.slot_of:
+            raise ValueError(
+                f"{task} is already injected into the resident timeline")
+        res = self.results.pop(task.uid, None)
+        self.mapping.pop(task.uid, None)
+        self._mapped.discard(task.uid)
+        self._pending = [t for t in self._pending if t.uid != task.uid]
+        if task.uid in self.unmapped:
+            self.unmapped.remove(task.uid)
+        if res is not None:
+            if self.charge_overhead:
+                task.release_time -= res.overhead
+            task.assigned_pu = None
+            if isinstance(self.policy, Orchestrator):
+                self.policy.ledger.remove(task)
+        self._cfg.remove(task)
+
+    # -- resident timeline (online serving) ---------------------------------
+    def open_timeline(self, interventions=()) -> TimelineEngine:
+        """Open the session-resident DES timeline: built once, advanced to
+        each admission instant, fed by ``inject``.  The engine shares this
+        session's CFG and mapping dict, so later ``map_pending`` commits
+        are visible without copying.  Anything already submitted must be
+        mapped first (its releases enter the event heap at open)."""
+        if self.engine is not None:
+            raise RuntimeError("resident timeline already open")
+        if self.truth is None:
+            from .simulator import ground_truth_traverser
+            self.truth = ground_truth_traverser(self.graph)
+        self.engine = TimelineEngine.open(
+            self.truth, cfg=self._cfg, mapping=self.mapping,
+            interventions=interventions)
+        self.engine_opens += 1
+        return self.engine
+
+    def inject(self, tasks: Iterable[Task]) -> None:
+        """Push freshly mapped tasks into the resident timeline."""
+        if self.engine is None:
+            raise RuntimeError("open_timeline() first")
+        self.engine.inject(list(tasks))
+
+    def churn(self, delta: Churn, at: Optional[float] = None) -> None:
+        """Apply (or schedule) one :class:`~.hwgraph.Churn` delta batch.
+
+        * ``at`` set: queued on the resident timeline at simulated time
+          ``at`` (requires an open engine).
+        * engine open, ``at`` omitted: applied at the current engine
+          clock through the one-flush reprice path.
+        * no engine: applied to the graph immediately; the compiled
+          snapshot absorbs it via ``apply_delta`` and the next
+          ``map_pending`` sees the new topology.
+        """
+        if at is not None:
+            if self.engine is None:
+                raise RuntimeError(
+                    "churn(at=...) schedules on the resident timeline — "
+                    "open_timeline() first (or omit `at`)")
+            self.engine.schedule(at, delta)
+        elif self.engine is not None:
+            self.engine.apply_churn(delta)
+        else:
+            self.graph.apply_churn(delta)
+
+    def finalize_online(self, drain: bool = True) -> RunStats:
+        """Collect RunStats from the resident timeline.  ``drain=True``
+        advances to quiescence first (every injected task finishes);
+        ``drain=False`` snapshots mid-flight (partial timeline)."""
+        if self.engine is None:
+            raise RuntimeError("open_timeline() first")
+        if drain:
+            self.engine.advance()
+        return self._stats(self.engine.timeline(partial=not drain))
 
     # -- execution ----------------------------------------------------------
     def _stats(self, tl: Timeline) -> RunStats:

@@ -129,7 +129,8 @@ class DecoupledSlowdown:
         # a new snapshot
         self._tables_cache: Optional[tuple] = None
         # canonical-pattern result cache for single-device constraint
-        # checks (see _canon_key), keyed per snapshot identity
+        # checks (see _canon_key), keyed per snapshot identity (kin delta
+        # clones are rebased, see _factor_kin)
         self._canon_cache: Optional[tuple] = None
         self.factor_cache_hits = 0
         self.factor_cache_misses = 0
@@ -158,11 +159,32 @@ class DecoupledSlowdown:
         return min(u, cap) if cap is not None else u
 
     # -- per-snapshot model tables ----------------------------------------
+    @staticmethod
+    def _factor_state(comp) -> tuple:
+        """The snapshot columns the factor model reads.  Two snapshots
+        whose columns are the *same objects* (a bandwidth-only delta clone
+        shares everything but the route table) are kin: cached device
+        tables and canonical factors carry over verbatim."""
+        return (comp.rclass_names, comp.pu_class_kind,
+                getattr(comp, "ncr_rclass", None),
+                getattr(comp, "mem_cap", None),
+                getattr(comp, "pu_index", None))
+
+    @classmethod
+    def _factor_kin(cls, a, b) -> bool:
+        return all(x is y for x, y in
+                   zip(cls._factor_state(a), cls._factor_state(b)))
+
     def _tables(self, comp) -> tuple[torch.Tensor, torch.Tensor]:
         """(beta per compiled rclass, mt-beta per compiled PU) on the
         snapshot's device; cached per snapshot identity, so a topology
-        mutation (new snapshot) rebuilds them."""
+        mutation (new snapshot) rebuilds them.  A kin delta clone is
+        rebased onto the cached tables, not rebuilt."""
         cached = self._tables_cache
+        if cached is not None and cached[0] is not comp \
+                and self._factor_kin(cached[0], comp):
+            cached = (comp, cached[1])
+            self._tables_cache = cached
         if cached is None or cached[0] is not comp:
             p = self.params
             beta_vec = f64([p.beta.get(rc, _DEFAULT_BETA)
@@ -535,6 +557,12 @@ class DecoupledSlowdown:
 
     def _canon_cache_dict(self, comp) -> dict:
         cached = self._canon_cache
+        if cached is not None and cached[0] is not comp \
+                and self._factor_kin(cached[0], comp):
+            # kin delta clone: the canonical keys hash every value the
+            # kernel math reads, none of which changed — keep the factors
+            cached = (comp, cached[1])
+            self._canon_cache = cached
         if cached is None or cached[0] is not comp:
             cached = (comp, {})
             self._canon_cache = cached

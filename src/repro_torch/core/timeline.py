@@ -52,9 +52,27 @@ preserves the draw order of the seed loop.  A *noisy slowdown model*
 draws inside ``factor()`` in pool order; ``Traverser.traverse`` routes
 that configuration to the reference loop.
 
-Not in this slice: the resident lifecycle (``open`` for serving,
-``inject``, ``schedule``, ``drain_finished``, ``apply_churn``) and
-mid-run interventions on the array engine.
+**Interventions** (topology churn mid-run): ``traverse(...,
+interventions=[(t, fn), ...])`` applies each ``fn`` — a zero-arg callable
+or a declarative ``Churn`` batch — at simulated time ``t`` and reprices
+every active device pool and link set at that instant.  The host
+bandwidth list of the edges the engine has seen is refreshed from the
+graph and the device edge column is dropped, so the next transfer
+reprice uploads the post-churn bandwidths (a stale column would keep
+dividing by the old ones, with results that still look plausible).
+
+**Resident mode** (the serving path): ``TimelineEngine.open(...)`` brings
+an engine live without draining it, ``advance(until)`` drains every event
+up to ``until`` and parks the clock there, and ``inject(tasks)`` lands
+newly mapped work in the live job and transfer columns mid-run (new rows
+append to the device columns, releases enter the same host event heap,
+and output handed over by an already-finished producer is priced by the
+same one-flush reprice path as churn).  Submitting a full workload
+upfront through a resident engine reproduces ``run()`` to 1e-9.
+``drain_finished`` / ``finish_of`` / ``timeline(partial=True)`` observe
+progress without disturbing it.  ``next_event_time`` reads the earliest
+compute and transfer eta back from the card: one synchronising read per
+call.
 """
 from __future__ import annotations
 
@@ -140,26 +158,25 @@ def warm_transfer_routes(comp, cfg: TaskGraph, mapping: dict) -> int:
 
 
 # timed-event kinds, ordered only by (time, push seq) like the seed heap
-_RELEASE, _ARRIVE = 1, 2
+_INTERVENE, _RELEASE, _ARRIVE = 0, 1, 2
 
 
 class TimelineEngine:
-    """A one-shot DES timeline over SoA state (``run()``).
+    """A DES timeline over SoA state: one-shot (``run()``) or resident
+    (``open`` / ``advance`` / ``inject``).
 
-    Instantiated per ``Traverser.traverse`` call; the engine freezes the
+    Instantiated per ``Traverser.traverse`` call — or opened once per
+    ``SchedulerSession`` for online serving; the engine freezes the
     compiled snapshot for transfer routes/device names (seed semantics)
     while slowdown factors read the live compiled snapshot through the
-    model — exactly like the seed loop.
+    model — exactly like the seed loop — so interventions that patch the
+    topology take effect at the next contention-interval boundary.
     """
 
     def __init__(self, traverser, cfg: TaskGraph, mapping: dict[int, str],
                  background: Sequence[tuple[Task, str, float]] = (),
                  interventions: Sequence[tuple[float, Callable[[], Any]]] = (),
                  ) -> None:
-        if interventions:
-            raise NotImplementedError(
-                "mid-run interventions on the array engine belong to the "
-                "churn-delta slice of the port; use engine=\"reference\"")
         self.trav = traverser
         self.graph = traverser.graph
         self.device = traverser.device
@@ -169,6 +186,7 @@ class TimelineEngine:
         self.cfg = cfg
         self.mapping = mapping
         self.background = list(background)
+        self.interventions = list(interventions)
         self._opened = False
 
     # -- setup --------------------------------------------------------------
@@ -241,6 +259,9 @@ class TimelineEngine:
         self.comm_t: list[float] = []
         self.qwait: list[float] = []
         self.ready_at: list[float] = []
+        # completion log for resident consumers (``drain_finished``)
+        self._finish_log: list[int] = []
+        self._finish_cursor = 0
         # tenancy
         self.pu_running = [0] * len(comp.pu_names)
         self.max_ten = host_list(comp.max_tenancy)
@@ -300,7 +321,13 @@ class TimelineEngine:
 
     def _ingest(self, new_tasks: Sequence[Task]) -> None:
         """Append ``new_tasks`` to the job tables (one batched write per
-        device column)."""
+        device column).
+
+        Dependencies must point at tasks in this batch or at ones already
+        ingested (inject producers before — or together with — their
+        consumers).  A producer that already *finished* hands its output
+        over at the current instant: the cross-device transfer launches
+        now and is priced by the caller's flush."""
         cfg, mapping, g, comp = self.cfg, self.mapping, self.graph, self.comp
         base = self.n
         need = base + len(new_tasks)
@@ -349,15 +376,25 @@ class TimelineEngine:
         self._uid_monotone = mono
         self.n = need
         self._write_static(base, need)
-        # dependency structure as slot lists
+        # dependency structure as slot lists: within-batch edges are wired
+        # from cfg order (one-shot parity); cross-batch producers get this
+        # consumer appended to their successor lists
+        done_preds: list[tuple[int, int]] = []
         for i, t in enumerate(new_tasks):
+            s = base + i
             pl: list[int] = []
             for pt in cfg.preds(t):
                 ps = slot_of.get(pt.uid)
                 if ps is None:
                     raise ValueError(
-                        f"dependency {pt} of {t} is not in the timeline")
+                        f"dependency {pt} of {t} is not in the timeline — "
+                        "inject producers before (or together with) their "
+                        "consumers")
                 pl.append(ps)
+                if ps < base:
+                    self.succs[ps].append(s)
+                    if self.finish[ps] == self.finish[ps]:   # already done
+                        done_preds.append((s, ps))
             self.preds.append(pl)
             self.succs.append([slot_of[x.uid] for x in cfg.succs(t)
                                if slot_of.get(x.uid, -1) >= base])
@@ -375,9 +412,21 @@ class TimelineEngine:
             if t.output_bytes > 0 and any(
                     self.dev_name[ss] != dev for ss in self.succs[s]):
                 srcs.add(dev)
+            for ps in self.preds[s]:
+                if ps < base and self.allt[ps].output_bytes > 0 \
+                        and self.dev_name[ps] != dev:
+                    srcs.add(self.dev_name[ps])
         ensure = getattr(comp, "ensure_routes", None)
         if srcs and ensure is not None:
             ensure(srcs)
+        # producers that finished before this batch arrived hand their
+        # output over now; the release event still gates readiness (the
+        # waiting floor is 1 until it drains), so a direct decrement never
+        # starts compute early
+        for s, ps in done_preds:
+            ob = self.allt[ps].output_bytes
+            if not self._launch(s, self.dev_name[ps], self.dev_name[s], ob):
+                self.waiting[s] -= 1
 
     def _write_static(self, lo: int, hi: int) -> None:
         """Land the static per-slot columns of slots ``[lo, hi)`` on the
@@ -552,6 +601,7 @@ class TimelineEngine:
         self.finish[s] = t
         d = self.dev_ol[s]
         self.dev_members[d].discard(s)
+        self._finish_log.append(s)
         out_bytes = self.allt[s].output_bytes
         src = self.dev_name[s]
         for ss in self.succs[s]:
@@ -718,6 +768,40 @@ class TimelineEngine:
                 flushed = True
         return flushed
 
+    def _intervene(self, fn) -> None:
+        from .hwgraph import Churn
+        is_churn = isinstance(fn, Churn)
+        if is_churn:
+            # declarative delta batch: applied through the graph's churn
+            # surface (bandwidth entries coalesce into one overlay copy)
+            self.graph.apply_churn(fn)
+        else:
+            fn()
+        # an intervention may mutate anything factors depend on (topology
+        # OR model params): drop the memoized pool factors outright
+        self._fcache = {}
+        self._fcache_comp = None
+        # churn boundary: reprice every occupied device pool and active
+        # link set against the post-mutation model/bandwidths
+        for d, members in self.dev_members.items():
+            if members:
+                self.dirty_devs.add(d)
+        if is_churn and not (fn.dead or fn.alive):
+            # bandwidth-only batch: only the named links moved
+            changed = {name for name, _ in fn.bandwidth}
+            for i, e in enumerate(self.edge_objs):
+                if e.name in changed:
+                    self.edge_bw[i] = e.bandwidth
+        else:
+            for i, e in enumerate(self.edge_objs):
+                self.edge_bw[i] = e.bandwidth
+        # the device edge column is rebuilt from the refreshed host list
+        # at the next transfer reprice
+        self._edge_bw_arr = None
+        for e, xs in self.edge_xfers.items():
+            if xs:
+                self.dirty_edges.add(e)
+
     # -- completions --------------------------------------------------------
     def _complete_compute(self, done: torch.Tensor) -> None:
         t = self.time
@@ -760,16 +844,115 @@ class TimelineEngine:
     # -- lifecycle ----------------------------------------------------------
     def _start(self) -> None:
         """Bring the engine live: ingest the CFG + background jobs, price
-        the opening intervals, and enqueue releases."""
+        the opening intervals, and enqueue releases.  Event push order
+        (interventions, then releases) replays the one-shot loop's
+        sequence numbers exactly."""
         if self._opened:
             raise RuntimeError("TimelineEngine is already open")
         self._init_state()
         self._ingest(list(self.cfg))
+        for t, fn in self.interventions:
+            self._push(float(t), _INTERVENE, fn)
         self._ingest_background()
         self._flush()
         for t in self.cfg:
             self._push(t.release_time, _RELEASE, self.slot_of[t.uid])
         self._opened = True
+
+    @classmethod
+    def open(cls, traverser, cfg: Optional[TaskGraph] = None,
+             mapping: Optional[dict[int, str]] = None,
+             background: Sequence[tuple[Task, str, float]] = (),
+             interventions: Sequence[tuple[float, Callable[[], Any]]] = (),
+             ) -> "TimelineEngine":
+        """Open a **session-resident** engine: live immediately, advanced
+        incrementally (``advance``), and accepting ``inject`` mid-run.
+
+        ``cfg``/``mapping`` may start empty (the serving case) or carry an
+        initial workload; ``mapping`` is read live, so a dict shared with
+        a ``SchedulerSession`` picks up later commits without copying.
+        Noisy *slowdown models* (rng-bearing ``factor()``) are rejected:
+        their draw stream only replays on the reference loop, which has
+        no resident form."""
+        eng = cls(traverser,
+                  cfg if cfg is not None else TaskGraph("resident"),
+                  mapping if mapping is not None else {},
+                  background, interventions)
+        noisy = getattr(eng.slowdown, "_noisy", None)
+        if noisy is not None and noisy():
+            raise ValueError(
+                "resident timelines require a deterministic slowdown "
+                "model (noisy factor() draws only replay on "
+                "Traverser.traverse_reference)")
+        eng._start()
+        return eng
+
+    def inject(self, tasks: Sequence[Task],
+               mapping: Optional[dict[int, str]] = None) -> "TimelineEngine":
+        """Land newly mapped work in the live job tables mid-run.
+
+        Each task enters at its own ``release_time`` (>= the engine clock:
+        injecting into the past would rewrite settled intervals)."""
+        if not self._opened:
+            raise RuntimeError(
+                "inject() requires an open engine — TimelineEngine.open() "
+                "or SchedulerSession.open_timeline()")
+        tasks = list(tasks)
+        if mapping:
+            self.mapping.update(mapping)
+        for t in tasks:
+            if t.release_time < self.time:
+                raise ValueError(
+                    f"{t} releases at {t.release_time:.6g}, before the "
+                    f"engine clock {self.time:.6g}")
+        self._ingest(tasks)
+        for t in tasks:
+            self._push(t.release_time, _RELEASE, self.slot_of[t.uid])
+        if self.dirty_devs or self.dirty_edges:
+            self._flush()
+        return self
+
+    def schedule(self, t: float, fn) -> None:
+        """Queue an intervention at simulated time ``t`` — the resident
+        counterpart of the ``interventions=`` argument.  ``fn`` is either
+        a zero-arg callable or a declarative ``Churn`` batch."""
+        self._push(float(t), _INTERVENE, fn)
+
+    def apply_churn(self, churn) -> "TimelineEngine":
+        """Apply a ``Churn`` batch (or a zero-arg callable) at the current
+        engine clock through the same one-flush reprice path as scheduled
+        interventions."""
+        self._intervene(churn)
+        self._flush()
+        return self
+
+    def finish_of(self, uid: int) -> float:
+        """Finish time of task ``uid`` (nan while pending or running)."""
+        s = self.slot_of.get(uid)
+        return float("nan") if s is None else self.finish[s]
+
+    def drain_finished(self) -> list[Task]:
+        """Tasks that completed since the previous drain (background slots
+        excluded) — the ledger-reconciliation feed for serving loops."""
+        log = self._finish_log
+        out = [self.allt[s] for s in log[self._finish_cursor:]
+               if not self.is_bg[s]]
+        self._finish_cursor = len(log)
+        return out
+
+    @property
+    def live_jobs(self) -> int:
+        """Compute jobs currently occupying a PU."""
+        return int(sum(self.pu_running))
+
+    def next_event_time(self) -> float:
+        """Timestamp of the earliest pending event (compute finish,
+        transfer finish, or heap entry), ``inf`` at quiescence — the same
+        minimum :meth:`advance` computes before draining.  Reads the two
+        eta minima back from the device: one synchronising read."""
+        em, xm = self._next_times()
+        t_next = self.heap[0][0] if self.heap else _INF
+        return min(em, xm, t_next)
 
     def _next_times(self) -> tuple[float, float]:
         """(earliest compute eta, earliest transfer eta) in one host copy;
@@ -781,8 +964,10 @@ class TimelineEngine:
         return nonzero(col <= time)
 
     # -- main loop ----------------------------------------------------------
-    def advance(self) -> "TimelineEngine":
-        """Drain every event to quiescence."""
+    def advance(self, until: float = _INF) -> "TimelineEngine":
+        """Drain every event with timestamp <= ``until``, then park the
+        clock at ``until`` (when finite).  ``advance()`` with no bound
+        drains to quiescence — the one-shot behaviour."""
         heap = self.heap
         while True:
             em, xm = self._next_times()
@@ -791,7 +976,7 @@ class TimelineEngine:
                 t_next = em
             if xm < t_next:
                 t_next = xm
-            if t_next == _INF:
+            if t_next == _INF or t_next > until:
                 break
             if t_next > self.time:
                 self.time = t_next
@@ -814,8 +999,10 @@ class TimelineEngine:
                                             self.in_bytes[s]):
                                 continue
                         self._arrived(s)
-                    else:
+                    elif kind == _ARRIVE:
                         self._arrived(payload)
+                    else:
+                        self._intervene(payload)
                 if first or em <= time:
                     done = self._done_slots(self.eta, time)
                     if done.shape[0]:
@@ -832,6 +1019,8 @@ class TimelineEngine:
                 if em > time and xm > time and not (heap and
                                                     heap[0][0] <= time):
                     break
+        if until != _INF and until > self.time:
+            self.time = until
         return self
 
     def run(self) -> Timeline:
@@ -840,14 +1029,21 @@ class TimelineEngine:
         self.advance()
         return self._timeline()
 
-    def _timeline(self) -> Timeline:
+    def timeline(self, partial: bool = False) -> Timeline:
+        """Snapshot the timeline.  ``partial=True`` reports whatever has
+        happened so far (pending/running tasks simply lack entries);
+        ``partial=False`` asserts quiescence, as ``run()`` does."""
+        return self._timeline(partial=partial)
+
+    def _timeline(self, partial: bool = False) -> Timeline:
         self._apply_pending()
-        missing = [self.uidl[s] for s in range(self.n)
-                   if not self.is_bg[s]
-                   and self.finish[s] != self.finish[s]]
-        if missing:
-            raise RuntimeError(
-                f"traverse deadlock: unfinished {missing[:5]}")
+        if not partial:
+            missing = [self.uidl[s] for s in range(self.n)
+                       if not self.is_bg[s]
+                       and self.finish[s] != self.finish[s]]
+            if missing:
+                raise RuntimeError(
+                    f"traverse deadlock: unfinished {missing[:5]}")
         tl = Timeline(mapping=dict(self.mapping))
         tl.n_intervals = self.n_intervals
         tl.n_events = self.n_events

@@ -173,8 +173,7 @@ class Traverser:
         two DES implementations:
 
         * ``"fused"`` (default): the array-native
-          :class:`core.timeline.TimelineEngine` (``interventions`` are
-          not supported on it in this slice).  A *noisy slowdown
+          :class:`core.timeline.TimelineEngine`.  A *noisy slowdown
           model* (rng-bearing) draws inside ``factor()`` in per-device
           pool order, which only the seed event loop reproduces
           byte-for-byte — those configurations fall back to the

@@ -9,13 +9,19 @@ carries the frame deadline (proportionally divided, as §5.3.2 describes).
 
 Mining (§4.2, Fig. 8): each smart-sensor reading (10 Hz) spawns three
 parallel ML tasks (SVM, KNN, MLP) that must all finish within 100 ms.
+
+Wireless churn (§5.4.1 dynamic network conditions): a seeded schedule of
+``Churn`` batches that degrades and recovers the edge devices' wireless
+uplinks, for exercising the bandwidth-overlay delta path.
 """
 from __future__ import annotations
 
 import itertools
+import random
 from dataclasses import dataclass
 from typing import Optional
 
+from .hwgraph import Churn
 from .task import Task, TaskGraph
 from .topology import EDGE_FPS, KB, MB, MS, Testbed, make_task
 
@@ -195,3 +201,39 @@ def mining_workload(tb: Testbed, n_sensors: int, n_readings: int = 10,
         for r in range(n_readings):
             mining_reading(cfg, edge, s, r, hz=hz)
     return cfg
+
+
+def wireless_churn_schedule(tb: Testbed, n_waves: int, seed: int = 0,
+                            churn_frac: float = 0.25,
+                            min_scale: float = 0.05,
+                            max_scale: float = 0.5) -> list[Churn]:
+    """Seeded bandwidth-volatility schedule over the edge uplinks.
+
+    Each wave first **recovers** every currently degraded uplink to its
+    nominal bandwidth, then **degrades** a fresh random ``churn_frac``
+    sample of uplinks to ``uniform(min_scale, max_scale)`` of nominal.
+    Each wave is one :class:`Churn` batch of bandwidth entries only, so
+    applying it costs one overlay copy on the compiled snapshot and no
+    topology-layer copy.  Deterministic in ``seed`` (a ``random.Random``
+    of its own, drawn in the same order as the reference package's)."""
+    rng = random.Random(seed)
+    links = [f"link_{e}" for e in tb.edges]
+    nominal: dict[str, float] = {}
+    for adj in tb.graph._adj.values():
+        for _, e in adj:
+            if e.name in links and e.name not in nominal:
+                nominal[e.name] = e.bandwidth
+    k = max(1, int(len(links) * churn_frac))
+    degraded: dict[str, float] = {}
+    waves: list[Churn] = []
+    for _ in range(n_waves):
+        entries: list[tuple[str, float]] = []
+        for name in sorted(degraded):
+            entries.append((name, nominal[name]))
+        degraded.clear()
+        for name in rng.sample(links, k):
+            bw = nominal[name] * rng.uniform(min_scale, max_scale)
+            degraded[name] = bw
+            entries.append((name, bw))
+        waves.append(Churn(bandwidth=tuple(entries)))
+    return waves

@@ -4,6 +4,7 @@ are the same doubles; the bound is the suite's), ``route_edges`` equal by
 edge name."""
 import numpy as np
 import pytest
+import torch
 
 import jax  # noqa: F401
 
@@ -88,17 +89,32 @@ def test_nearest_common_resource_matches(comps):
 
 
 def test_mutation_invalidates_and_rebuilds():
+    """A runtime mutation no longer drops the snapshot: it is absorbed as
+    one copy-on-write delta (``delta_count`` +1, no rebuild), the patched
+    snapshot equals a fresh build of the mutated graph, and its prices
+    are the reference package's."""
     import repro.core as R
     import repro_torch.core as T
+    from repro_torch.core.compiled import CompiledHWGraph
     rtb, ttb = make_testbeds(None)
     g = ttb.graph
     c0 = g.compiled()
-    n0 = g.recompile_count
+    src, dst = ttb.edges[0], ttb.servers[0]
+    c0.transfer_time(src, dst, 1e6)              # a built row crosses it
+    n0, d0 = g.recompile_count, g.delta_count
     link = f"link_{ttb.edges[0]}"
     g.apply_churn(T.Churn(bandwidth=[(link, 1e6)]))
     rtb.graph.apply_churn(R.Churn(bandwidth=[(link, 1e6)]))
     c1 = g.compiled()
-    assert c1 is not c0 and g.recompile_count == n0 + 1
-    src, dst = ttb.edges[0], ttb.servers[0]
+    assert c1 is not c0
+    assert g.recompile_count == n0 and g.delta_count == d0 + 1
+    fresh = CompiledHWGraph(g)
+    for name in SNAPSHOT_ARRAYS:
+        assert torch.equal(getattr(c1, name), getattr(fresh, name)), name
+    devs = ttb.edges + ttb.servers
+    for a in devs:
+        for b in devs:
+            assert c1.transfer_time(a, b, 1e6) == pytest.approx(
+                fresh.transfer_time(a, b, 1e6), abs=TOL, rel=TOL)
     assert c1.transfer_time(src, dst, 1e6) == pytest.approx(
         rtb.graph.compiled().transfer_time(src, dst, 1e6), rel=TOL)

@@ -26,6 +26,7 @@ def test_port_and_chip_smoke_import_no_jax_and_no_reference():
         "import repro_torch.kernels.lru_scan, repro_torch.configs\n"
         "import repro_torch.models, repro_torch.models.transformer\n"
         "import repro_torch.serve.engine, repro_torch.launch.serve\n"
+        "import repro_torch.serve.admission, repro_torch.core.serving\n"
         "import chip_smoke\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'jaxlib' or m == 'repro' or m.startswith('repro.')]\n"
@@ -82,6 +83,7 @@ ENTRY_POINTS = {
     "ActiveLedger": lambda g: T.ActiveLedger(),
     "build_orchestrators": lambda g: T.build_orchestrators(g, None),
     "SchedulerSession": lambda g: T.SchedulerSession(g, lambda t, now: None),
+    "ServeLoop": lambda g: T.ServeLoop(g, lambda t, now: None, []),
     "graph_from_spec": lambda g: interop.graph_from_spec(
         {"nodes": [], "edges": []}),
     "snapshot_from_numpy": lambda g: interop.snapshot_from_numpy({}),

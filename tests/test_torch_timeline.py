@@ -108,10 +108,35 @@ def test_engine_columns_live_on_the_traverser_device(case):
 
 
 def test_interventions_wait_for_a_later_slice(case):
-    _, _, _, ttb, tcfg, tmap = case
-    with pytest.raises(NotImplementedError):
-        T.heye_traverser(ttb.graph).traverse(
-            tcfg, tmap, interventions=[(0.01, lambda: None)])
+    """Mid-run interventions run on the port's array engine (they waited
+    for the churn slice, which is this one): a link degrades and recovers
+    and an edge dies and revives, as ``Churn`` batches and as zero-arg
+    callables, and every finish time is the reference package's."""
+    rtb, rcfg, rmap, ttb, tcfg, tmap = case
+    link, e = f"link_{rtb.edges[0]}", rtb.edges[1]
+
+    def churns(pkg):
+        return [(0.02, pkg.Churn(bandwidth=[(link, 1e6)])),
+                (0.03, pkg.Churn(dead=[e])),
+                (0.12, pkg.Churn(alive=[e])),
+                (0.15, pkg.Churn(bandwidth=[(link, 1e9)]))]
+
+    rt, tt = travs(rtb, ttb, True)
+    want = rt.traverse(rcfg, rmap, interventions=churns(R))
+    got = tt.traverse(tcfg, tmap, interventions=churns(T))
+    assert diff(in_order(got.finish, tcfg), in_order(want.finish, rcfg)) \
+        <= TOL
+    assert got.n_intervals == want.n_intervals
+    assert got.n_events == want.n_events
+    # a zero-arg callable takes the same path as the declarative batch
+    g = ttb.graph
+    got2 = T.heye_traverser(g).traverse(tcfg, tmap, interventions=[
+        (0.01, lambda: g.apply_churn(T.Churn(bandwidth=[(link, 2e6)])))])
+    want2 = R.heye_traverser(rtb.graph).traverse(rcfg, rmap, interventions=[
+        (0.01, lambda: rtb.graph.apply_churn(
+            R.Churn(bandwidth=[(link, 2e6)])))])
+    assert diff(in_order(got2.finish, tcfg), in_order(want2.finish, rcfg)) \
+        <= TOL
     with pytest.raises(ValueError):
         T.heye_traverser(ttb.graph).traverse(tcfg, tmap, engine="nope")
 
