@@ -34,12 +34,22 @@ Then it drives the port's paths through their public entry points:
   every scheduler kernel must have been launched (after ``serve_full``
   the same session runs once more under torch.profiler, for its
   device-op count), then B1's row form on its own path, the traverser's
-  what-if query;
+  what-if query; the full-width map walks group-sharded by default (its
+  form is reported), equals the CPU's and, with
+  ``REPRO_SHARDED_WALK=0``, the fused walk's bit for bit; a mixed-origin
+  wave (a task from every device) takes the sharded driver's threaded
+  branch, against the fused walk and the CPU;
+* ``walk_oracle``: the object walk on the card (``REPRO_FUSED_WALK=0``)
+  against the fused walk at mult=8 and on the paper's VR testbed; the
+  ``first_fit`` objective, the ground-truth traverser as the policy's
+  traverser, a noisy slowdown model and a tuple-surface one (B1's row
+  form), each card vs CPU;
 * ``serve_x64``: the online path — ``ServeLoop`` over one
   session-resident timeline with admission control, the reference's
   ``benchmarks/serve.py::_serve_once(64)`` (the mining fleet at mult=64,
   4224 PUs; Poisson ``svm`` and diurnal ``mlp`` tenants, ~1.1k requests),
-  card vs CPU request for request;
+  card vs CPU request for request, over the session-resident walk
+  context; then the card once more with ``REPRO_SERVE_FASTPATH=0``;
 * ``serve_churn``: the same loop at mult=8 under a seeded wireless churn
   schedule (a ``Churn`` wave every horizon/8) and an edge's death and
   revival, card vs CPU, every batch absorbed as one snapshot delta;
@@ -53,7 +63,8 @@ Then it drives the port's paths through their public entry points:
 * ``serve_full``: ``repro_torch.launch.serve`` at full width (tenant
   placement on the simulated TPU fleet, then 8 requests over 4 slots).
 
-The phases run in the order kernels, ``model_x_smoke``, ``x8``, ``vr``,
+The phases run in the order kernels, ``model_x_smoke``, ``x8``,
+``walk_oracle``, ``vr``,
 ``x128``, ``serve_x64``, ``serve_churn``, ``bwchurn_x128``,
 ``model_full``, ``serve_full``.  ``--compare PARENT --session
 vr|x128`` instead runs a session of the tree at PARENT and of this one in
@@ -1294,6 +1305,15 @@ VR_KERNELS = ("transfer_reprice", "transfer_complete")
 MODEL_KERNELS = ("flash_attention", "lru_scan")
 
 
+def _fresh_peak() -> int:
+    """Free what earlier phases left to the collector, restart the peak
+    count, and return the device bytes still allocated."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    return torch.cuda.memory_allocated()
+
+
 def reset_counts() -> None:
     fa_kernel.launches = 0
     lru_kernel.launches = 0
@@ -1446,16 +1466,170 @@ def _spread(xs: list) -> dict:
                 p50=float(np.median(xs)), max=int(max(xs)))
 
 
-def session_full(seed: int) -> tuple[dict, dict]:
-    """The session at full width: placements complete, every scheduler
-    kernel launched, the size of each phase-1 wave's batched entry reduce
-    and of each pool and same-device stack that reached B1 (read by
-    wrapping the calls, outside the port); then the row form of B1 on its
-    own path, the traverser's what-if query (:func:`what_if`).  Its
-    device-op count comes later, from :func:`session_traced`."""
+class env_switch:
+    """Set one of the port's walk switches for a block, then restore it."""
+
+    def __init__(self, name: str, value: str) -> None:
+        self.name, self.value = name, value
+
+    def __enter__(self) -> None:
+        self.old = os.environ.get(self.name)
+        os.environ[self.name] = self.value
+
+    def __exit__(self, *exc) -> None:
+        if self.old is None:
+            os.environ.pop(self.name, None)
+        else:
+            os.environ[self.name] = self.old
+
+
+def map_rows(results: dict, cfg) -> list:
+    """Every mapping decision of a session in cfg order: (pu, standalone,
+    factor, comm, queries, hops, overhead)."""
+    out = []
+    for t in cfg:
+        r = results[t.uid]
+        out.append((r.pu, r.prediction.standalone, r.prediction.factor,
+                    r.prediction.comm, r.queries, r.hops, r.overhead))
+    return out
+
+
+def map_session(mult: int, device, seed: int) -> tuple[list, float]:
+    """The session of :func:`run_session` up to its map only: (decisions
+    in cfg order, map_pending seconds)."""
+    ec, sc = mining_counts(mult)
+    tb = core.build_testbed(edge_counts=ec, server_counts=sc, device=device)
+    cfg = mining_workload(tb, n_sensors=12 * mult, n_readings=1)
+    g = tb.graph
+    session = core.SchedulerSession(
+        g, core.build_orchestrators(g, core.heye_traverser(g)),
+        truth=core.ground_truth_traverser(g, rng=np.random.default_rng(seed)))
+    session.submit(cfg)
+    t0 = time.perf_counter()
+    res = session.map_pending()
+    if g.device.type == "cuda":
+        torch.cuda.synchronize()
+    return map_rows(res, cfg), time.perf_counter() - t0
+
+
+class _WalkForm:
+    """Records which form the walk took, by wrapping (outside the port)
+    the orchestrator's sharded wave driver, its per-bucket drive and its
+    thread pool: per sharded wave, the walks of each drive (a group's,
+    or the whole wave's when every walk starts in one group), and the
+    pools made."""
+
+    def __init__(self) -> None:
+        self.waves: list[list] = []
+        self.pools: list[int] = []
+        self.sharded = orc_mod.Orchestrator._walk_wave_sharded
+        self.drive = orc_mod.Orchestrator._drive_wave
+        self.pool = orc_mod.ThreadPoolExecutor
+
+    def __enter__(self) -> "_WalkForm":
+        log, sharded, drive, pool_cls = (self, self.sharded, self.drive,
+                                         self.pool)
+
+        def wave(orc, *a, **k):
+            log.waves.append([])
+            return sharded(orc, *a, **k)
+
+        def logged(orc, order, now, ctx, stop_root=False):
+            if log.waves:
+                log.waves[-1].append((len(order), stop_root))
+            return drive(orc, order, now, ctx, stop_root)
+
+        class Pool(pool_cls):
+            def __init__(self, *a, **k):
+                log.pools.append(k.get("max_workers", 0))
+                super().__init__(*a, **k)
+
+        orc_mod.Orchestrator._walk_wave_sharded = wave
+        orc_mod.Orchestrator._drive_wave = logged
+        orc_mod.ThreadPoolExecutor = Pool
+        return self
+
+    def __exit__(self, *exc) -> None:
+        orc_mod.Orchestrator._walk_wave_sharded = self.sharded
+        orc_mod.Orchestrator._drive_wave = self.drive
+        orc_mod.ThreadPoolExecutor = self.pool
+
+    def line(self, root) -> dict:
+        led = root.ledger
+        sharded = isinstance(led, core.ShardedLedger)
+        per_group = any(g for w in self.waves for _, g in w)
+        return dict(
+            form=("threaded" if self.pools else
+                  "serial" if per_group else
+                  "one group a wave" if self.waves else "fused"),
+            sharded_ledger=sharded,
+            shards=len(led.shards) if sharded else 1,
+            shard_pus=([len(s) for s in root._sharded_hw.shards]
+                       if sharded else None),
+            sharded_waves=len(self.waves),
+            # the first waves' drives: (walks, a group's drive or not)
+            wave_drives=self.waves[:4], thread_pools=self.pools)
+
+
+def mixed_wave(mult: int, device) -> tuple[list, float, dict]:
+    """One wave of one task from every device of the mining fleet at
+    ``mult`` (edges and servers, kinds svm / mlp / knn / dnn in turn,
+    each its own deadline): its walks start in both root groups, so at
+    full width the sharded driver fans them out over host threads.
+    Returns (decisions in task order, map seconds, walk form)."""
+    ec, sc = mining_counts(mult)
+    tb = core.build_testbed(edge_counts=ec, server_counts=sc, device=device)
+    g = tb.graph
+    devs = list(tb.edges) + list(tb.servers)
+    kinds = ("svm", "mlp", "knn", "dnn")
+    tasks = [core.make_task(kinds[i % 4], origin=d, deadline=0.2 + 1e-6 * i)
+             for i, d in enumerate(devs)]
+    root = core.build_orchestrators(g, core.heye_traverser(g)).prepare()
+    with _WalkForm() as form:
+        t0 = time.perf_counter()
+        res = root.map_batch(tasks, 0.0, route=True)
+        if g.device.type == "cuda":
+            torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+    rows = [(r.pu, r.prediction.standalone, r.prediction.factor,
+             r.prediction.comm, r.queries, r.hops, r.overhead) for r in res]
+    return rows, dt, form.line(root)
+
+
+def _time_sharding(slices: list):
+    """Wrap ``CompiledHWGraph.sharded`` (outside the port) so each slicing
+    records its seconds and the bytes its shards hold."""
+    real = core.CompiledHWGraph.sharded
+
+    def timed(comp, groups, validate=True):
+        t0 = time.perf_counter()
+        sh = real(comp, groups, validate)
+        if comp.device.type == "cuda":
+            torch.cuda.synchronize()
+        slices.append(dict(
+            seconds=time.perf_counter() - t0, pus=len(comp.pu_names),
+            shard_bytes=sum(t.numel() * t.element_size() for g_ in sh.shards
+                            for t in (g_.pu_idx, g_.pu_alive, g_.mem_cap,
+                                      g_.max_tenancy, g_.ncr_res,
+                                      g_.ncr_rclass, g_.pu_dev_ord))))
+        return sh
+    return real, timed
+
+
+def session_full(seed: int) -> tuple[dict, dict, dict]:
+    """The session at full width, walked in its default form (sharded at
+    the root's two groups): placements complete, every scheduler kernel
+    launched, the size of each phase-1 wave's batched entry reduce and of
+    each pool and same-device stack that reached B1 (read by wrapping the
+    calls, outside the port), the walk's form and the snapshot slicing's
+    seconds and bytes; then the row form of B1 on its own path, the
+    traverser's what-if query (:func:`what_if`); then the same session's
+    map on the CPU (placements equal) and on the card with
+    ``REPRO_SHARDED_WALK=0`` (every decision bit-identical), both timed.
+    Its device-op count comes later, from :func:`session_traced`."""
     mult = FULL_MULT
+    base = _fresh_peak()
     reset_counts()
-    torch.cuda.reset_peak_memory_stats()
     walk_call = orc_mod.scan_reduce_batch
     pool_call = sd_mod.slowdown_pool
     same_call = sd_mod.slowdown_same_device
@@ -1463,6 +1637,8 @@ def session_full(seed: int) -> tuple[dict, dict]:
     pools: list[int] = []
     same_items: list[int] = []
     same_pairs: list[int] = []
+    slices: list[dict] = []
+    real_sharded, timed_sharded = _time_sharding(slices)
 
     def counted(*args):
         stacks.append(len(args[6]))
@@ -1481,12 +1657,15 @@ def session_full(seed: int) -> tuple[dict, dict]:
     orc_mod.scan_reduce_batch = counted
     sd_mod.slowdown_pool = counted_pool
     sd_mod.slowdown_same_device = counted_same
+    core.CompiledHWGraph.sharded = timed_sharded
     try:
-        st, cfg, g, sess, secs = run_session(mult, None, seed)
+        with _WalkForm() as form:
+            st, cfg, g, sess, secs = run_session(mult, None, seed)
     finally:
         orc_mod.scan_reduce_batch = walk_call
         sd_mod.slowdown_pool = pool_call
         sd_mod.slowdown_same_device = same_call
+        core.CompiledHWGraph.sharded = real_sharded
     counts = read_counts()
     syncs = rt_device.sync_count()
     peak = torch.cuda.max_memory_allocated()
@@ -1505,20 +1684,63 @@ def session_full(seed: int) -> tuple[dict, dict]:
         if counts[name] <= 0:
             raise AssertionError(f"x{mult}: kernel {name} was never launched "
                                  "on the main path")
+    walk_form = form.line(sess.policy)
+    if not walk_form["sharded_ledger"] or not walk_form["sharded_waves"] \
+            or len(slices) != 1:
+        raise AssertionError(f"x{mult}: the default walk did not shard: "
+                             f"{walk_form}, {len(slices)} slicings")
     pct = st.latency_percentiles(cfg, (50.0, 99.0))
     comp = g.compiled()
     wif = what_if(g, cfg, st)
     counts["slowdown_factors"] = wif["launches"]
+    # the same session's map on the CPU, then fused on the card
+    rows = map_rows(sess.results, cfg)
+    cpu_rows, cpu_map_s = map_session(mult, "cpu", seed)
+    if [r[0] for r in cpu_rows] != [r[0] for r in rows]:
+        bad = [i for i, (a, b) in enumerate(zip(cpu_rows, rows))
+               if a[0] != b[0]]
+        raise AssertionError(f"x{mult}: sharded card and CPU placements "
+                             f"differ at {bad[:5]}")
+    reset_counts()
+    with env_switch("REPRO_SHARDED_WALK", "0"), _WalkForm() as fform:
+        fused_rows, fused_map_s = map_session(mult, None, seed)
+    fcounts = read_counts()
+    if fform.waves or fused_rows != rows:
+        bad = [i for i, (a, b) in enumerate(zip(fused_rows, rows)) if a != b]
+        raise AssertionError(f"x{mult}: the fused walk's decisions differ "
+                             f"from the sharded walk's at {bad[:5]}")
+    # walks from both groups: the threaded branch, against the fused walk
+    # and the CPU
+    mrows, m_s, mform = mixed_wave(mult, None)
+    with env_switch("REPRO_SHARDED_WALK", "0"):
+        mfused, mf_s, _ = mixed_wave(mult, None)
+    mcpu, mc_s, _ = mixed_wave(mult, "cpu")
+    if mform["form"] != "threaded" or mrows != mfused \
+            or [r[0] for r in mrows] != [r[0] for r in mcpu]:
+        raise AssertionError(f"x{mult}: the mixed-origin wave walked "
+                             f"{mform['form']}, or its decisions differ "
+                             "from the fused walk's or the CPU's")
     return dict(mult=mult, device=str(g.device), pus=len(comp.pu_names),
                 tasks=len(cfg), mapped=len(st.mapping),
                 unmapped=len(st.unmapped), **secs,
                 p50_latency_s=pct[50.0], p99_latency_s=pct[99.0],
                 qos_failures=st.qos_failures(cfg), launches=counts,
+                walk_form=walk_form, sharding=slices[0],
                 entry_wave_scans=stacks, pool_members=_spread(pools),
                 same_device_items=_spread(same_items),
                 same_device_pairs=_spread(same_pairs),
-                device_to_host_syncs=syncs, peak_device_bytes=peak,
-                what_if=wif), counts
+                device_to_host_syncs=syncs, device_bytes_at_start=base,
+                peak_device_bytes=peak, what_if=wif,
+                cpu_map_pending_s=cpu_map_s,
+                cpu_placements_identical=True,
+                fused=dict(map_pending_s=fused_map_s,
+                           decisions_bit_identical=True,
+                           launches=fcounts),
+                mixed_wave=dict(tasks=len(mrows), walk_form=mform,
+                                map_s=m_s, fused_map_s=mf_s, cpu_map_s=mc_s,
+                                fused_bit_identical=True,
+                                cpu_placements_identical=True)
+                ), counts, fcounts
 
 
 def what_if(g, cfg, st) -> dict:
@@ -1562,6 +1784,159 @@ def session_traced(seed: int) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# the object walk: the parity oracle, first_fit, the policies' traversers
+# ---------------------------------------------------------------------------
+ORACLE_MULT = 8              # the paper's mining fleet: 528 PUs, 288 tasks
+ORACLE_VR_FRAMES = 10        # the paper's VR testbed: 350 tasks
+
+
+class _TupleSurface:
+    """A noise-free slowdown model with only the tuple surface (``factor``
+    / ``factors_with_candidates``), as a user's own model may have: no
+    block-diagonal check, so ``map_batch`` walks it with the object walk
+    and scores per device — B1's row form, through
+    ``factors_with_candidates_idx``."""
+
+    def __init__(self, sd) -> None:
+        self._sd = sd
+
+    def factor(self, *a):
+        return self._sd.factor(*a)
+
+    def factors_with_candidates(self, *a):
+        return self._sd.factors_with_candidates(*a)
+
+    def factor_batch(self, *a):
+        return self._sd.factor_batch(*a)
+
+    def invalidate(self) -> None:
+        self._sd.invalidate()
+
+
+def oracle_map(kind: str, device, seed: int, policy: str = "heye",
+               objective=None) -> tuple[list, float, object]:
+    """One session map of the walk_oracle phase through the public entry
+    points: ``kind`` "mining" (the fleet at ORACLE_MULT, one reading) or
+    "vr" (the paper's testbed, ORACLE_VR_FRAMES frames); the policy's
+    traverser ``policy`` — "heye", "truth" (``ground_truth_traverser(g,
+    seed)``), "noisy" (a slowdown model drawing from a generator seeded
+    with ``seed``) or "tuple" (:class:`_TupleSurface`).  Returns (the
+    decisions in cfg order, map seconds, the generator's next draw or
+    None)."""
+    if kind == "mining":
+        ec, sc = mining_counts(ORACLE_MULT)
+        tb = core.build_testbed(edge_counts=ec, server_counts=sc,
+                                device=device)
+        cfg = mining_workload(tb, n_sensors=12 * ORACLE_MULT, n_readings=1)
+    else:
+        tb = core.build_testbed(device=device)
+        cfg = vr_workload(tb, n_frames=ORACLE_VR_FRAMES)
+    g = tb.graph
+    rng = None
+    if policy == "truth":
+        trav = core.ground_truth_traverser(g, seed)
+    elif policy == "noisy":
+        rng = np.random.default_rng(seed)
+        trav = core.Traverser(g, slowdown=core.DecoupledSlowdown(
+            g, core.truth_params(), rng=rng))
+    elif policy == "tuple":
+        trav = core.Traverser(g, slowdown=_TupleSurface(
+            core.heye_traverser(g).slowdown))
+    else:
+        trav = core.heye_traverser(g)
+    root = core.build_orchestrators(
+        g, trav,
+        config=core.OrcConfig(objective=objective) if objective else None)
+    session = core.SchedulerSession(g, root)
+    session.submit(cfg)
+    t0 = time.perf_counter()
+    res = session.map_pending()
+    if g.device.type == "cuda":
+        torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    if session.unmapped:
+        raise AssertionError(f"walk_oracle {kind}/{policy}: "
+                             f"{len(session.unmapped)} tasks unmapped")
+    return map_rows(res, cfg), dt, (rng.random() if rng else None)
+
+
+def _decisions_agree(what: str, got: list, want: list,
+                     exact: bool) -> float:
+    """Placements, queries and hops identical; standalone, factor and
+    comm identical (``exact``) or within T_TOL relative; overhead within
+    T_TOL relative.  Returns the largest relative overhead difference."""
+    if len(got) != len(want):
+        raise AssertionError(f"{what}: {len(got)} vs {len(want)} tasks")
+    worst = 0.0
+    for i, (a, b) in enumerate(zip(got, want)):
+        same = (a[0], a[4], a[5]) == (b[0], b[4], b[5])
+        for k in (1, 2, 3):
+            same = same and (a[k] == b[k] if exact else
+                             abs(a[k] - b[k]) <= T_TOL * max(abs(b[k]), 1e-12))
+        d = abs(a[6] - b[6]) / max(abs(b[6]), 1e-12)
+        if not same or not d <= T_TOL:
+            raise AssertionError(f"{what}: task {i} differs: {a} vs {b}")
+        worst = max(worst, d)
+    return worst
+
+
+def walk_oracle(seed: int) -> tuple[dict, dict]:
+    """The object walk on the card at the paper's mining fleet (mult=8)
+    and VR testbed: against the fused walk (``REPRO_FUSED_WALK=0``:
+    decisions exact, overhead 1e-9), the ``first_fit`` objective card vs
+    CPU, the ground-truth traverser as the policy's traverser card vs CPU,
+    a noisy slowdown model card vs CPU (the generator left in the same
+    state), and a tuple-surface model card vs CPU and against the fused
+    walk — the path of B1's row form, whose launches must show."""
+    reset_counts()
+    out: dict = {}
+    for kind in ("mining", "vr"):
+        fused, fused_s, _ = oracle_map(kind, None, seed)
+        with env_switch("REPRO_FUSED_WALK", "0"):
+            obj, obj_s, _ = oracle_map(kind, None, seed)
+        d_obj = _decisions_agree(f"walk_oracle {kind}: object vs fused walk",
+                                 obj, fused, exact=True)
+        ff, ff_s, _ = oracle_map(kind, None, seed, objective="first_fit")
+        ff_c, ff_cs, _ = oracle_map(kind, "cpu", seed, objective="first_fit")
+        d_ff = _decisions_agree(f"walk_oracle {kind}: first_fit card vs CPU",
+                                ff, ff_c, exact=False)
+        out[kind] = dict(
+            tasks=len(fused), fused_map_s=fused_s, object_map_s=obj_s,
+            object_vs_fused=dict(decisions_exact=True,
+                                 max_overhead_rel_diff=d_obj),
+            first_fit=dict(map_s=ff_s, cpu_map_s=ff_cs,
+                           max_overhead_rel_diff_cuda_vs_cpu=d_ff,
+                           queries=sum(r[4] for r in ff),
+                           best_fit_queries=sum(r[4] for r in fused)))
+    fused = None
+    for policy in ("truth", "noisy", "tuple"):
+        got, g_s, g_next = oracle_map("mining", None, seed, policy=policy)
+        want, c_s, c_next = oracle_map("mining", "cpu", seed, policy=policy)
+        d = _decisions_agree(f"walk_oracle {policy}: card vs CPU", got, want,
+                             exact=False)
+        if g_next != c_next:
+            raise AssertionError(f"walk_oracle {policy}: the generator's "
+                                 "streams parted card vs CPU")
+        line = dict(map_s=g_s, cpu_map_s=c_s,
+                    max_overhead_rel_diff_cuda_vs_cpu=d)
+        if policy == "tuple":
+            if fused is None:
+                fused, _, _ = oracle_map("mining", None, seed)
+            line["max_overhead_rel_diff_vs_fused"] = _decisions_agree(
+                "walk_oracle tuple vs the fused walk", got, fused,
+                exact=False)
+        out[f"mining_{policy}"] = line
+    counts = read_counts()
+    for name in ("slowdown_factors", "slowdown_same_device", "scan_reduce"):
+        if counts[name] <= 0:
+            raise AssertionError(f"walk_oracle: kernel {name} was never "
+                                 "launched on the phase's path")
+    out.update(mult=ORACLE_MULT, vr_frames=ORACLE_VR_FRAMES, launches=counts,
+               device_to_host_syncs=rt_device.sync_count())
+    return out, counts
+
+
+# ---------------------------------------------------------------------------
 # the online path: ServeLoop on the session-resident timeline, and churn
 # absorbed as snapshot deltas
 # ---------------------------------------------------------------------------
@@ -1585,7 +1960,8 @@ def _serve_loop(mult: int, device, interventions=None):
     edges[0] (SLA 0.10 s) and a diurnal ``mlp`` tenant from edges[1] (SLA
     0.15 s) over ``horizon`` = 10/mult s, ``AdmissionController(slack=4,
     defer_delay=0.005, max_defers=1)``, per-arrival admission.
-    ``interventions(tb, horizon)`` gives the loop's (t, Churn) list.
+    ``interventions(tb, horizon, root)`` gives the loop's (t, Churn)
+    list.
     Returns (loop, stats, graph)."""
     from repro_torch.serve.admission import AdmissionController
     ec, sc = mining_counts(mult)
@@ -1609,7 +1985,8 @@ def _serve_loop(mult: int, device, interventions=None):
         admission=AdmissionController(slack=4.0, defer_delay=0.005,
                                       max_defers=1),
         batch_window=0.0, horizon=horizon,
-        interventions=interventions(tb, horizon) if interventions else ())
+        interventions=(interventions(tb, horizon, root) if interventions
+                       else ()))
     st = loop.run()
     if g.device.type == "cuda":
         torch.cuda.synchronize()
@@ -1651,6 +2028,13 @@ def _serve_card_vs_cpu(what: str, gl, gs, cl, cs) -> float:
     return dt
 
 
+def _contexts(loop) -> dict:
+    """The walk contexts the loop's root built and rebased."""
+    root = loop.session.policy
+    return dict(context_builds=root.context_builds,
+                context_rebases=root.context_rebases)
+
+
 def _serve_line(st, g, counts: dict, syncs: int, dt: float, cpu_st) -> dict:
     s = st.summary()
     n = len(st.requests)
@@ -1682,22 +2066,53 @@ def _check_serve_launches(what: str, st, counts: dict) -> None:
                              "launched")
 
 
-def serve_x64() -> tuple[dict, dict]:
-    """benchmarks/serve.py::_serve_once(64) on the port: the card run (its
-    launches, syncs, serving metrics) against the same loop on the CPU.
-    The arrivals and the ground truth take the reference driver's own
-    seeds (11, 12, 0), not ``--seed``."""
+def serve_x64() -> tuple[dict, dict, dict]:
+    """benchmarks/serve.py::_serve_once(64) on the port: the card run over
+    the session-resident walk context (its launches, syncs, serving
+    metrics, contexts built and rebased, peak device bytes) against the
+    same loop on the CPU, then the card run once more with
+    ``REPRO_SERVE_FASTPATH=0`` (a cold walk per wave): verdicts,
+    placements and finish times equal.  The arrivals and the ground
+    truth take the reference driver's own seeds (11, 12, 0), not
+    ``--seed``."""
+    what = f"serve_x{SERVE_MULT}"
+    base = _fresh_peak()
     reset_counts()
     gl, gs, g = _serve_loop(SERVE_MULT, None)
+    peak = torch.cuda.max_memory_allocated()
     counts = read_counts()
     syncs = rt_device.sync_count()
     cl, cs, _ = _serve_loop(SERVE_MULT, "cpu")
-    dt = _serve_card_vs_cpu(f"serve_x{SERVE_MULT}", gl, gs, cl, cs)
-    _check_serve_launches(f"serve_x{SERVE_MULT}", gs, counts)
+    dt = _serve_card_vs_cpu(what, gl, gs, cl, cs)
+    _check_serve_launches(what, gs, counts)
+    ctxs = _contexts(gl)
+    if ctxs["context_builds"] != 1 or _contexts(cl) != ctxs:
+        raise AssertionError(f"{what}: the resident context was rebuilt: "
+                             f"card {ctxs}, CPU {_contexts(cl)}")
+    reset_counts()
+    with env_switch("REPRO_SERVE_FASTPATH", "0"):
+        kl, ks, _ = _serve_loop(SERVE_MULT, None)
+    kcounts = read_counts()
+    ksyncs = rt_device.sync_count()
+    dk = _serve_card_vs_cpu(f"{what} resident vs cold", gl, gs, kl, ks)
+    if kl.session.policy._resident_ctx is not None:
+        raise AssertionError(f"{what}: REPRO_SERVE_FASTPATH=0 kept a "
+                             "resident context")
+    n = len(gs.requests)
     out = _serve_line(gs, g, counts, syncs, dt, cs)
     out.update(mult=SERVE_MULT, recompile_count=g.recompile_count,
-               delta_count=g.delta_count)
-    return out, counts
+               delta_count=g.delta_count, **ctxs,
+               device_bytes_at_start=base, peak_device_bytes=peak,
+               cold=dict(wall_s=ks.wall_s, wall_rps=ks.wall_rps,
+                         phase_wall=ks.phase_wall,
+                         max_finish_diff_resident_vs_cold=dk,
+                         same_verdicts_and_placements=True,
+                         **_contexts(kl), launches=kcounts,
+                         launches_per_request={k: v / n for k, v in
+                                               kcounts.items() if v},
+                         device_to_host_syncs=ksyncs,
+                         syncs_per_request=ksyncs / n))
+    return out, counts, kcounts
 
 
 class _ChurnLog:
@@ -1708,8 +2123,9 @@ class _ChurnLog:
     KEYS = ("delta_count", "recompile_count", "route_holder_copies",
             "route_overlay_copies")
 
-    def __init__(self, g) -> None:
+    def __init__(self, g, root) -> None:
         self.g = g
+        self.root = root
         self.calls: list[dict] = []
         real = g.apply_churn
 
@@ -1720,7 +2136,10 @@ class _ChurnLog:
                 kind=("bandwidth" if not (churn.dead or churn.alive)
                       else "dead" if churn.dead else "alive"),
                 entries=len(churn),
-                **{k: getattr(g, k) - before[k] for k in self.KEYS}))
+                **{k: getattr(g, k) - before[k] for k in self.KEYS},
+                # the walk contexts built and rebased before this batch
+                context_builds=root.context_builds,
+                context_rebases=root.context_rebases))
         g.apply_churn = logged
 
 
@@ -1729,8 +2148,8 @@ def _churn_interventions(logs: list):
     horizon/8 (``wireless_churn_schedule(tb, 8, seed=1234)``, at the
     middle of each eighth), then edges[1] dies at horizon/3 and revives
     at 2 horizon/3 (the reference's test_serve_loop_with_mid_run_churn)."""
-    def make(tb, horizon):
-        logs.append(_ChurnLog(tb.graph))
+    def make(tb, horizon, root):
+        logs.append(_ChurnLog(tb.graph, root))
         waves = core.wireless_churn_schedule(tb, CHURN_WAVES, seed=CHURN_SEED)
         iv = [((k + 0.5) * horizon / CHURN_WAVES, w)
               for k, w in enumerate(waves)]
@@ -1787,8 +2206,17 @@ def serve_churn() -> tuple[dict, dict]:
     if any(c["route_holder_copies"] for c in bw):
         raise AssertionError("serve_churn: a bandwidth-only wave copied the "
                              "route topology layer")
-    if logs[1].calls != calls:
-        raise AssertionError("serve_churn: the CPU run's deltas differ")
+    if logs[1].calls != calls or _contexts(cl) != _contexts(gl):
+        raise AssertionError("serve_churn: the CPU run's deltas or walk "
+                             "contexts differ")
+    ctxs = _contexts(gl)
+    # a bandwidth wave rebases the resident context, a death or a revival
+    # drops it: one build, then one per death/revival, a rebase per wave
+    if ctxs != dict(context_builds=1 + len(calls) - len(bw),
+                    context_rebases=len(bw)):
+        raise AssertionError(f"serve_churn: walk contexts {ctxs} under "
+                             f"{len(bw)} bandwidth waves and "
+                             f"{len(calls) - len(bw)} deaths/revivals")
     # the serving run's one-task requests run on their origin edge, so
     # its transfer kernels may see no churn: the device edge column's
     # refresh is held on a path of its own, card against CPU
@@ -1800,7 +2228,7 @@ def serve_churn() -> tuple[dict, dict]:
                              f"churn differ card vs CPU by {de}, "
                              f"{ecounts['transfer_reprice']} reprices")
     out = _serve_line(gs, g, counts, syncs, dt, cs)
-    out.update(mult=CHURN_MULT, churn_batches=calls,
+    out.update(mult=CHURN_MULT, churn_batches=calls, **ctxs,
                edge_refresh=dict(finish=gf, max_finish_diff_cuda_vs_cpu=de,
                                  transfer_reprice=ecounts["transfer_reprice"],
                                  transfer_complete=ecounts[
@@ -1818,7 +2246,7 @@ def _bwchurn(mult: int, device, n_waves: int = 8):
     fleet; each wave ``session.churn(wave)``, then
     ``mining_workload(n_sensors=12 mult / n_waves, n_readings=1)`` and
     ``map_pending()``.  Returns (session, cfgs, per-wave map seconds,
-    counter deltas)."""
+    counter deltas, with the walk contexts (built, rebased) per wave)."""
     ec, sc = mining_counts(mult)
     tb = core.build_testbed(edge_counts=ec, server_counts=sc, device=device)
     g = tb.graph
@@ -1828,9 +2256,10 @@ def _bwchurn(mult: int, device, n_waves: int = 8):
     waves = core.wireless_churn_schedule(tb, n_waves, seed=CHURN_SEED)
     per_wave = max(1, (12 * mult) // n_waves)
     before = {k: getattr(g, k) for k in _ChurnLog.KEYS}
-    cfgs, secs = [], []
+    cfgs, secs, ctxs = [], [], []
     for churn in waves:
         t0 = time.perf_counter()
+        b0, r0 = root.context_builds, root.context_rebases
         session.churn(churn)
         cfg = mining_workload(tb, n_sensors=per_wave, n_readings=1)
         session.submit(cfg)
@@ -1839,7 +2268,9 @@ def _bwchurn(mult: int, device, n_waves: int = 8):
             torch.cuda.synchronize()
         secs.append(time.perf_counter() - t0)
         cfgs.append(cfg)
+        ctxs.append((root.context_builds - b0, root.context_rebases - r0))
     moved = {k: getattr(g, k) - before[k] for k in _ChurnLog.KEYS}
+    moved["contexts_per_wave"] = ctxs
     return session, cfgs, secs, moved
 
 
@@ -1851,9 +2282,12 @@ def bwchurn_x128() -> tuple[dict, dict]:
     syncs = rt_device.sync_count()
     csess, ccfgs, csecs, cmoved = _bwchurn(BWCHURN_MULT, "cpu")
     n_waves = len(gcfgs)
+    # every wave is bandwidth-only: one context built, then rebased
+    want_ctx = [(1, 0)] + [(0, 1)] * (n_waves - 1)
     for what, moved in (("card", gmoved), ("CPU", cmoved)):
         if moved["delta_count"] != n_waves or moved["recompile_count"] \
-                or moved["route_holder_copies"]:
+                or moved["route_holder_copies"] \
+                or moved["contexts_per_wave"] != want_ctx:
             raise AssertionError(f"bwchurn_x{BWCHURN_MULT} ({what}): "
                                  f"{moved} over {n_waves} waves")
     for sess in (gsess, csess):
@@ -2306,9 +2740,9 @@ def main() -> None:
     ap.add_argument("--out", default="profile_out",
                     help="directory for the profiles' files")
     ap.add_argument("--stop-after", default=None,
-                    choices=("kernels", "model_x_smoke", "x8", "vr", "x128",
-                             "serve_x64", "serve_churn", "bwchurn_x128",
-                             "model_full"),
+                    choices=("kernels", "model_x_smoke", "x8", "walk_oracle",
+                             "vr", "x128", "serve_x64", "serve_churn",
+                             "bwchurn_x128", "model_full"),
                     help="debugging: end (without the ok line) after a phase")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -2393,15 +2827,19 @@ def main() -> None:
     emit("session_x8", session_x8(args.seed))
     done("x8")
     stop("x8")
+    wo, ocounts = walk_oracle(args.seed)
+    emit("walk_oracle", wo)
+    done("walk_oracle")
+    stop("walk_oracle")
     vr, vcounts = session_vr(args.seed)
     emit("session_vr", vr)
     done("vr")
     stop("vr")
-    full, counts = session_full(args.seed)
+    full, counts, fcounts = session_full(args.seed)
     emit(f"session_x{FULL_MULT}", full)
     done(f"x{FULL_MULT}")
     stop("x128")
-    sv, scounts = serve_x64()
+    sv, scounts, kcounts = serve_x64()
     emit(f"serve_x{SERVE_MULT}", sv)
     done(f"serve_x{SERVE_MULT}")
     stop("serve_x64")
@@ -2435,8 +2873,11 @@ def main() -> None:
         if k["name"] not in MODEL_KERNELS:
             k["launches_by_path"] = {
                 f"x{FULL_MULT}": counts[k["name"]],
+                f"x{FULL_MULT}_fused": fcounts[k["name"]],
+                "walk_oracle": ocounts[k["name"]],
                 "vr": vcounts[k["name"]],
                 f"serve_x{SERVE_MULT}": scounts[k["name"]],
+                f"serve_x{SERVE_MULT}_cold": kcounts[k["name"]],
                 "serve_churn": ccounts[k["name"]],
                 f"bwchurn_x{BWCHURN_MULT}": bcounts[k["name"]]}
         if k["name"] in OFF_PATH_KERNELS:

@@ -1,7 +1,7 @@
 """H-EYE core on PyTorch: holistic resource modeling + management (paper §3).
 
-Public surface of this slice of the port (same names as the reference
-package's ``core``):
+Public surface of the port (same names as the reference package's
+``core``):
   HWGraph / Node / ProcessingUnit / Predictable  — graph-based HW repr (§3.3)
   CompiledHWGraph                                — tensor snapshot
   Task / TaskGraph                               — CFGs of constrained tasks
@@ -16,11 +16,11 @@ package's ``core``):
   build_testbed / build_tpu_fleet                — topology (Fig. 4, TPU fleet)
   Runtime / policies                             — experiment harness (§5)
 """
-from .compiled import CompiledHWGraph
+from .compiled import CompiledHWGraph, ShardedHWGraph
 from .hwgraph import (Churn, EdgeAttr, HWGraph, Node, NodeKind, Predictable,
                       ProcessingUnit, Unit)
 from .orchestrator import (ActiveLedger, MapResult, OrcConfig, Orchestrator,
-                           build_orchestrators)
+                           ShardedLedger, build_orchestrators)
 from .predict import CallableModel, PerfModel, ProfiledModel, RooflineModel
 from .serving import (ClosedLoopClients, DiurnalArrivals, PoissonArrivals,
                       ServeLoop, ServeRequest, ServeStats, TenantSpec,

@@ -16,33 +16,50 @@ Alg. 1 —
   task's origin to a remote PU is folded into the constraint check, and every
   remote hop is charged to the *scheduling overhead* ledger (paper Fig. 14).
 
-— lowered to the **fused wave-batched walk**: every ORC subtree is a scan
-plan (device tensors), each escalation depth's constraint checks batch
-into one factor-kernel call, a wave's entry scans are reduced together
-in one launch of the batched scan-reduce kernel, and every later scan
-(re-walks, escalations) is one launch of it at a stack of one.  Mapping
-is optimistic-concurrency: every task is first scored against the ledger
-as it stood at the start of the batch, then committed in task order; a
-task is re-scored only when an earlier commit landed on a device its
-search actually scored, which keeps ``map_batch`` identical to N
-sequential one-task batches.
+— in one of three walk forms, chosen by the same three switches (and
+defaults) as the reference package:
 
-Host and device: the ORC tree, the plans' name lists, the per-batch
-caches and the ledger's dict indexes are host Python; the ledger columns,
-the scan plans' arrays, the scan states and every constraint-check
-column are float64/int64/bool tensors on the graph's device.
+* the **fused wave-batched walk** (``REPRO_FUSED_WALK``, default on):
+  every ORC subtree is a scan plan (device tensors), each escalation
+  depth's constraint checks batch into one factor-kernel call, a wave's
+  entry scans are reduced together in one launch of the batched
+  scan-reduce kernel, and every later scan (re-walks, escalations) is
+  one launch of it at a stack of one;
+* its **group-sharded** driver (``REPRO_SHARDED_WALK``, default on, at a
+  root ORC with two or more children): the snapshot is sliced into
+  block-diagonal per-group views (``CompiledHWGraph.sharded``), the
+  ledger into per-group shards (``ShardedLedger``), and each group's
+  phase-1 walks run on their own (host threads on a big enough wave),
+  reconciling only at the root ORC boundary;
+* the **object walk** (Alg. 1's recursion as written: ``_map_once``,
+  ``_traverse_children``, ``_ask_parent``): the parity oracle
+  (``REPRO_FUSED_WALK=0``), and the only walk of the ``first_fit``
+  objective and of noisy slowdown models (their rng stream follows the
+  scalar order).
 
-This slice always takes the fused walk with a per-batch context
-(single-task waves included).  Not in this slice, and refused with
-``NotImplementedError`` rather than silently routed elsewhere: the
-``first_fit`` objective and noisy slowdown models in ``map_batch``
-(they need the object walk), the group-sharded walk and ledger, and the
-session-persistent walk context.
+Serving waves reuse one **session-resident** walk context
+(``REPRO_SERVE_FASTPATH``, default on): scan states, splices, views and
+the identity factor cache survive across ``map_batch`` calls, and a
+bandwidth-only snapshot delta rebases the context instead of dropping
+it.  ``=0`` builds a context per multi-task batch and walks single-task
+waves with the object walk.  Mapping is optimistic-concurrency: every
+task is first scored against the ledger as it stood at the start of the
+batch, then committed in task order; a task is re-scored only when an
+earlier commit landed on a device its search actually scored, which
+keeps ``map_batch`` identical to N sequential one-task batches.
+
+Host and device: the ORC tree, the plans' name lists, the walk caches
+and the ledger's dict indexes are host Python; the ledger columns, the
+scan plans' arrays, the scan states and every constraint-check column
+are float64/int64/bool tensors on the graph's device.
 """
 from __future__ import annotations
 
 import bisect
 import dataclasses
+import os
+from collections import OrderedDict
+from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
 from typing import Iterable, Optional
 
@@ -50,7 +67,7 @@ import numpy as np
 import torch
 
 from ..device import (BOOL, FLOAT, INT, DeviceLike, bytes_key, f64, host_item,
-                      host_list, i64, resolve_device)
+                      host_list, host_numpy, i64, resolve_device)
 from ..kernels.walk_kernel import (ScanPlanArrays, scan_reduce,
                                    scan_reduce_batch)
 from .hwgraph import HWGraph
@@ -407,6 +424,190 @@ class ActiveLedger:
         return [(e.task, e.pu) for e in self.on_device(graph, pu_name)]
 
 
+class _ShardDevVersions:
+    """Dict-shaped dispatch of per-device version stamps to the owning
+    ledger shard (the surface scan states read via ``dev_version.get``)."""
+
+    __slots__ = ("_led",)
+
+    def __init__(self, led: "ShardedLedger") -> None:
+        self._led = led
+
+    def get(self, dev: str, default: int = 0) -> int:
+        return self._led.shard_for(dev).dev_version.get(dev, default)
+
+
+class ShardedLedger:
+    """Per-ORC-group :class:`ActiveLedger` shards behind the monolithic
+    ledger surface.
+
+    Each shard owns exactly the rows of its group's devices (commits
+    dispatch by the committed PU's enclosing device), so per-device reads
+    hit one shard, and independent groups' walks can fan out over host
+    threads without sharing ledger state.  The thin cross-group
+    reconciler is :meth:`live_view`: the shards' device segments
+    interleaved back into global device-ordinal order (stable), which
+    equals the monolithic ledger's global view.  Every shard lives on the
+    ledger's device; one mutation journal (``mut_log``) and one PU ->
+    device map are shared by all of them."""
+
+    def __init__(self, comp, sharded_hw, device: DeviceLike = None) -> None:
+        self.hw = sharded_hw
+        self.device = comp.device if device is None else resolve_device(
+            device)
+        self.shards: list[ActiveLedger] = [ActiveLedger(self.device)
+                                           for _ in sharded_hw.shards]
+        self._pu_dev: dict[str, str] = {}      # shared by every shard
+        self._by_dev: dict[str, ActiveLedger] = {}
+        self._by_pu: dict[str, ActiveLedger] = {}
+        self._default = self.shards[0]
+        for gs, led in zip(sharded_hw.shards, self.shards):
+            led._pu_dev = self._pu_dev
+            for d in gs.devices:
+                self._by_dev[d] = led
+            for p in gs.pu_names:
+                self._by_pu[p] = led
+        self._pu_dev.update(comp._pu_device_name)
+        self._dev_versions = _ShardDevVersions(self)
+        self._merged: Optional[tuple] = None
+        # one shared mutation journal across shards: attributed mutations
+        # must stay globally ordered for scan-state refreshes
+        self.mut_log: list[str] = []
+        for led in self.shards:
+            led.mut_log = self.mut_log
+
+    # -- shard dispatch ----------------------------------------------------
+    def shard_for(self, dev: str) -> ActiveLedger:
+        return self._by_dev.get(dev, self._default)
+
+    def _shard_for_pu(self, pu: str) -> ActiveLedger:
+        led = self._by_pu.get(pu)
+        if led is None:
+            dev = self._pu_dev.get(pu)
+            led = self._by_dev.get(dev, self._default) if dev is not None \
+                else self._default
+        return led
+
+    # -- monolithic surface ------------------------------------------------
+    def __len__(self) -> int:
+        return sum(len(s) for s in self.shards)
+
+    @property
+    def version(self) -> int:
+        return sum(s.version for s in self.shards)
+
+    @property
+    def dev_epoch(self) -> int:
+        return sum(s.dev_epoch for s in self.shards)
+
+    @property
+    def dev_version(self) -> _ShardDevVersions:
+        return self._dev_versions
+
+    @property
+    def _live_view(self) -> Optional[tuple]:
+        return self._merged
+
+    @_live_view.setter
+    def _live_view(self, value) -> None:
+        # map_batch drops the cross-batch global view (release times may
+        # have been charged since); propagate to every shard's cache
+        self._merged = value
+        if value is None:
+            for s in self.shards:
+                s._live_view = None
+
+    def add(self, task: Task, pu: str, pred: TaskPrediction,
+            now: float) -> ActiveEntry:
+        return self._shard_for_pu(pu).add(task, pu, pred, now)
+
+    def prune(self, now: float) -> None:
+        for s in self.shards:
+            s.prune(now)
+
+    def remove(self, task: Task) -> None:
+        for s in self.shards:
+            s.remove(task)
+
+    def retire(self, uids) -> int:
+        uids = list(uids)
+        return sum(s.retire(uids) for s in self.shards)
+
+    def count(self, pu: str) -> int:
+        return self._shard_for_pu(pu).count(pu)
+
+    def touch(self, dev: str) -> None:
+        self.shard_for(dev).touch(dev)
+        self._merged = None
+
+    def occupied_devices(self, comp) -> set:
+        out: set = set()
+        for s in self.shards:
+            out |= s.occupied_devices(comp)
+        return out
+
+    def _fill_pu_idx(self, comp) -> None:
+        for s in self.shards:
+            s._fill_pu_idx(comp)
+
+    def device_view(self, comp, dev: str) -> _LedgerView:
+        return self.shard_for(dev).device_view(comp, dev)
+
+    def live_view(self, comp) -> _LedgerView:
+        """The cross-group reconciler: every shard's live rows interleaved
+        back into global device-ordinal order.  Within one device ordinal
+        all rows come from the one shard owning that device, already in
+        insertion order, so a stable sort over the concatenation equals
+        the monolithic global view.  The order is computed on the host
+        mirrors (names -> ordinals), so the merge needs no device read."""
+        cached = self._merged
+        if cached is not None and cached[0] is comp \
+                and cached[1] == self.version:
+            return cached[2]
+        views = [s.live_view(comp) for s in self.shards]
+        dl = comp.pu_dev_ord_l
+        pidx = comp.pu_index
+        names = [n for w in views for n in w.pu_names]
+        dev_of = [dl[pidx[n]] for n in names]
+        order = sorted(range(len(names)), key=dev_of.__getitem__)
+        o = i64(order, self.device)
+        v = _LedgerView()
+        for col in ("P", "est", "fac", "dl", "rel", "upu", "umem", "Ma",
+                    "uid"):
+            setattr(v, col, torch.cat([getattr(w, col) for w in views])[o])
+        rows = [r for w in views for r in w.rows]
+        tasks = [t for w in views for t in w.tasks]
+        v.rows = [rows[k] for k in order]
+        v.pu_names = [names[k] for k in order]
+        v.tasks = [tasks[k] for k in order]
+        v.Da = i64([dev_of[k] for k in order], self.device)
+        na = [0] * len(comp.dev_ord_names)
+        for k in dev_of:
+            na[k] += 1
+        v.na = i64(na, self.device)
+        v.astart = torch.cumsum(v.na, 0) - v.na
+        self._merged = (comp, self.version, v)
+        return v
+
+    # -- object-view compatibility accessors -------------------------------
+    @property
+    def by_pu(self) -> dict[str, list[ActiveEntry]]:
+        out: dict[str, list[ActiveEntry]] = {}
+        for s in self.shards:
+            for pu, entries in s.by_pu.items():
+                out.setdefault(pu, []).extend(entries)
+        return out
+
+    def on_device(self, graph: HWGraph, pu_name: str) -> list[ActiveEntry]:
+        comp = graph.compiled()
+        dev = comp.device_name(pu_name)
+        return self.shard_for(dev).on_device(graph, pu_name)
+
+    def pairs_on_device(self, graph: HWGraph,
+                        pu_name: str) -> list[tuple[Task, str]]:
+        return [(e.task, e.pu) for e in self.on_device(graph, pu_name)]
+
+
 @dataclass
 class MapResult:
     pu: str
@@ -419,7 +620,7 @@ class MapResult:
 @dataclass
 class OrcConfig:
     local_query_cost: float = 5e-6    # CPU time per candidate constraint check
-    objective: str = "best_fit"       # "best_fit" | "min_load" ("first_fit": later slice)
+    objective: str = "best_fit"       # "best_fit" | "first_fit" | "min_load"
     allow_best_effort: bool = True    # if nothing satisfies, pick least-bad PU
 
 
@@ -490,8 +691,19 @@ class _Walk:
         self.res: Optional["MapResult"] = None
 
 
+def _fifo_put(cache: OrderedDict, key, value, cap: int) -> None:
+    """Insert into a bounded FIFO cache.  ``popitem`` drops the oldest
+    entry in one call, so the group threads of the sharded walk may
+    insert and evict at once (two of them may evict one entry each)."""
+    cache[key] = value
+    if len(cache) > cap:
+        cache.popitem(last=False)
+
+
 class _BatchContext:
-    """Per-``map_batch`` caches shared by every walk in one frontier.
+    """Caches shared by every walk of one frontier — or, as the root's
+    session-resident context (:meth:`Orchestrator._session_context`), of
+    every wave of a serving session.
 
     Everything here is a pure function of (snapshot, task signature) or of
     (ledger version, device), so sharing across the batch cannot change any
@@ -518,18 +730,34 @@ class _BatchContext:
         self.scan_states: dict = {}
         # per-(task sig, plan) effective columns (ok/cm/key), patched per
         # committed device on reuse — small FIFO
-        self.eff_cache: dict = {}
+        self.eff_cache: OrderedDict = OrderedDict()
         # canonical-pattern cache of single-device core checks (splices)
-        self.splice_cache: dict = {}
+        self.splice_cache: OrderedDict = OrderedDict()
         # slowdown-factor cache of single-device checks, keyed by view
-        # *identity*: (core sig, dev) -> (view, static, factors)
-        self.factor_cache: dict = {}
+        # *identity*: (core sig, dev) -> (view, static, factors).  Factors
+        # are now-independent, so a clock-moved re-splice of an unchanged
+        # device skips the kernel and both canonical-key constructions
+        self.factor_cache: OrderedDict = OrderedDict()
         # the ledger's attributed-mutation journal, aliased so scan states
         # refresh exactly the suffix of commits they have not seen yet
         self.commit_log: list[str] = ledger.mut_log
         # teach the ledger every PU's device up front so commits bump only
         # their device's version (not the global epoch)
         ledger._pu_dev.update(comp._pu_device_name)
+
+    def rebase(self, comp) -> None:
+        """Adopt a bandwidth-only successor snapshot without dropping the
+        persistent walk state.  Only the comm-bearing caches go (comm
+        times, per-signature static scores and effective layers, and the
+        identity factor cache keyed on them); the core scan states,
+        canonical splices, views and static cores are bandwidth-independent
+        (the caller has checked that ``pu_alive``, the route topology, the
+        PU index, ``ncr_rclass`` and ``mem_cap`` are the same objects)."""
+        self.comp = comp
+        self._comm = {}
+        self._static = {}
+        self.eff_cache = OrderedDict()
+        self.factor_cache = OrderedDict()
 
     def _model_key(self, task: Task) -> tuple:
         hit = self._mkeys.get(id(task))
@@ -717,6 +945,14 @@ class Orchestrator:
         self._hop_cache: Optional[tuple] = None
         self._plan_cache: Optional[tuple] = None   # (comp, _ScanPlan)
         self._child_cache: Optional[tuple] = None  # (comp, _ChildPlan)
+        self._sharded_hw = None                    # ShardedHWGraph (root)
+        # session-resident batch context (the serving fast path): survives
+        # map_batch calls so steady-state waves pay only dirty-device work
+        self._resident_ctx: Optional[_BatchContext] = None
+        # walk contexts this ORC's map_batch built (resident or per batch)
+        # and resident contexts it rebased onto a bandwidth-only delta
+        self.context_builds = 0
+        self.context_rebases = 0
 
     # -- hierarchy ----------------------------------------------------------
     def add_child(self, child: "Orchestrator") -> "Orchestrator":
@@ -728,6 +964,7 @@ class Orchestrator:
             node._subtree_pus_cache = None
             node._plan_cache = None
             node._child_cache = None
+            node._resident_ctx = None
             node = node.parent
         return child
 
@@ -747,14 +984,48 @@ class Orchestrator:
     def prepare(self, comp=None) -> "Orchestrator":
         """Prebuild the compiled scan/child plans of the whole ORC tree
         against ``comp`` (default: the graph's current snapshot) — pure
-        one-time lowering work, kept out of the first mapping wave."""
+        one-time lowering work, kept out of the first mapping wave — and,
+        where group sharding applies, shard the snapshot and the ledger."""
         if comp is None:
             comp = self.graph.compiled()
         for orc in self.iter_tree():
             orc._scan_plan(comp)
             if orc.children:
                 orc._child_plan(comp)
+        if self._sharding_enabled():
+            self._install_sharding(comp)
         return self
+
+    # -- group sharding ------------------------------------------------------
+    def _sharding_enabled(self) -> bool:
+        """Group sharding applies at a root ORC with >=2 group subtrees
+        and is switched off by ``REPRO_SHARDED_WALK=0`` (the fused walk over
+        the monolithic ledger, its parity baseline)."""
+        return (self.parent is None and len(self.children) > 1
+                and os.environ.get("REPRO_SHARDED_WALK", "1") != "0")
+
+    def _install_sharding(self, comp) -> None:
+        """Shard the snapshot and ledger per root-child ORC group: one
+        :class:`ShardedHWGraph` shard per root child (its subtree's device
+        groups), validated block-diagonal, and a :class:`ShardedLedger`
+        over that partition (on the ledger's device) swapped into the
+        whole tree.  A non-empty or already-sharded ledger, or a partition
+        that fails validation, leaves the monolithic setup untouched.
+        Slicing happens here only: afterwards device names alone route the
+        ledger, and no delta re-slices."""
+        if type(self.ledger) is not ActiveLedger or len(self.ledger):
+            return
+        groups = {c.group: [o.group for o in c.iter_tree()
+                            if o.is_device_orc()]
+                  for c in self.children}
+        try:
+            shg = comp.sharded(groups)
+        except ValueError:
+            return                    # not block-diagonal: stay monolithic
+        led = ShardedLedger(comp, shg, self.ledger.device)
+        for orc in self.iter_tree():
+            orc.ledger = led
+        self._sharded_hw = shg
 
     @property
     def factor_cache_hits(self) -> int:
@@ -783,44 +1054,72 @@ class Orchestrator:
         tasks = list(tasks)
         if not tasks:
             return []
-        sd = self.traverser.slowdown
-        if bool(getattr(sd, "_noisy", lambda: False)()):
-            raise NotImplementedError(
-                "map_batch with a noisy slowdown model needs the object "
-                "walk, which belongs to a later slice of the port")
-        if self.config.objective == "first_fit":
-            raise NotImplementedError(
-                "the first_fit objective needs the object walk, which "
-                "belongs to a later slice of the port")
-        if not hasattr(sd, "factors_same_device_multi"):
-            raise NotImplementedError(
-                "map_batch needs a slowdown model with the block-diagonal "
-                "constraint check (factors_same_device_multi)")
         self.ledger.prune(now)
         # release_time of resident tasks may have been charged with overhead
         # since the last batch (a mutation the ledger version cannot see):
         # drop the cross-batch global view so l.15 reads the charged values
         self.ledger._live_view = None
         comp = self.graph.compiled()
-        ctx = _BatchContext(self.graph, comp, self.traverser, self.ledger)
+        sd = self.traverser.slowdown
+        noisy = bool(getattr(sd, "_noisy", lambda: False)())
+        # the fused walk is the deterministic batch path: noisy models need
+        # the scalar rng stream order and first_fit the early-return walk,
+        # both of which the object walk keeps
+        fusable = (not noisy and self.config.objective != "first_fit"
+                   and hasattr(sd, "factors_same_device_multi")
+                   and os.environ.get("REPRO_FUSED_WALK", "1") != "0")
+        if fusable and os.environ.get("REPRO_SERVE_FASTPATH", "1") != "0":
+            # serving fast path: a session-resident context keeps the
+            # walk state across waves, and single-task waves run the fused
+            # walk too.  REPRO_SERVE_FASTPATH=0 builds a context per batch
+            # (and walks single-task waves with the object walk)
+            ctx = self._session_context(comp)
+        else:
+            ctx = None
+            if len(tasks) > 1:
+                ctx = _BatchContext(self.graph, comp, self.traverser,
+                                    self.ledger)
+                self.context_builds += 1
+        fast = fusable and ctx is not None
         # phase 1: optimistic walks against the frozen ledger, deduped by
         # task signature (identical tasks walk once; commits are replayed
         # per task in phase 2)
-        walks = self._walk_wave(tasks, now, ctx, route)
         tentative: list[tuple["Orchestrator", Optional[MapResult], set]] = []
-        for t in tasks:
-            orc = self._entry_orc(t) if route else self
-            w = walks[self._task_signature(orc, t)]
-            res = (dataclasses.replace(w.res)
-                   if w.res is not None else None)
-            tentative.append((orc, res, w.scored))
+        if fast:
+            if self._sharding_enabled():
+                walks = self._walk_wave_sharded(tasks, now, ctx, route)
+            else:
+                walks = self._walk_wave(tasks, now, ctx, route)
+            for t in tasks:
+                orc = self._entry_orc(t) if route else self
+                w = walks[self._task_signature(orc, t)]
+                res = (dataclasses.replace(w.res)
+                       if w.res is not None else None)
+                tentative.append((orc, res, w.scored))
+        else:
+            phase1: dict = {}
+            for t in tasks:
+                orc = self._entry_orc(t) if route else self
+                # a noisy walk draws from the rng: every task walks
+                key = None if noisy else self._task_signature(orc, t)
+                hit = phase1.get(key) if key is not None else None
+                if hit is not None:
+                    res0, scored = hit
+                    res = (dataclasses.replace(res0)
+                           if res0 is not None else None)
+                else:
+                    scored = set()
+                    res = orc._map_once(t, now, ctx, scored)
+                    if key is not None:
+                        phase1[key] = (res, scored)
+                tentative.append((orc, res, scored))
         # phase 2: ordered commit; re-walk when the optimistic result is
         # stale (an earlier commit landed on a device this walk scored).
-        # Re-walks splice only the committed devices' segments back into
-        # the tracked scans.
+        # Fast re-walks splice only the committed devices' segments back
+        # into the tracked scans.
         dirty: set[str] = set()
         out: list[Optional[MapResult]] = []
-        warmed = False
+        warmed = not fast
         for i, (t, (orc, res, scored)) in enumerate(zip(tasks, tentative)):
             if dirty and not dirty.isdisjoint(scored):
                 if not warmed:
@@ -834,15 +1133,61 @@ class Orchestrator:
                         warm.update(t2.attrs.get("src_devices") or ())
                     comp.ensure_routes(warm)
                     warmed = True
-                res = orc._map_once_fast(t, now, ctx, None)
+                res = (orc._map_once_fast(t, now, ctx, None) if fast
+                       else orc._map_once(t, now, ctx, set()))
             if res is not None and commit:
                 # ledger.add journals the commit's device into mut_log —
-                # the log the batch context aliases as its commit_log
+                # the log every batch context aliases as its commit_log
                 self.ledger.add(t, res.pu, res.prediction, now)
                 t.assigned_pu = res.pu
                 dirty.add(comp.device_name(res.pu))
             out.append(res)
         return out
+
+    def _session_context(self, comp) -> _BatchContext:
+        """The session-resident :class:`_BatchContext` for ``comp``,
+        reused across ``map_batch`` calls (the serving fast path).
+
+        Reuse rules: same graph and ledger, a mutation journal of at most
+        50 000 entries, and either the same snapshot or a bandwidth-only
+        successor (``pu_alive``, the route topology layer, the PU index,
+        ``ncr_rclass`` and ``mem_cap`` all the *same objects*: then the
+        core scan states, splices and ledger views stay valid and only the
+        comm-bearing caches are rebuilt).  Anything else — a death or
+        revival, an NCR refresh, a swapped ledger — drops the context and
+        the next wave pays one cold build."""
+        ctx = self._resident_ctx
+        led = self.ledger
+        if ctx is not None and (ctx.ledger is not led
+                                or ctx.graph is not self.graph
+                                or len(led.mut_log) > 50_000):
+            ctx = None
+        if ctx is not None and ctx.comp is not comp:
+            old = ctx.comp
+            if (comp.pu_alive is old.pu_alive
+                    and comp._rt.topo is old._rt.topo
+                    and comp.pu_index is old.pu_index
+                    and comp.ncr_rclass is old.ncr_rclass
+                    and comp.mem_cap is old.mem_cap):
+                ctx.rebase(comp)
+                self.context_rebases += 1
+            else:
+                ctx = None
+        if ctx is None:
+            if len(led.mut_log) > 50_000 and self._resident_ctx is not None:
+                # no live context references the journal any more; reset
+                # it in place (the shards alias the same list)
+                del led.mut_log[:]
+            ctx = _BatchContext(self.graph, comp, self.traverser, led)
+            self._resident_ctx = ctx
+            self.context_builds += 1
+        elif len(ctx._sigs) > 8192:
+            # id(task)-keyed memos accrete one entry per request over a
+            # serving session; they are pure memos, safe to drop
+            ctx._sigs = {}
+            ctx._cores = {}
+            ctx._mkeys = {}
+        return ctx
 
     # -- fused wave-batched walk (the array lowering of Alg. 1) --------------
     def _scan_plan(self, comp) -> _ScanPlan:
@@ -931,6 +1276,12 @@ class Orchestrator:
         cp.bounds = bounds
         cp.hc = hc
         cp.hop_prefix = prefix
+        # scan states key on id(plan.pus): when a snapshot swap rebuilds
+        # this plan with the same candidate list (bandwidth churn), keep
+        # the previous list object so the resident context's states and
+        # per-list memos survive
+        if cache is not None and cache[1].pus == cp.pus:
+            cp.pus = cache[1].pus
         self._child_cache = (comp, cp)
         return cp
 
@@ -992,10 +1343,7 @@ class Orchestrator:
                     ctx.comp, task, static.cand_idx, static.cand_dev,
                     view.P, view.upu, view.Ma, view.uid, view.Da,
                     view.astart, view.na)
-                fcache = ctx.factor_cache
-                fcache[fkey] = (view, static, fac)
-                if len(fcache) > 4096:
-                    fcache.pop(next(iter(fcache)), None)
+                _fifo_put(ctx.factor_cache, fkey, (view, static, fac), 4096)
                 fused = (fac, view)
             o, s_, f_, w_, expiry = self._score_fused_arrays(
                 task, static, now, with_constraints=True, ctx=ctx,
@@ -1005,11 +1353,11 @@ class Orchestrator:
             f[cols] = f_
             wait[cols] = w_
         if ck is not None:
-            cache = ctx.splice_cache
-            cache[ck] = (ok.clone(), sa.clone(), f.clone(), wait.clone(),
-                         expiry)
-            if len(cache) > 512:
-                cache.pop(next(iter(cache)), None)
+            # keys embed the check instant, so a resident serving context
+            # would otherwise accrete one generation of entries per wave
+            _fifo_put(ctx.splice_cache, ck,
+                      (ok.clone(), sa.clone(), f.clone(), wait.clone(),
+                       expiry), 512)
         return ok, sa, f, wait, expiry
 
     def _tracked_checks(self, task: Task, plan, now: float,
@@ -1115,10 +1463,8 @@ class Orchestrator:
             ok = st.ok & ~(key > dl)
         else:
             ok = st.ok.clone()         # the cache owns a mutable copy
-        cache = ctx.eff_cache
-        cache[ck] = [st, len(log), len(rlog), ok, cm, key]
-        if len(cache) > 24:
-            cache.pop(next(iter(cache)), None)
+        _fifo_put(ctx.eff_cache, ck,
+                  [st, len(log), len(rlog), ok, cm, key], 24)
         return ok, cm, key
 
     def _scan_reduce(self, ok_d: torch.Tensor, cm_d: torch.Tensor,
@@ -1303,11 +1649,16 @@ class Orchestrator:
         return walks, order
 
     def _escalate_walks(self, active: list["_Walk"], now: float,
-                        ctx: "_BatchContext") -> None:
+                        ctx: "_BatchContext",
+                        stop_root: bool = False) -> None:
         """Advance unresolved walks through AskParent levels in lockstep,
         batching each escalation depth's constraint checks into one
         kernel call and each depth's route rows into one batched
-        Dijkstra."""
+        Dijkstra.  With ``stop_root=True`` walks park *below* the root
+        level (``cur.parent.parent is None``) instead of asking it — the
+        group-sharded driver escalates intra-group levels per group and
+        keeps the root scan (the only cross-group one) for the serial
+        boundary reconciliation."""
         comp = ctx.comp
         while active:
             warm: set = set()
@@ -1326,12 +1677,13 @@ class Orchestrator:
                 w.res = w.cur._ask_level_fast(w.task, now, ctx, w.scored)
                 if w.res is None:
                     w.cur = w.cur.parent
-                    if w.cur.parent is not None:
+                    if w.cur.parent is not None and not (
+                            stop_root and w.cur.parent.parent is None):
                         nxt.append(w)
             active = nxt
 
     def _drive_wave(self, order: list["_Walk"], now: float,
-                    ctx: "_BatchContext") -> None:
+                    ctx: "_BatchContext", stop_root: bool = False) -> None:
         """Resolve a set of deduped walks: batched entry checks, one
         tracked entry scan per walk, then lockstep escalation."""
         comp = ctx.comp
@@ -1340,8 +1692,9 @@ class Orchestrator:
             now)
         self._entry_reduce_batch(order, now, ctx)
         active = [w for w in order
-                  if w.res is None and w.cur.parent is not None]
-        self._escalate_walks(active, now, ctx)
+                  if w.res is None and w.cur.parent is not None and not (
+                      stop_root and w.cur.parent.parent is None)]
+        self._escalate_walks(active, now, ctx, stop_root=stop_root)
 
     def _entry_reduce_batch(self, ws: list["_Walk"], now: float,
                             ctx: "_BatchContext") -> None:
@@ -1398,6 +1751,79 @@ class Orchestrator:
                     w.res = w.orc._best_effort(w.task, now, ctx, w.scored)
         return walks
 
+    def _shard_root_of(self, orc: "Orchestrator",
+                       ) -> Optional["Orchestrator"]:
+        """The root-child subtree (= group shard) an ORC belongs to, or
+        None for the root itself (serial bucket)."""
+        while orc.parent is not None and orc.parent.parent is not None:
+            orc = orc.parent
+        return orc if orc.parent is not None else None
+
+    def _walk_wave_sharded(self, tasks: list, now: float,
+                           ctx: "_BatchContext", route: bool) -> dict:
+        """Group-sharded phase 1: partition the deduped walks by root
+        child (= ORC device group), drive each group's walks up to (but
+        excluding) the root escalation level — on host threads when the
+        host has two or more cores and the wave is big enough — then
+        reconcile at the group boundary, the root's child-plan scan (the
+        only one whose NCR rows cross groups), serially.
+
+        Equal to :meth:`_walk_wave` because phase 1 is pure against the
+        frozen ledger and every scan an intra-group walk touches reads
+        only its own group's PU columns: the partition of walks is a
+        partition of all reads.  A group thread's error propagates (the
+        executor's ``map`` re-raises it here)."""
+        comp = ctx.comp
+        walks, order = self._dedup_walks(tasks, route)
+        buckets: dict = {}
+        serial: list[_Walk] = []
+        for w in order:
+            root = self._shard_root_of(w.orc)
+            if root is None:
+                serial.append(w)
+            else:
+                buckets.setdefault(id(root), []).append(w)
+        groups = list(buckets.values())
+        if len(groups) < 2:
+            self._drive_wave(order, now, ctx)
+        else:
+            # host-thread fan-out only where it can win: >=2 cores and a
+            # wave big enough to amortize the pool and the route pre-warm
+            nthreads = min(len(groups), os.cpu_count() or 1)
+            if nthreads < 2 or len(order) < 64 * len(groups):
+                for ws in groups:
+                    self._drive_wave(ws, now, ctx, stop_root=True)
+            else:
+                # warm every route row a group thread could need up front:
+                # one batched Dijkstra instead of contended lazy builds
+                warm: set = set()
+                for w in order:
+                    if w.task.origin is not None:
+                        warm.add(w.task.origin)
+                    warm.update(w.task.attrs.get("src_devices") or ())
+                    cur = w.orc
+                    while cur is not None:
+                        warm.add(cur.group)
+                        cur = cur.parent
+                comp.ensure_routes(warm)
+                with ThreadPoolExecutor(max_workers=nthreads) as ex:
+                    list(ex.map(
+                        lambda ws: self._drive_wave(ws, now, ctx,
+                                                    stop_root=True),
+                        groups))
+            if serial:
+                self._drive_wave(serial, now, ctx)
+            # boundary reconciliation: walks that exhausted their group
+            # escalate through the root's cross-group scan, serially
+            pend = [w for w in order
+                    if w.res is None and w.cur.parent is not None]
+            self._escalate_walks(pend, now, ctx)
+        if self.config.allow_best_effort:
+            for w in order:
+                if w.res is None:
+                    w.res = w.orc._best_effort(w.task, now, ctx, w.scored)
+        return walks
+
     @staticmethod
     def _task_signature(orc: "Orchestrator", t: Task) -> tuple:
         """Signature of everything a walk reads off the task: tasks with
@@ -1420,15 +1846,142 @@ class Orchestrator:
             orc = next(iter(self._device_orcs.values()), self)
         return orc
 
+    # -- the object walk (Alg. 1 as written) ---------------------------------
+    def _map_once(self, task: Task, now: float, ctx: Optional[_BatchContext],
+                  scored: set) -> Optional[MapResult]:
+        res = self._traverse_children(task, now, ctx, scored)
+        if res is None:
+            res = self._ask_parent(task, now, origin=self, ctx=ctx,
+                                   scored=scored)
+        if res is None and self.config.allow_best_effort:
+            res = self._best_effort(task, now, ctx, scored)
+        return res
+
+    # TraverseChildren (Alg. 1 line 20)
+    def _traverse_children(self, task: Task, now: float,
+                           ctx: Optional[_BatchContext] = None,
+                           scored: Optional[set] = None,
+                           pre: Optional[dict] = None,
+                           ) -> Optional[MapResult]:
+        candidates: list[MapResult] = []
+        queries = 0
+        hops = 0
+        overhead = 0.0
+        if pre is None and self.children:
+            # fuse the whole subtree's constraint check into one call;
+            # the recursion below only replays Alg. 1's accounting
+            pus = self._subtree_pus()
+            pre = dict(zip(pus, self._check_candidates(task, pus, now,
+                                                       ctx=ctx)))
+        if scored is not None and self.leaf_pus:
+            scored.add(self.group)
+        if pre is not None and self.leaf_pus:
+            checks = [pre[p] for p in self.leaf_pus]
+        else:
+            checks = self._check_candidates(task, self.leaf_pus, now, ctx=ctx)
+        for pu_name, (ok, pred) in zip(self.leaf_pus, checks):
+            queries += 1
+            if ok:
+                r = MapResult(pu=pu_name, prediction=pred)
+                if self.config.objective == "first_fit":
+                    r.queries = queries
+                    r.overhead = overhead + queries * self.config.local_query_cost
+                    r.hops = hops
+                    return r
+                candidates.append(r)
+        for child in self.children:
+            hops += 1
+            overhead += self._hop_cost(child)
+            sub = child._traverse_children(task, now, ctx, scored, pre)
+            if sub is not None:
+                queries += sub.queries
+                hops += sub.hops
+                overhead += sub.overhead
+                if self.config.objective == "first_fit":
+                    sub.queries = queries
+                    sub.hops = hops
+                    sub.overhead = overhead + queries * self.config.local_query_cost
+                    return sub
+                candidates.append(sub)
+        if not candidates:
+            return None
+        best = self._select(candidates)
+        best.queries = queries
+        best.hops = hops
+        best.overhead = overhead + queries * self.config.local_query_cost
+        return best
+
+    # AskParent (Alg. 1 line 30)
+    def _ask_parent(self, task: Task, now: float,
+                    origin: "Orchestrator",
+                    ctx: Optional[_BatchContext] = None,
+                    scored: Optional[set] = None) -> Optional[MapResult]:
+        if self.parent is None:
+            return None
+        parent = self.parent
+        results: list[MapResult] = []
+        hops = 1                       # message up to the parent
+        overhead = self._hop_cost(parent)
+        siblings = [s for s in parent.children if s is not self]
+        # fuse the sibling scan's constraint checks into one call
+        sib_pus = [p for s in siblings for p in s._subtree_pus()]
+        pre = (dict(zip(sib_pus, self._check_candidates(task, sib_pus, now,
+                                                        ctx=ctx)))
+               if sib_pus else None)
+        for sibling in siblings:
+            hops += 1
+            overhead += parent._hop_cost(sibling)
+            sub = sibling._traverse_children(task, now, ctx, scored, pre)
+            if sub is not None:
+                sub.hops += hops
+                sub.overhead += overhead
+                if parent.config.objective == "first_fit":
+                    return sub
+                results.append(sub)
+        if results:
+            return self._select(results)
+        # no sibling satisfies: propagate the search further up (DFS)
+        return parent._ask_parent(task, now, origin=origin, ctx=ctx,
+                                  scored=scored)
+
+    # CheckTaskConstraints (Alg. 1 line 11)
+    def _check_constraints(self, task: Task, pu_name: str,
+                           now: float) -> tuple[bool, TaskPrediction]:
+        return self._check_candidates(task, [pu_name], now)[0]
+
+    def _check_candidates(self, task: Task, pu_names: list[str],
+                          now: float, ctx: Optional[_BatchContext] = None,
+                          ) -> list[tuple[bool, TaskPrediction]]:
+        """CheckTaskConstraints over every candidate PU in one shot."""
+        return self._score_candidates(task, pu_names, now,
+                                      with_constraints=True, ctx=ctx)
+
+    def _select(self, candidates: list[MapResult]) -> MapResult:
+        if self.config.objective == "min_load":
+            return min(candidates, key=lambda r: self.ledger.count(r.pu))
+        return min(candidates, key=lambda r: r.prediction.total)
+
     # -- helpers --------------------------------------------------------------
     def _eligibility(self, task: Task, pu_names: list[str], comp,
-                     ctx: _BatchContext) -> tuple:
+                     ctx: Optional[_BatchContext]) -> tuple:
         """(compiled index per name, eligibility mask): alive, supported
-        by the PU's model, and — for pinned tasks — on the origin device."""
-        idx = ctx.pu_idx(pu_names)
+        by the PU's model, and — for pinned tasks — on the origin device.
+        Without a context the model's support is asked per named PU."""
+        if ctx is not None:
+            idx = ctx.pu_idx(pu_names)
+            sup = ctx.supports_mask(task)[idx.clamp(min=0)]
+        else:
+            g = self.graph
+            idx_l = [comp.pu_index.get(p, -1) for p in pu_names]
+            idx = i64(idx_l, comp.device)
+            sup = torch.as_tensor(
+                [i >= 0 and g.nodes[p].model is not None
+                 and g.nodes[p].model.supports(task, g.nodes[p])
+                 for p, i in zip(pu_names, idx_l)],
+                dtype=BOOL, device=comp.device)
         known = idx >= 0
         ki = idx.clamp(min=0)
-        elig = known & comp.pu_alive[ki] & ctx.supports_mask(task)[ki]
+        elig = known & comp.pu_alive[ki] & sup
         if task.attrs.get("pinned"):
             # device-local peripherals pin a task to its origin
             elig = elig & (comp.pu_dev_ord[ki]
@@ -1436,7 +1989,7 @@ class Orchestrator:
         return idx, elig
 
     def _static_score(self, task: Task, pu_names: list[str], comp,
-                      ctx: _BatchContext,
+                      ctx: Optional[_BatchContext],
                       skip_comm: bool = False) -> "_StaticScore":
         """The ledger-independent half of fused scoring: eligibility,
         candidate index/device arrays, standalone predictions, inbound
@@ -1463,7 +2016,12 @@ class Orchestrator:
         uniq = sorted(set(cand_dev_l))
         if len(uniq) == 1:
             s.single_dev = comp.dev_ord_names[uniq[0]]
-        s.sa = ctx.standalone(task)[s.cand_idx]
+        if ctx is not None:
+            s.sa = ctx.standalone(task)[s.cand_idx]
+        else:
+            g = self.graph
+            s.sa = f64([g.nodes[pu_names[c]].predict(task) for c in s.cols_l],
+                       dev)
         s.maxten = comp.max_tenancy[s.cand_idx]
         if skip_comm:
             s.comm = None
@@ -1480,7 +2038,8 @@ class Orchestrator:
                 comp.ensure_routes([comp.dev_ord_names[o] for o in uniq])
             for o in uniq:
                 d = comp.dev_ord_names[o]
-                c = ctx.comm(task, d)
+                c = (ctx.comm(task, d) if ctx is not None
+                     else self.traverser.comm_time_dev(task, d, comp))
                 if (ret_bytes > 0 and task.origin is not None
                         and d != task.origin):
                     c += comp.transfer_time(d, task.origin, ret_bytes)
@@ -1540,25 +2099,162 @@ class Orchestrator:
 
     def _score_candidates(self, task: Task, pu_names: list[str], now: float,
                           *, with_constraints: bool,
-                          ctx: _BatchContext,
+                          ctx: Optional[_BatchContext] = None,
                           ) -> list[tuple[bool, TaskPrediction]]:
-        """Vectorized candidate scoring against the compiled HW-GRAPH,
-        returned as per-candidate ``(ok, prediction)`` objects (the
-        best-effort selection reads them on the host)."""
+        """Candidate scoring against the compiled HW-GRAPH, returned as
+        per-candidate ``(ok, prediction)`` objects (the object walk and
+        the best-effort selection read them on the host).
+
+        Per candidate: standalone prediction, inbound communication (with
+        the pinned-return leg), the newcomer's slowdown factor amid the
+        device's active tasks, and — with ``with_constraints`` — the
+        tenancy queueing wait, the deadline check and Alg. 1 line 15
+        (existing tasks keep their constraints).  Noise-free models with
+        the block-diagonal check score every candidate in one fused check;
+        noisy models and models with only the tuple surface score per
+        device (:meth:`_score_grouped`)."""
+        comp = ctx.comp if ctx is not None else self.graph.compiled()
         n = len(pu_names)
         infeasible = (False, TaskPrediction(float("inf"), 1.0, 0.0))
         results: list[tuple[bool, TaskPrediction]] = [infeasible] * n
         if not n:
             return results
-        static = ctx.static_score(self, task, pu_names)
-        if len(static.cols_l):
-            self._score_fused(task, static, now, results,
-                              with_constraints=with_constraints, ctx=ctx)
+        sd = self.traverser.slowdown
+        noisy = bool(getattr(sd, "_noisy", lambda: False)())
+        if (not noisy) and hasattr(sd, "factors_same_device"):
+            static = (ctx.static_score(self, task, pu_names)
+                      if ctx is not None
+                      else self._static_score(task, pu_names, comp, None))
+            if len(static.cols_l):
+                self._score_fused(task, static, now, results,
+                                  with_constraints=with_constraints, ctx=ctx)
+        else:
+            _, elig = self._eligibility(task, pu_names, comp, ctx)
+            cols = [c for c, e in enumerate(host_list(elig)) if e]
+            if cols:
+                self._score_grouped(task, pu_names, cols, now, results,
+                                    with_constraints=with_constraints,
+                                    ctx=ctx)
         return results
+
+    def _score_grouped(self, task: Task, pu_names: list[str],
+                       cols: list[int], now: float, results: list, *,
+                       with_constraints: bool,
+                       ctx: Optional[_BatchContext]) -> None:
+        """Per-device scoring via the tuple-based slowdown surface
+        (``factors_with_candidates``): the path for noisy models, whose
+        rng draws must come in the scalar reference's order — one
+        ``factor`` per candidate, then per (candidate, active), device by
+        device in the order the eligible candidates first name them — and
+        for slowdown models without the block-diagonal check.  Each
+        device's ledger columns, the candidates' tenancy caps and
+        standalones and the factors reach the host in ONE copy; the
+        constraint arithmetic then runs there, as in the reference."""
+        graph = self.graph
+        comp = ctx.comp if ctx is not None else graph.compiled()
+        sd = self.traverser.slowdown
+        batch = getattr(sd, "factors_with_candidates", None)
+        by_dev: dict[str, list[int]] = {}
+        for c in cols:
+            by_dev.setdefault(
+                comp.pu_device[comp.pu_index[pu_names[c]]], []).append(c)
+        sa_vec = ctx.standalone(task) if ctx is not None else None
+        ret_bytes = task.attrs.get("succ_pinned_bytes", 0.0)
+        P = len(comp.pu_names)
+        for dev, dcols in by_dev.items():
+            names = [pu_names[c] for c in dcols]
+            cand_l = [comp.pu_index[nm] for nm in names]
+            cand = i64(cand_l, comp.device)
+            view = (ctx.view(dev) if ctx is not None
+                    else self.ledger.device_view(comp, dev))
+            A = len(view)
+            C = len(dcols)
+            parts = [view.P.to(FLOAT), view.est, view.fac, view.dl,
+                     view.rel, view.uid.to(FLOAT),
+                     comp.max_tenancy[cand].to(FLOAT)]
+            if sa_vec is not None:
+                parts.append(sa_vec[cand])
+            act_f = None
+            if batch is not None:
+                new_f_t, act_f_t = batch(task, names, view.pairs())
+                parts += [new_f_t.reshape(-1).to(FLOAT),
+                          act_f_t.reshape(-1).to(FLOAT)]
+            else:
+                pairs = view.pairs()
+                new_f = [sd.factor(task, p, pairs) for p in names]
+            flat = host_numpy(torch.cat(parts))
+            cuts = np.cumsum([0, A, A, A, A, A, A, C])
+            vP, vest, vfac, vdl, vrel, vuid, maxten = (
+                flat[cuts[k]:cuts[k + 1]] for k in range(7))
+            vP = vP.astype(np.int64)
+            vuid = vuid.astype(np.int64)
+            pos = int(cuts[-1])
+            sa_l = None
+            if sa_vec is not None:
+                sa_l = flat[pos:pos + C]
+                pos += C
+            if batch is not None:
+                new_f = flat[pos:pos + C]
+                act_f = flat[pos + C:pos + C + C * A].reshape(C, A)
+            if ctx is not None:
+                comm = ctx.comm(task, dev)
+            else:
+                comm = self.traverser.comm_time_dev(task, dev, comp)
+            if ret_bytes > 0 and task.origin is not None and dev != task.origin:
+                comm += comp.transfer_time(dev, task.origin, ret_bytes)
+            # tenancy occupancy per candidate PU (live rows only)
+            if with_constraints and A:
+                cnt = np.bincount(vP, minlength=P)[cand_l]
+                minest = np.full(P, np.inf)
+                np.minimum.at(minest, vP, vest)
+                minest = minest[cand_l]
+            else:
+                cnt = np.zeros(C, dtype=np.int64)
+                minest = np.full(C, np.inf)
+            # Alg. 1 l.15: existing tasks keep their constraints
+            ok15 = np.ones(C, dtype=bool)
+            if with_constraints and A:
+                if act_f is not None:
+                    rem = np.maximum(0.0, vest - now) / np.maximum(vfac, 1e-12)
+                    fin = now + rem[None, :] * act_f
+                    viol = fin - vrel[None, :] > vdl[None, :] * (1 + 1e-9)
+                    ok15 = ~viol.any(axis=1)
+                else:
+                    pairs = view.pairs()
+                    for c_pos, name in enumerate(names):
+                        new_factors = self.traverser.predict_active_with(
+                            task, name, pairs)
+                        for a in range(A):
+                            if not np.isfinite(vdl[a]):
+                                continue
+                            rem = max(0.0, vest[a] - now) / max(vfac[a], 1e-12)
+                            fin = now + rem * new_factors[int(vuid[a])]
+                            if fin - vrel[a] > vdl[a] * (1 + 1e-9):
+                                ok15[c_pos] = False
+                                break
+            for c_pos, c in enumerate(dcols):
+                name = names[c_pos]
+                sa = (sa_l[c_pos] if sa_l is not None
+                      else graph.nodes[name].predict(task))
+                pred = TaskPrediction(standalone=float(sa),
+                                      factor=float(new_f[c_pos]), comm=comm)
+                if not with_constraints:
+                    results[c] = (True, pred)
+                    continue
+                # tenancy cap: queueing wait behind the earliest finisher
+                if cnt[c_pos] >= maxten[c_pos]:
+                    wait = float(minest[c_pos]) - now
+                    pred = TaskPrediction(standalone=pred.standalone,
+                                          factor=pred.factor,
+                                          comm=pred.comm + max(0.0, wait))
+                if task.deadline is not None and pred.total > task.deadline:
+                    results[c] = (False, pred)
+                    continue
+                results[c] = (bool(ok15[c_pos]), pred)
 
     def _score_fused(self, task: Task, static: "_StaticScore", now: float,
                      results: list, *, with_constraints: bool,
-                     ctx: _BatchContext,
+                     ctx: Optional[_BatchContext],
                      fused: Optional[tuple] = None) -> None:
         """One-shot scoring of an arbitrary mixed-device candidate set: a
         single block-diagonal check replaces one slowdown/constraint
@@ -1573,7 +2269,7 @@ class Orchestrator:
 
     def _score_fused_arrays(self, task: Task, static: "_StaticScore",
                             now: float, *, with_constraints: bool,
-                            ctx: _BatchContext,
+                            ctx: Optional[_BatchContext],
                             fused: Optional[tuple] = None,
                             split_comm: bool = False) -> tuple:
         """The array core of :meth:`_score_fused`: per eligible candidate
@@ -1585,14 +2281,17 @@ class Orchestrator:
         mask — the origin-independent core the tracked scan states share
         across task signatures; a fifth value is the instant until which
         those outputs stay exact."""
-        comp = ctx.comp
+        comp = ctx.comp if ctx is not None else self.graph.compiled()
         dev = comp.device
         sd = self.traverser.slowdown
         cand_idx = static.cand_idx
         if fused is not None:
             (new_f, ci, ai, act_pf), view = fused
         else:
-            if static.single_dev is not None:
+            # single-device candidate sets (the common local check) read
+            # the per-device segment view; mixed-device sets (and checks
+            # without a context) read the global view
+            if ctx is not None and static.single_dev is not None:
                 view = ctx.view(static.single_dev)
             else:
                 view = self.ledger.live_view(comp)
@@ -1699,7 +2398,7 @@ class Orchestrator:
         return cost
 
     def _best_effort(self, task: Task, now: float,
-                     ctx: _BatchContext,
+                     ctx: Optional[_BatchContext] = None,
                      scored: Optional[set] = None) -> Optional[MapResult]:
         """Nothing satisfies the deadline anywhere: pick the globally least-bad
         PU so the system degrades instead of dropping work (QoS failure is

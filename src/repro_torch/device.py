@@ -19,6 +19,7 @@ implicitly (boolean-mask indexing, ``unique``, ``bincount``,
 """
 from __future__ import annotations
 
+import threading
 from typing import Union
 
 import numpy as np
@@ -31,6 +32,14 @@ BOOL = torch.bool
 DeviceLike = Union[None, str, torch.device]
 
 _syncs = 0
+# reads may come from several host threads at once (the group-sharded walk)
+_sync_lock = threading.Lock()
+
+
+def _count_sync() -> None:
+    global _syncs
+    with _sync_lock:
+        _syncs += 1
 
 
 def resolve_device(device: DeviceLike = None) -> torch.device:
@@ -64,25 +73,22 @@ def i64(data, device: torch.device) -> torch.Tensor:
 
 def host_list(t: torch.Tensor) -> list:
     """Tensor -> Python list (one synchronising copy when on the card)."""
-    global _syncs
     if t.is_cuda:
-        _syncs += 1
+        _count_sync()
     return t.tolist()
 
 
 def host_item(t: torch.Tensor):
     """0-d / 1-element tensor -> Python scalar."""
-    global _syncs
     if t.is_cuda:
-        _syncs += 1
+        _count_sync()
     return t.item()
 
 
 def host_numpy(t: torch.Tensor) -> np.ndarray:
     """Tensor -> numpy array on the host."""
-    global _syncs
     if t.is_cuda:
-        _syncs += 1
+        _count_sync()
         return t.cpu().numpy()
     return t.numpy()
 
@@ -91,9 +97,8 @@ def nonzero(mask: torch.Tensor) -> torch.Tensor:
     """Indices of the set entries of a 1-D mask.  On the card the result's
     length has to reach the host before the result can be allocated, so
     this counts as one synchronising read."""
-    global _syncs
     if mask.is_cuda:
-        _syncs += 1
+        _count_sync()
     return torch.nonzero(mask)[:, 0]
 
 

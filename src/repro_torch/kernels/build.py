@@ -27,6 +27,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+import threading
 import time
 from pathlib import Path
 from typing import Optional
@@ -40,6 +41,10 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _LIB: Optional[ctypes.CDLL] = None
 _INFO: dict = {}
+# the walk drives group shards from host threads: the first launch may come
+# from two threads at once, and every launch bumps a shared counter
+_LOAD_LOCK = threading.Lock()
+_COUNT_LOCK = threading.Lock()
 
 _PTR = ctypes.c_void_p
 _I64 = ctypes.c_longlong
@@ -174,16 +179,26 @@ def build() -> Path:
 
 
 def load() -> ctypes.CDLL:
-    """The loaded kernel library (built at first use)."""
+    """The loaded kernel library (built at first use, once per process
+    however many threads ask for it at once)."""
     global _LIB
     if _LIB is None:
-        lib = ctypes.CDLL(str(build()))
-        for name, argtypes in _SIGNATURES.items():
-            fn = getattr(lib, name)
-            fn.argtypes = argtypes
-            fn.restype = _RESTYPES.get(name, _INT)
-        _LIB = lib
+        with _LOAD_LOCK:
+            if _LIB is None:
+                lib = ctypes.CDLL(str(build()))
+                for name, argtypes in _SIGNATURES.items():
+                    fn = getattr(lib, name)
+                    fn.argtypes = argtypes
+                    fn.restype = _RESTYPES.get(name, _INT)
+                _LIB = lib
     return _LIB
+
+
+def count_launch(counts: dict, name: str) -> None:
+    """Add one to ``counts[name]`` (a wrapper's launch counter) — exact
+    when wrappers launch from several threads at once."""
+    with _COUNT_LOCK:
+        counts[name] += 1
 
 
 def info() -> dict:

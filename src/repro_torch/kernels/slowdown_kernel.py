@@ -275,7 +275,7 @@ def slowdown_factors(x: torch.Tensor, beta: torch.Tensor, mem: torch.Tensor,
             mt_term.data_ptr(), out.data_ptr(), n, r, float(kappa),
             torch.cuda.current_stream().cuda_stream)
     build.check_launch(err, "slowdown_factors")
-    launches["slowdown_factors"] += 1
+    build.count_launch(launches, "slowdown_factors")
     return out
 
 
@@ -345,7 +345,7 @@ def slowdown_pool(members: torch.Tensor, pu_i: torch.Tensor, U: torch.Tensor,
             out.data_ptr(), wide, wide_len,
             torch.cuda.current_stream().cuda_stream)
     build.check_launch(err, "slowdown_pool")
-    launches["slowdown_pool"] += 1
+    build.count_launch(launches, "slowdown_pool")
     return out
 
 
@@ -480,7 +480,7 @@ def slowdown_same_device(items: Sequence[SameDeviceItem], mt_vec, beta,
             scratch.data_ptr(), iscratch.data_ptr(), wide, wide_len,
             torch.cuda.current_stream().cuda_stream)
     build.check_launch(err, "slowdown_same_device")
-    launches["slowdown_same_device"] += 1
+    build.count_launch(launches, "slowdown_same_device")
     for i, res in zip(run, split_stack(rows, new_f, ci, ai, act_pf)):
         out[i] = res
     return out

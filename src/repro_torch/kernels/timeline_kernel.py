@@ -207,7 +207,7 @@ def rate_advance(W: torch.Tensor, rate: torch.Tensor, t_last: torch.Tensor,
             W.data_ptr(), rate.data_ptr(), t_last.data_ptr(), W2.data_ptr(),
             eta.data_ptr(), n, now, torch.cuda.current_stream().cuda_stream)
     build.check_launch(err, "rate_advance")
-    launches["rate_advance"] += 1
+    build.count_launch(launches, "rate_advance")
     return W2, eta
 
 
@@ -256,7 +256,7 @@ def settle_reprice(W: torch.Tensor, rate: torch.Tensor, t_last: torch.Tensor,
             cstamp.data_ptr(), members.data_ptr(), factors.data_ptr(), n, now,
             stamp0, torch.cuda.current_stream().cuda_stream)
     build.check_launch(err, "settle_reprice")
-    launches["settle_reprice"] += 1
+    build.count_launch(launches, "settle_reprice")
 
 
 def settle_complete(W: torch.Tensor, rate: torch.Tensor, t_last: torch.Tensor,
@@ -285,7 +285,7 @@ def settle_complete(W: torch.Tensor, rate: torch.Tensor, t_last: torch.Tensor,
             done.data_ptr(), pairs.data_ptr(), n, now, tol,
             torch.cuda.current_stream().cuda_stream)
     build.check_launch(err, "settle_complete")
-    launches["settle_complete"] += 1
+    build.count_launch(launches, "settle_complete")
     return pairs
 
 
@@ -312,7 +312,7 @@ def segment_min(values: torch.Tensor, starts: torch.Tensor,
             values.data_ptr(), starts.data_ptr(), counts.data_ptr(),
             out.data_ptr(), S, torch.cuda.current_stream().cuda_stream)
     build.check_launch(err, "segment_min")
-    launches["segment_min"] += 1
+    build.count_launch(launches, "segment_min")
     return out
 
 
@@ -370,7 +370,7 @@ def transfer_reprice(xW: torch.Tensor, xrate: torch.Tensor,
             upd_c.data_ptr(), u, now, stamp0,
             torch.cuda.current_stream().cuda_stream)
     build.check_launch(err, "transfer_reprice")
-    launches["transfer_reprice"] += 1
+    build.count_launch(launches, "transfer_reprice")
 
 
 def transfer_complete(xW: torch.Tensor, xrate: torch.Tensor,
@@ -402,5 +402,5 @@ def transfer_complete(xW: torch.Tensor, xrate: torch.Tensor,
             xeta.data_ptr(), done.data_ptr(), pairs.data_ptr(), n, now, tol,
             torch.cuda.current_stream().cuda_stream)
     build.check_launch(err, "transfer_complete")
-    launches["transfer_complete"] += 1
+    build.count_launch(launches, "transfer_complete")
     return pairs

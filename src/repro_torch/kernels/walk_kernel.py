@@ -256,7 +256,7 @@ def scan_reduce(ok: torch.Tensor, key: torch.Tensor, sa: torch.Tensor,
         small = int(P <= WARP_MAX_P)
         _launch(ok, key, sa, f, cm, plan, None, 1, small, 1 - small, P, lqc,
                 out)
-    launches["scan_reduce"] += 1
+    build.count_launch(launches, "scan_reduce")
     return out
 
 
@@ -305,5 +305,5 @@ def scan_reduce_batch(ok: torch.Tensor, key: torch.Tensor, sa: torch.Tensor,
     for i in np.flatnonzero(grid):
         _launch_grid(ok, key, sa, f, cm, plan, int(o[i]), int(p[i]),
                      int(no[i]), int(nn[i]), lqc, out, int(i))
-    launches["scan_reduce_batch"] += 1
+    build.count_launch(launches, "scan_reduce_batch")
     return out

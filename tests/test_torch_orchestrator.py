@@ -118,17 +118,35 @@ def test_ledger_prune_remove_and_views():
 
 
 def test_later_slices_are_refused_not_rerouted():
-    _, _, ttb, _ = roots(None)
-    g = ttb.graph
-    t = T.make_task("svm", origin=ttb.edges[0])
-    ff = T.build_orchestrators(g, T.heye_traverser(g),
-                               config=T.OrcConfig(objective="first_fit"))
-    with pytest.raises(NotImplementedError):
-        ff.map_batch([t], 0.0, route=True)
-    noisy = T.Traverser(g, slowdown=T.DecoupledSlowdown(
-        g, T.truth_params(), rng=np.random.default_rng(0)))
-    with pytest.raises(NotImplementedError):
-        T.build_orchestrators(g, noisy).map_batch([t], 0.0, route=True)
+    """The two cases earlier slices of the port refused — the first_fit
+    objective and a noisy slowdown model — now take the object walk, as
+    in the reference (not rerouted to the fused walk): the reference's
+    placements, queries and hops, its overheads and prediction columns
+    within 1e-9, and the noisy model's generator left where the
+    reference leaves it."""
+    rtb, _, ttb, _ = roots(None)
+    rcfg = workload(Rwork, rtb, "mining", None)
+    tcfg = workload(Twork, ttb, "mining", None)
+    rff = R.build_orchestrators(rtb.graph, R.heye_traverser(rtb.graph),
+                                config=R.OrcConfig(objective="first_fit"))
+    tff = T.build_orchestrators(ttb.graph, T.heye_traverser(ttb.graph),
+                                config=T.OrcConfig(objective="first_fit"))
+    assert_same(rff.map_batch(rcfg.tasks[:12], 0.0, route=True),
+                tff.map_batch(tcfg.tasks[:12], 0.0, route=True))
+    assert_same(rff.map_batch(rcfg.tasks[12:13], 0.0, route=True),
+                tff.map_batch(tcfg.tasks[12:13], 0.0, route=True))
+    rrng, trng = np.random.default_rng(0), np.random.default_rng(0)
+    rnoisy = R.Traverser(rtb.graph, slowdown=R.DecoupledSlowdown(
+        rtb.graph, R.truth_params(), rng=rrng))
+    tnoisy = T.Traverser(ttb.graph, slowdown=T.DecoupledSlowdown(
+        ttb.graph, T.truth_params(), rng=trng))
+    rroot = R.build_orchestrators(rtb.graph, rnoisy)
+    troot = T.build_orchestrators(ttb.graph, tnoisy)
+    assert_same(rroot.map_batch(rcfg.tasks[13:25], 0.0, route=True),
+                troot.map_batch(tcfg.tasks[13:25], 0.0, route=True))
+    assert_same(rroot.map_batch(rcfg.tasks[25:26], 0.0, route=True),
+                troot.map_batch(tcfg.tasks[25:26], 0.0, route=True))
+    assert trng.random() == rrng.random()
 
 
 @pytest.mark.parametrize("mult", [1, 2])
