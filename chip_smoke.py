@@ -13,8 +13,9 @@ forms, reprice and complete), B3 (segment-min), B3 with B2's transfer
 form (the two fused in-place transfer kernels, reprice and complete),
 B4 / B4b (the scan-reduce, one scan or a ragged stack, up to the grid
 form of a 200000-PU scan) and the model path's flash attention (B5:
-bfloat16 on the tensor cores, float32 on the CUDA cores) and LRU scan
-(B6, fed by TMA).  Each
+bfloat16 on the tensor cores, float32 on the CUDA cores; also at the
+model families' shapes: phi-3-vision's hd 96, causal, and whisper's
+encoder, unmasked at S = 1500) and LRU scan (B6, fed by TMA).  Each
 kernel's row has ``ms`` (CUDA events around back-to-back calls of the
 Python wrapper: the launch path included) and ``body_ms``
 (the kernel's own device time: every kernel's calls traced in one
@@ -60,13 +61,20 @@ Then it drives the port's paths through their public entry points:
   ~8.5 B float32 parameters from a seeded generator): prefill(1, 4096) in
   float32 through the kernels against the plain route, then prefill(2,
   4096) + 16 decode steps in bfloat16, timed;
+* ``model_families``: granite-moe-1b-a400m (MoE), rwkv6-1.6b (RWKV6),
+  whisper-large-v3 (encoder-decoder: 1500 frames, a 448-token prompt)
+  and phi-3-vision-4.2b (hd 96, 576 patch positions) at full width and
+  depth, one after the other, each freed before the next: prefill(1, S)
+  in float32 through the kernels against the plain route, then
+  prefill(2, S) + 16 decode steps in bfloat16, timed, with B5 launched
+  once per attention layer (24, 0, 32 + 32, 32);
 * ``serve_full``: ``repro_torch.launch.serve`` at full width (tenant
   placement on the simulated TPU fleet, then 8 requests over 4 slots).
 
 The phases run in the order kernels, ``model_x_smoke``, ``x8``,
 ``walk_oracle``, ``vr``,
 ``x128``, ``serve_x64``, ``serve_churn``, ``bwchurn_x128``,
-``model_full``, ``serve_full``.  ``--compare PARENT --session
+``model_full``, ``model_families``, ``serve_full``.  ``--compare PARENT --session
 vr|x128`` instead runs a session of the tree at PARENT and of this one in
 turns, each in a fresh process.  One JSON object per line; the last line
 is ``{"ok": true, "device": {...}}``.  Any failing phase raises, and the
@@ -76,6 +84,7 @@ it fails at once: there is no CPU path.
 from __future__ import annotations
 
 import argparse
+import collections
 import json
 import os
 import gc
@@ -100,7 +109,7 @@ import repro_torch.core.orchestrator as orc_mod              # noqa: E402
 import repro_torch.core.slowdown as sd_mod                   # noqa: E402
 import repro_torch.launch.serve as serve_launch              # noqa: E402
 from repro_torch import device as rt_device                  # noqa: E402
-from repro_torch.configs import get_config                   # noqa: E402
+from repro_torch.configs import get_config, shapes           # noqa: E402
 from repro_torch.core.workloads import (mining_workload,     # noqa: E402
                                          vr_workload)
 from repro_torch.kernels import (build, slowdown_kernel,     # noqa: E402
@@ -108,7 +117,8 @@ from repro_torch.kernels import (build, slowdown_kernel,     # noqa: E402
 from repro_torch.kernels import flash_attention as fa_kernel  # noqa: E402
 from repro_torch.kernels import lru_scan as lru_kernel       # noqa: E402
 from repro_torch.models import ParallelCtx, build_model      # noqa: E402
-from repro_torch.models.transformer import tree_map          # noqa: E402
+from repro_torch.models.transformer import (ATTN_KINDS,      # noqa: E402
+                                            tree_map)
 from repro_torch.serve.engine import Request, ServeEngine    # noqa: E402
 
 # published peaks of one H100 SXM (NVIDIA data sheet): device memory rate,
@@ -1111,9 +1121,10 @@ def _sdpa(q, k, v, causal=True, window=None):
 
 def check_flash(dev, rng) -> dict:
     """B5 on the card against its plain version: MHA / GQA / MQA, hd 16 to
-    256, causal only, windows (shorter than a kv tile, S > window), softcap,
-    x100 logits, non-causal, S below one tile and S that no tile divides;
-    float32 (the CUDA-core kernel) and bfloat16 (the tensor-core kernel).
+    256 (96 among them: three 32-column boxes), causal only, windows
+    (shorter than a kv tile, S > window), softcap, x100 logits,
+    non-causal, S below one tile and S that no tile divides; float32 (the
+    CUDA-core kernel) and bfloat16 (the tensor-core kernel).
     SDPA's own distance from the plain version is taken on the same bf16
     inputs, where it computes the same function (no softcap)."""
     cases = [
@@ -1130,6 +1141,10 @@ def check_flash(dev, rng) -> dict:
         (2, 40, 4, 1, 16, {"window": 16}, 1.0),
         (1, 200, 4, 2, 32, {"causal": False}, 1.0),
         (1, 256, 2, 2, 64, {}, 100.0),
+        (1, 333, 4, 2, 96, {}, 1.0),
+        (1, 512, 4, 4, 96, {"window": 100, "softcap": 30.0}, 1.0),
+        (2, 300, 4, 4, 96, {"causal": False}, 1.0),
+        (1, 256, 2, 2, 96, {}, 100.0),
     ]
     worst = {"float32": 0.0, "bfloat16": 0.0}
     worst_ratio = {"float32": 0.0, "bfloat16": 0.0}
@@ -1156,65 +1171,150 @@ def check_flash(dev, rng) -> dict:
                 lib = _sdpa(q, k, v, kw.get("causal", True), kw.get("window"))
                 sdpa_ratio = max(sdpa_ratio,
                                  _attn_err(lib, ref, dtype, 0.0)[1])
-    # the path's shape, the serving dtype
-    B, S, Hq, Hkv, hd, window = PATH_B, PATH_S, 16, 1, 256, 2048
-    q, k, v = _attn_inputs(dev, rng, B, S, Hq, Hkv, hd, torch.bfloat16)
-    got = fa_kernel.flash_attention(q, k, v, window=window)
-    ref = fa_kernel.flash_attention_plain(q, k, v, window=window)
-    torch.cuda.synchronize()
-    e, ratio = _attn_err(got, ref, torch.bfloat16, 0.0)
-    if not ratio <= 1.0:
-        raise AssertionError(f"flash_attention at the path's shape: {e}")
-    worst["bfloat16"] = max(worst["bfloat16"], e)
-    worst_ratio["bfloat16"] = max(worst_ratio["bfloat16"], ratio)
-    ms = time_ms(lambda: fa_kernel.flash_attention(q, k, v, window=window),
-                 20, 3)
-    body = body_ms(lambda: fa_kernel.flash_attention(q, k, v, window=window),
-                   "flash_attention_tc_kernel", 20)
-    plain = time_ms(lambda: fa_kernel.flash_attention_plain(
-        q, k, v, window=window), 3, 1)
-    # the library yardstick at the path's shape, kv heads expanded as views
-    mask = fa_kernel.attention_mask(S, True, window, dev)
-    qt = q.transpose(1, 2)
-    kt = k.transpose(1, 2).expand(B, Hq, S, hd)
-    vt = v.transpose(1, 2).expand(B, Hq, S, hd)
-    sdpa = torch.nn.functional.scaled_dot_product_attention
+    # the path's shape
+    row = flash_row(dev, rng, "flash_attention", PATH_B, PATH_S, 16, 1, 256,
+                    window=2048)
+    for name in worst:
+        worst[name] = max(worst[name], row["max_abs_err_by_dtype"][name])
+        worst_ratio[name] = max(worst_ratio[name],
+                                row["err_over_tolerance_by_dtype"][name])
+    sdpa_ratio = max(sdpa_ratio, row.pop("library_err_over_tolerance"))
+    row.update(max_abs_err=max(worst.values()), max_abs_err_by_dtype=worst,
+               err_over_tolerance_by_dtype=worst_ratio,
+               sdpa_worst_err_over_tolerance=sdpa_ratio,
+               tolerance=(f"float32 {ATTN_F32_TOL} abs ({ATTN_X100_TOL} at "
+                          f"x100 logits); bfloat16 {fa_kernel.BF16_REL}*"
+                          f"|plain| + {fa_kernel.BF16_ROW}*rms(plain row)"))
+    return row
 
-    def lib_call():
-        return sdpa(qt, kt, vt, attn_mask=mask, scale=1.0 / hd ** 0.5)
-    lib_out = lib_call().transpose(1, 2)
-    torch.cuda.synchronize()
-    lib_err, lib_ratio = _attn_err(lib_out, ref, torch.bfloat16, 0.0)
-    sdpa_ratio = max(sdpa_ratio, lib_ratio)
-    if not lib_err < 0.1:
-        raise AssertionError(f"the SDPA yardstick computes something else "
-                             f"(max err {lib_err})")
-    lib = time_ms(lib_call, 20, 3)
-    pos = np.arange(S)
-    live = int(np.minimum(pos + 1, window).sum())      # (i, j) pairs per (b, h)
+
+def flash_row(dev, rng, name, B, S, Hq, Hkv, hd, causal=True, window=None,
+              softcap=None, **extra) -> dict:
+    """B5's kernel row at one shape: float32 (the CUDA-core kernel, 1e-4)
+    and bfloat16 (the tensor-core kernel, ``bf16_allowed``) against the
+    plain version, then the bf16 call timed beside the plain version and
+    SDPA (kv heads expanded outside the timed call, a boolean mask only
+    where there is a window); ``bound_ms`` from the live (q, k) pairs of
+    this mask.  ``extra`` goes into the row."""
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    worst, ratios = {}, {}
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v = _attn_inputs(dev, rng, B, S, Hq, Hkv, hd, dtype)
+        got = fa_kernel.flash_attention(q, k, v, **kw)
+        ref = fa_kernel.flash_attention_plain(q, k, v, **kw)
+        torch.cuda.synchronize()
+        if got.dtype != dtype or not torch.isfinite(got).all():
+            raise AssertionError(f"{name} {dtype}: wrong dtype or non-finite "
+                                 "output")
+        e, ratio = _attn_err(got, ref, dtype, ATTN_F32_TOL)
+        if not ratio <= 1.0:
+            raise AssertionError(f"{name} {dtype} B={B} S={S} Hq={Hq} "
+                                 f"Hkv={Hkv} hd={hd} {kw}: max err {e} over "
+                                 "its tolerance")
+        dname = str(dtype).split(".")[-1]
+        worst[dname], ratios[dname] = e, ratio
+        del got
+    # q, k, v and ref are the bf16 ones now: the serving dtype is timed
+    ms = time_ms(lambda: fa_kernel.flash_attention(q, k, v, **kw), 20, 3)
+    body = body_ms(lambda: fa_kernel.flash_attention(q, k, v, **kw),
+                   "flash_attention_tc_kernel", 20)
+    plain = time_ms(lambda: fa_kernel.flash_attention_plain(q, k, v, **kw),
+                    3, 1)
+    mask = fa_kernel.attention_mask(S, causal, window, dev)
+    live = int(mask.sum())                         # (i, j) pairs per (b, h)
+    lib = lib_err = lib_ratio = None
+    if softcap is None:
+        # kv heads expanded: a view where Hkv = 1, one copy otherwise
+        qt = q.transpose(1, 2)
+        kt, vt = (t.transpose(1, 2)[:, :, None].expand(
+            B, Hkv, Hq // Hkv, S, hd).flatten(1, 2) for t in (k, v))
+        lib_mask = mask if window is not None else None
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+
+        def lib_call():
+            return sdpa(qt, kt, vt, attn_mask=lib_mask,
+                        is_causal=causal and window is None,
+                        scale=1.0 / hd ** 0.5)
+        lib_err, lib_ratio = _attn_err(lib_call().transpose(1, 2), ref,
+                                       torch.bfloat16, 0.0)
+        if not lib_err < 0.1:
+            raise AssertionError(f"the SDPA yardstick computes something "
+                                 f"else (max err {lib_err})")
+        lib = time_ms(lib_call, 20, 3)
+    del ref, mask
     flops = 4 * hd * live * B * Hq
     nbytes = 2 * (2 * B * S * Hq * hd + 2 * B * S * Hkv * hd)
-    return dict(name="flash_attention", route="cuda",
-                source="src/repro_torch/kernels/csrc/flash_attention_tc.cuh",
+    masking = ("unmasked" if not causal else "causal" if window is None
+               else f"window={window}")
+    return dict(name=name, route="cuda",
+                source=f"src/repro_torch/kernels/csrc/flash_attention_tc_hd"
+                       f"{hd}.cu (src/repro_torch/kernels/csrc/"
+                       "flash_attention_tc.cuh)",
                 replaces="src/repro/kernels/flash_attention.py:95",
                 instructions="wgmma+tma",
                 float32_route=dict(
-                    source="src/repro_torch/kernels/csrc/flash_attention.cuh",
+                    source=f"src/repro_torch/kernels/csrc/flash_attention_hd"
+                           f"{hd}.cu (src/repro_torch/kernels/csrc/"
+                           "flash_attention.cuh)",
                     instructions="fma (CUDA cores)"),
-                shape=f"B={B} S={S} Hq={Hq} Hkv={Hkv} hd={hd} "
-                      f"window={window} bf16",
-                max_abs_err=max(worst.values()),
-                max_abs_err_by_dtype=worst,
-                worst_err_over_tolerance=worst_ratio,
-                sdpa_worst_err_over_tolerance=sdpa_ratio,
-                tolerance=(f"float32 {ATTN_F32_TOL} abs ({ATTN_X100_TOL} at "
-                           f"x100 logits); bfloat16 {fa_kernel.BF16_REL}*|plain|"
-                           f" + {fa_kernel.BF16_ROW}*rms(plain row)"),
+                **extra,
+                shape=f"B={B} S={S} Hq={Hq} Hkv={Hkv} hd={hd} {masking}"
+                      + (f" softcap={softcap}" if softcap else "") + " bf16",
+                launch_key=list(fa_kernel.launch_key(B, S, Hq, Hkv, hd, causal,
+                                                     window, softcap)),
+                max_abs_err=max(worst.values()), max_abs_err_by_dtype=worst,
+                err_over_tolerance_by_dtype=ratios,
+                tolerance=(f"float32 {ATTN_F32_TOL} abs; bfloat16 "
+                           f"{fa_kernel.BF16_REL}*|plain| + "
+                           f"{fa_kernel.BF16_ROW}*rms(plain row)"),
                 ms=ms, body_ms=body, plain_ms=plain,
                 **bound(nbytes, flops, BF16_FLOPS),
                 library_ms=lib,
-                library_call="torch.nn.functional.scaled_dot_product_attention",
-                library_max_abs_err=lib_err, flops=flops)
+                library_call=("torch.nn.functional.scaled_dot_product_attention"
+                              if lib is not None else "none (softcap)"),
+                library_max_abs_err=lib_err,
+                library_err_over_tolerance=lib_ratio, flops=flops)
+
+
+def family_flash_shapes() -> list[dict]:
+    """B5's distinct shapes in the bfloat16 prefill(PATH_B, S) of each
+    family of ``FAMILIES``, read from its config and stack metas: one per
+    (stack, mask) -- whisper's encoder at ``src_seq`` unmasked, every
+    decoder at S -- with the number of its layers at that shape, the B5
+    launches one prefill makes there."""
+    rows = []
+    for arch, S in FAMILIES:
+        cfg = get_config(arch)
+        m = build_model(cfg)
+        stacks = [("decoder", S, _metas(m))]
+        if m.enc_sm is not None:
+            sm = m.enc_sm
+            stacks.append(("encoder", cfg.src_seq,
+                           sm.metas * sm.n_super + sm.rem_metas))
+        for stack, seq, metas in stacks:
+            layers = collections.Counter(
+                meta["kind"] for meta in metas if meta["kind"] in ATTN_KINDS)
+            for kind, n in sorted(layers.items()):
+                rows.append(dict(
+                    name=f"flash_attention[{arch} {stack} {kind}]",
+                    arch=arch, B=PATH_B, S=seq, Hq=cfg.n_heads, Hkv=cfg.n_kv,
+                    hd=cfg.hd, causal=kind != "enc",
+                    window=cfg.window if kind == "local" else None,
+                    softcap=cfg.attn_softcap, layers=n))
+    return rows
+
+
+def check_flash_families(dev, rng) -> list[dict]:
+    """:func:`flash_row` at every shape of :func:`family_flash_shapes`."""
+    out = []
+    for f in family_flash_shapes():
+        f = dict(f)
+        out.append(flash_row(
+            dev, rng, f.pop("name"), f.pop("B"), f.pop("S"), f.pop("Hq"),
+            f.pop("Hkv"), f.pop("hd"), f.pop("causal"), f.pop("window"),
+            f.pop("softcap"), model=f.pop("arch"),
+            layers_at_shape=f.pop("layers")))
+    return out
 
 
 def _lru_inputs(dev, rng, B, S, W, offset=0):
@@ -1316,6 +1416,7 @@ def _fresh_peak() -> int:
 
 def reset_counts() -> None:
     fa_kernel.launches = 0
+    fa_kernel.launches_by_shape.clear()
     lru_kernel.launches = 0
     for counts in (slowdown_kernel.launches, timeline_kernel.launches,
                    walk_kernel.launches):
@@ -2466,6 +2567,147 @@ def model_full(seed: int) -> tuple[dict, dict]:
                 peak_device_bytes=peak), counts
 
 
+# model_families: the configs the port runs beyond recurrentgemma, at full
+# width and depth (granite-moe-1b-a400m ~1.4 B parameters, rwkv6-1.6b ~1.8
+# B, whisper-large-v3 ~2.0 B with its encoder, phi-3-vision-4.2b ~3.8 B),
+# each with its prompt length: S = 4096, whisper's published text context
+# of 448 tokens (over the encoder's 1500 frames)
+FAMILIES = (("granite-moe-1b-a400m", 4096), ("rwkv6-1.6b", 4096),
+            ("whisper-large-v3", 448), ("phi-3-vision-4.2b", 4096))
+FAMILY_DECODE = 16
+
+
+def _family_batch(cfg, B: int, S: int, dev, seed: int,
+                  dtype: torch.dtype) -> dict:
+    """Tokens and the frontend's inputs (``frames`` / ``patches``) of a
+    prefill(B, S), shaped by ``configs/shapes.py``'s ``input_specs``; tokens
+    uniform over the vocabulary, embeddings standard normal, from ``seed``."""
+    specs = shapes.input_specs(cfg, shapes.Shape("model_families", S, B,
+                                                 "prefill"), dtype)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    batch = {}
+    for name, spec in specs.items():
+        if name == "tokens":
+            batch[name] = torch.randint(0, cfg.vocab, spec.shape,
+                                        generator=gen, device=dev)
+        else:
+            batch[name] = torch.randn(spec.shape, generator=gen,
+                                      device=dev).to(spec.dtype)
+    return batch
+
+
+def _attention_layers(model) -> int:
+    """B5 launches one prefill makes: an attention layer of the decoder
+    stack, and of the encoder stack where there is one, launches once."""
+    metas = list(_metas(model))
+    if model.enc_sm is not None:
+        sm = model.enc_sm
+        metas += list(sm.metas * sm.n_super + sm.rem_metas)
+    return sum(m["kind"] in ATTN_KINDS for m in metas)
+
+
+def model_family(arch: str, S: int, seed: int) -> tuple[dict, dict]:
+    """One config at full width and depth, seeded fp32 weights: the float32
+    kernel route's prefill(1, S) logits against the plain route's, then a
+    bfloat16 prefill(2, S) timed, its B5 launches counted, and
+    FAMILY_DECODE decode steps; every logit finite."""
+    cfg = get_config(arch)
+    held = _fresh_peak()
+    t0 = time.perf_counter()
+    mk = build_model(cfg, ParallelCtx(compute_dtype=torch.float32))
+    dev = mk.device
+    params = mk.init(torch.Generator(device=dev).manual_seed(seed))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in _leaves(params))
+    batch1 = _family_batch(cfg, 1, S, dev, seed, torch.float32)
+    mp = build_model(cfg, ParallelCtx(compute_dtype=torch.float32,
+                                      use_kernels=False))
+    last = {}
+    t0 = time.perf_counter()
+    for name, m in (("kernels", mk), ("plain", mp)):
+        cache = m.init_cache(1, S, dtype=torch.float32)
+        last[name], cache = m.prefill(params, batch1, cache)
+        del cache
+    torch.cuda.synchronize()
+    fp32_s = time.perf_counter() - t0
+    lk, lp = last["kernels"], last["plain"]
+    if not (torch.isfinite(lk).all() and torch.isfinite(lp).all()):
+        raise AssertionError(f"model_families {arch}: non-finite float32 "
+                             "logits")
+    rms = float(lp.double().pow(2).mean().sqrt())
+    err = _logit_err(lk, lp)
+    if not err <= FULL_REL_TOL * rms:
+        raise AssertionError(f"model_families {arch}: float32 kernel vs "
+                             f"plain route differ by {err} (logit RMS {rms})")
+    del last, lk, lp, batch1
+
+    # the serving dtype: bfloat16 compute, kernels on, bfloat16 cache
+    mb = build_model(cfg)
+    B, n_dec = PATH_B, FAMILY_DECODE
+    batch2 = _family_batch(cfg, B, S, dev, seed + 1, torch.bfloat16)
+
+    def prefill():
+        cache = mb.init_cache(B, S + n_dec)
+        return mb.prefill(params, batch2, cache)
+    prefill()                                      # warm: cuBLAS, allocator
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    logits, cache = prefill()
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    counts = read_counts()
+    counts["flash_attention_by_shape"] = dict(fa_kernel.launches_by_shape)
+    want = {"flash_attention": _attention_layers(mb), "lru_scan": 0}
+    for name, n in want.items():
+        if counts[name] != n:
+            raise AssertionError(f"model_families {arch}: {name} launched "
+                                 f"{counts[name]} times per prefill, "
+                                 f"expected {n}")
+    finite = torch.isfinite(logits).all()
+    tok = logits.argmax(-1)[:, None]
+    t0 = time.perf_counter()
+    for i in range(n_dec):              # next token chosen on the device
+        logits, cache = mb.decode_step(params, cache, tok,
+                                       torch.full((B,), S + i, device=dev))
+        finite &= torch.isfinite(logits).all()
+        tok = logits.argmax(-1)[:, None]
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t0
+    if not bool(finite):
+        raise AssertionError(f"model_families {arch}: non-finite bfloat16 "
+                             "logits")
+    peak = torch.cuda.max_memory_allocated()
+    inputs = {k: list(v.shape) for k, v in batch2.items()}
+    del params, cache, logits, batch2
+    torch.cuda.empty_cache()
+    return dict(config=arch, params=n_params, init_s=init_s, inputs=inputs,
+                fp32_check=dict(batch=1, seq=S, seconds=fp32_s,
+                                max_abs_logit_err=err, logit_rms=rms,
+                                rel_err=err / rms,
+                                tolerance_rel_to_rms=FULL_REL_TOL),
+                bf16=dict(batch=B, seq=S, prefill_s=prefill_s,
+                          prefill_tok_per_s=B * S / prefill_s,
+                          decode_steps=n_dec, decode_s=decode_s,
+                          decode_tok_per_s=B * n_dec / decode_s),
+                launches_per_prefill={k: counts[k] for k in MODEL_KERNELS},
+                flash_attention_launches_by_shape={
+                    " ".join(map(str, key)): n for key, n in
+                    counts["flash_attention_by_shape"].items()},
+                expected_launches=want,
+                peak_device_bytes=peak, held_at_start_bytes=held), counts
+
+
+def model_families(seed: int) -> tuple[dict, dict]:
+    """Every family of ``FAMILIES`` in turn, each freeing its memory before
+    the next.  Returns the phase's line and each config's launch counts."""
+    out, counts = {}, {}
+    for arch, S in FAMILIES:
+        out[arch], counts[arch] = model_family(arch, S, seed)
+    return out, counts
+
+
 def _leaves(tree) -> list:
     out = []
     tree_map(out.append, tree)
@@ -2742,7 +2984,8 @@ def main() -> None:
     ap.add_argument("--stop-after", default=None,
                     choices=("kernels", "model_x_smoke", "x8", "walk_oracle",
                              "vr", "x128", "serve_x64", "serve_churn",
-                             "bwchurn_x128", "model_full"),
+                             "bwchurn_x128", "model_full",
+                             "model_families"),
                     help="debugging: end (without the ok line) after a phase")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -2814,7 +3057,9 @@ def main() -> None:
         k.setdefault("tolerance",
                      f"decisions exact, floats <= {REL_TOL} relative")
     # B5 and B6 raise inside their checks, against their own tolerances
-    kernels += [check_flash(dev, rng), check_lru(dev, rng)]
+    kernels += [check_flash(dev, rng),
+                *check_flash_families(dev, rng),
+                check_lru(dev, rng)]
 
     done("kernels")
     emit("kernels_checked", {k["name"]: dict(
@@ -2855,6 +3100,10 @@ def main() -> None:
     emit("model_full", mfull)
     done("model_full")
     stop("model_full")
+    fam, famcounts = model_families(args.seed)
+    emit("model_families", fam)
+    done("model_families")
+    stop("model_families")
     emit("serve_full", serve_full(args.seed))
     done("serve_full")
     # the traces, after every timed phase
@@ -2865,6 +3114,16 @@ def main() -> None:
 
     # launches: each kernel's count from the run of its own path
     for k in kernels:
+        if "model" in k:
+            # a B5 row at a family's shape: the launches of that family's
+            # prefill at this row's shape, one per layer there
+            k["launches"] = famcounts[k["model"]]["flash_attention_by_shape"
+                                                 ].get(tuple(k["launch_key"]), 0)
+            if k["launches"] != k["layers_at_shape"]:
+                raise AssertionError(
+                    f"{k['name']}: {k['launches']} launches at its shape in "
+                    f"the prefill, expected {k['layers_at_shape']}")
+            continue
         k["launches"] = (mcounts if k["name"] in MODEL_KERNELS else
                          vcounts if k["name"] in VR_KERNELS
                          else counts)[k["name"]]

@@ -1,5 +1,5 @@
 """Model configurations of the port: the same plain-data ``ModelConfig``
 records and registry as the reference package's ``configs`` (the
-per-model files are copies).  The dry-run shape tables (``shapes.py``) are
-not ported yet."""
+per-model files are copies) and the assigned shapes with their data-input
+specs (``shapes.py``)."""
 from .base import ModelConfig, all_configs, get_config, register

@@ -195,36 +195,46 @@ def params_from_numpy(cfg, tree: dict, device: DeviceLike = None) -> dict:
     """The port's parameters for ``cfg`` from the reference's parameter
     tree with numpy leaves (``jax.tree.map(np.asarray, params)``): the same
     dicts and tuples, ``{"blocks": tuple of P dicts with a leading n_super
-    axis, "rem": tuple}`` under ``"stack"``, each leaf a float32 tensor on
-    ``device``.  Raises ``ValueError`` where the tree's layout does not
-    match ``cfg``'s stack."""
+    axis, "rem": tuple}`` under ``"stack"`` (and, for an encoder-decoder,
+    under ``"encoder"``, beside ``"enc_norm"``), each leaf a float32
+    tensor on ``device``.  Every layer's mixer (``attn`` / ``rglru`` /
+    ``rwkv``), feed-forward (``mlp`` / ``moe``) and cross-attention
+    (``cross`` / ``norm_x``) must be where ``cfg``'s stack puts them;
+    raises ``ValueError`` where they are not."""
     dev = resolve_device(device)
-    sm = tf.stack_meta(cfg)
-    stack = tree["stack"]
-    blocks, rem = stack["blocks"], stack["rem"]
-    n_blocks = sm.P if sm.n_super > 0 else 0
-    if len(blocks) != n_blocks or len(rem) != sm.remainder:
-        raise ValueError(f"stack layout: {len(blocks)} stacked / {len(rem)} "
-                         f"remainder layers, expected {n_blocks} / "
-                         f"{sm.remainder} for {cfg.name}")
-
-    def mixer(meta: dict) -> str:
-        return "rglru" if meta["kind"] == "rglru" else "attn"
-
-    for metas, layers, lead in ((sm.metas, blocks, sm.n_super),
-                                (sm.rem_metas, rem, None)):
-        for meta, layer in zip(metas, layers):
-            tf.check_ported(meta)
-            if mixer(meta) not in layer:
-                raise ValueError(f"a {meta['kind']} layer without "
-                                 f"{mixer(meta)!r} parameters")
-            if lead is not None:
-                tf.tree_map(lambda a: _check_lead(a, lead), layer)
+    stacks = [("stack", tf.stack_meta(cfg))]
+    if cfg.is_encdec:
+        stacks.append(("encoder", tf.stack_meta(
+            cfg, n_layers=cfg.encoder_layers, pattern_override=("enc",))))
+        if "enc_norm" not in tree:
+            raise ValueError(f"{cfg.name}: no 'enc_norm' beside the encoder")
+    for key, sm in stacks:
+        if key not in tree:
+            raise ValueError(f"{cfg.name}: no {key!r} in the tree")
+        _check_stack(cfg, key, sm, tree[key])
 
     def leaf(a) -> torch.Tensor:
         return torch.tensor(np.asarray(a, dtype=np.float32), device=dev)
 
     return tf.tree_map(leaf, tree)
+
+
+def _check_stack(cfg, key: str, sm, stack: dict) -> None:
+    blocks, rem = stack["blocks"], stack["rem"]
+    n_blocks = sm.P if sm.n_super > 0 else 0
+    if len(blocks) != n_blocks or len(rem) != sm.remainder:
+        raise ValueError(f"{key} layout: {len(blocks)} stacked / {len(rem)} "
+                         f"remainder layers, expected {n_blocks} / "
+                         f"{sm.remainder} for {cfg.name}")
+    for metas, layers, lead in ((sm.metas, blocks, sm.n_super),
+                                (sm.rem_metas, rem, None)):
+        for meta, layer in zip(metas, layers):
+            missing = [k for k in tf.layer_groups(meta) if k not in layer]
+            if missing:
+                raise ValueError(f"a {meta['kind']} layer of {key} without "
+                                 f"{missing} parameters")
+            if lead is not None:
+                tf.tree_map(lambda a: _check_lead(a, lead), layer)
 
 
 def _check_lead(a, n_super: int) -> None:

@@ -33,13 +33,14 @@ static fa_encode_fn fa_encoder() {
 }
 
 // A bfloat16 (B, S, H, hd) tensor as a 4-D map, innermost first (hd, H, S,
-// B); boxes of (min(64, hd), 1, rows, 1) with the swizzle of their row
-// width (128, 64 or 32 bytes), rows past S read as zeros.
+// B); boxes of (CH, 1, rows, 1), CH the widest of 64 / 32 / 16 that divides
+// hd (fatc::Cfg::CH), with the swizzle of their row width (128, 64 or 32
+// bytes), rows past S read as zeros.
 static bool fa_encode(CUtensorMap* map, const void* ptr, int B, int S, int H,
                       int hd, int rows) {
     fa_encode_fn fn = fa_encoder();
     if (fn == nullptr) return false;
-    const cuuint32_t ch = hd < 64 ? hd : 64;
+    const cuuint32_t ch = hd % 64 == 0 ? 64 : (hd % 32 == 0 ? 32 : 16);
     const cuuint64_t dims[4] = {(cuuint64_t)hd, (cuuint64_t)H, (cuuint64_t)S,
                                 (cuuint64_t)B};
     const cuuint64_t row = 2ull * hd;
@@ -73,6 +74,9 @@ static int fa_bf16(const void* q, const void* k, const void* v, void* o,
         case 64:
             return heye_fa_tc_hd64(&tq, &tk, &tv, o, B, S, Hq, Hkv, causal,
                                    window, scale, softcap, st);
+        case 96:
+            return heye_fa_tc_hd96(&tq, &tk, &tv, o, B, S, Hq, Hkv, causal,
+                                   window, scale, softcap, st);
         case 128:
             return heye_fa_tc_hd128(&tq, &tk, &tv, o, B, S, Hq, Hkv, causal,
                                     window, scale, softcap, st);
@@ -97,6 +101,9 @@ static int fa_f32(const void* q, const void* k, const void* v, void* o,
         case 64:
             return heye_fa_hd64(q, k, v, o, B, S, Hq, Hkv, causal, window,
                                 scale, softcap, st);
+        case 96:
+            return heye_fa_hd96(q, k, v, o, B, S, Hq, Hkv, causal, window,
+                                scale, softcap, st);
         case 128:
             return heye_fa_hd128(q, k, v, o, B, S, Hq, Hkv, causal, window,
                                  scale, softcap, st);
@@ -109,8 +116,8 @@ static int fa_f32(const void* q, const void* k, const void* v, void* o,
 }
 
 // window <= 0: no window; softcap <= 0: no soft cap.  Returns the
-// cudaError_t of the launch; hd outside {16, 32, 64, 128, 256}, or a tensor
-// map the driver refuses, is cudaErrorInvalidValue.
+// cudaError_t of the launch; hd outside {16, 32, 64, 96, 128, 256}, or a
+// tensor map the driver refuses, is cudaErrorInvalidValue.
 extern "C" int heye_flash_attention(const void* q, const void* k,
                                     const void* v, void* o, int B, int S,
                                     int Hq, int Hkv, int hd, int is_bf16,

@@ -214,5 +214,6 @@ static int fa_launch(const void* q, const void* k, const void* v, void* o,
 int heye_fa_hd16(FA_LAUNCHER_ARGS);
 int heye_fa_hd32(FA_LAUNCHER_ARGS);
 int heye_fa_hd64(FA_LAUNCHER_ARGS);
+int heye_fa_hd96(FA_LAUNCHER_ARGS);
 int heye_fa_hd128(FA_LAUNCHER_ARGS);
 int heye_fa_hd256(FA_LAUNCHER_ARGS);

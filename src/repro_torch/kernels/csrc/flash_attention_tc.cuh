@@ -24,13 +24,15 @@
 // on its own mbarrier (K and V apart, so that Q.K^T starts before V has
 // landed); an "empty" mbarrier per stage, on which all 256 consumer threads
 // arrive, hands the stage back to the producer.  Every tile is stored as
-// boxes of min(64, hd) columns (128, 64 or 32 bytes a row) with the TMA
-// swizzle of that row width, which is the layout wgmma reads; at hd = 256
-// Q takes 64 KB and each stage 2 x 32 KB: 192 KB.
+// boxes of CH columns, the widest of 64 / 32 / 16 that divides hd (128, 64
+// or 32 bytes a row), with the TMA swizzle of that row width, which is the
+// layout wgmma reads; at hd = 256 Q takes 64 KB and each stage 2 x 32 KB:
+// 192 KB; at hd = 96 three boxes of 32 columns, 24 KB of Q and 2 x 12 KB a
+// stage: 72 KB.
 //
 // TMA: Q, K and V are described as 4-D tensor maps over the model's
 // (B, S, H, hd) layout, innermost first (hd, H, S, B), with boxes of
-// (min(64, hd), 1, rows, 1).  Query head h reads kv head h / (Hq / Hkv)
+// (CH, 1, rows, 1).  Query head h reads kv head h / (Hq / Hkv)
 // through the map's head coordinate: nothing is repeated.  Rows past S come
 // in as zeros, so keys >= S are masked to -inf below (a zero key scores 0,
 // not -inf).  The maps are encoded on the host (flash_attention.cu) and
@@ -44,7 +46,7 @@
 // row sum adds the rounded values, so numerator and denominator weigh the
 // same numbers) and O += P.V runs as wgmma m64nNk16 with A = P from
 // registers (the accumulator layout of S is the A-fragment layout) and
-// B = V from shared memory, MN-major (transposed), N = min(64, hd) per box.
+// B = V from shared memory, MN-major (transposed), N = CH per box.
 // O stays in fp32 registers: hd / 2 a thread, 128 at hd = 256.
 //
 // Masking follows the reference and the CUDA-core kernel exactly: scores
@@ -77,8 +79,12 @@
 namespace fatc {
 
 template <int HD> struct Cfg {
-    static constexpr int CH = HD < 64 ? HD : 64;      // columns per box
+    // columns per box: the widest of 64 / 32 / 16 that divides HD (64 at
+    // hd 64-256, 32 at hd 32 and 96, 16 at hd 16)
+    static constexpr int CH = HD % 64 == 0 ? 64 : (HD % 32 == 0 ? 32 : 16);
     static constexpr int NB = HD / CH;                // boxes per row
+    static_assert(HD % CH == 0 && HD % 16 == 0,
+                  "the head dim must be a multiple of its box width");
     static constexpr int SW = 2 * CH;                 // bytes per smem row
     static constexpr int LAYOUT = SW == 128 ? 1 : (SW == 64 ? 2 : 3);
     static constexpr int Q_BOX = FATC_BQ * SW;
@@ -515,5 +521,6 @@ static int fa_tc_launch(const CUtensorMap* tq, const CUtensorMap* tk,
 int heye_fa_tc_hd16(FATC_LAUNCHER_ARGS);
 int heye_fa_tc_hd32(FATC_LAUNCHER_ARGS);
 int heye_fa_tc_hd64(FATC_LAUNCHER_ARGS);
+int heye_fa_tc_hd96(FATC_LAUNCHER_ARGS);
 int heye_fa_tc_hd128(FATC_LAUNCHER_ARGS);
 int heye_fa_tc_hd256(FATC_LAUNCHER_ARGS);

@@ -9,7 +9,8 @@ CUDA C++, one kernel per dtype, each compiled once per head dim:
 * **bfloat16** (the serving dtype): ``csrc/flash_attention_tc.cuh``
   (``flash_attention_tc_hd*.cu``), Hopper's tensor cores.  A producer
   thread feeds Q and a two-stage ring of 64-key K / V tiles through TMA
-  (4-D tensor maps over the model's layout), two consumer warpgroups of
+  (4-D tensor maps over the model's layout, in boxes of the widest of 64,
+  32 or 16 columns that divides hd), two consumer warpgroups of
   64 query rows run ``wgmma`` for Q.K^T and P.V with the online softmax
   in registers between them.  P is rounded to bfloat16 before P.V, where
   the reference keeps it in float32 (see :data:`BF16_REL`).
@@ -35,6 +36,7 @@ version for CPU tensors, the kernel of the tensor's dtype for CUDA tensors
 """
 from __future__ import annotations
 
+import collections
 import math
 from typing import Optional
 
@@ -43,10 +45,12 @@ import torch
 from . import build
 
 NEG_INF = -2.0 ** 30            # the reference's finite mask value
-KERNEL_HEAD_DIMS = (16, 32, 64, 128, 256)
+KERNEL_HEAD_DIMS = (16, 32, 64, 96, 128, 256)
 BF16_BLOCK_Q = 128              # query rows per block of the bf16 kernel
 
 launches = 0          # kernel launches made by the wrapper (not the plain path)
+# the same launches by (B, S, Hq, Hkv, hd, causal, window, softcap)
+launches_by_shape: collections.Counter = collections.Counter()
 
 # What the bf16 kernel is held to against flash_attention_plain on the same
 # inputs: |kernel - plain| <= BF16_REL * |plain| + BF16_ROW * rms(plain over
@@ -95,6 +99,14 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     s = torch.where(mask, s, torch.full_like(s, NEG_INF))
     p = torch.softmax(s, dim=-1)
     return torch.einsum("bhqk,bkhd->bqhd", p, vf).to(q.dtype)
+
+
+def launch_key(B: int, S: int, Hq: int, Hkv: int, hd: int, causal: bool,
+               window: Optional[int], softcap: Optional[float]) -> tuple:
+    """The key of :data:`launches_by_shape` for one call's shape and mask."""
+    return (B, S, Hq, Hkv, hd, bool(causal),
+            None if window is None else int(window),
+            None if softcap is None else float(softcap))
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -146,4 +158,6 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             torch.cuda.current_stream().cuda_stream)
     build.check_launch(err, "flash_attention")
     launches += 1
+    launches_by_shape[launch_key(B, S, Hq, Hkv, hd, causal, window,
+                                 softcap)] += 1
     return out

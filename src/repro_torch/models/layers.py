@@ -139,16 +139,19 @@ def _masked(scores: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
 
 def full_attention(q, k, v, *, causal: bool,
                    softcap: Optional[float] = None) -> torch.Tensor:
-    """Reference masked attention. q: (B,S,Hq,hd), k/v: (B,S,Hkv,hd)."""
-    B, S, Hq, hd = q.shape
+    """Reference masked attention. q: (B,Sq,Hq,hd), k/v: (B,Skv,Hkv,hd);
+    unmasked (``causal=False``) it takes Sq != Skv (cross-attention)."""
+    B, Sq, Hq, hd = q.shape
     Hkv = k.shape[2]
     k = _repeat_kv(k, Hq // Hkv)
     v = _repeat_kv(v, Hq // Hkv)
     scores = torch.einsum("bqhd,bkhd->bhqk", q, k).float()
     scores = scores / math.sqrt(hd)
     scores = _softcap(scores, softcap)
-    mask = fa_kernel.attention_mask(S, causal, None, q.device)
-    probs = torch.softmax(_masked(scores, mask), dim=-1).to(q.dtype)
+    if causal:
+        scores = _masked(scores, fa_kernel.attention_mask(Sq, True, None,
+                                                          q.device))
+    probs = torch.softmax(scores, dim=-1).to(q.dtype)
     return torch.einsum("bhqk,bkhd->bqhd", probs, v)
 
 
@@ -290,26 +293,26 @@ def _project_qkv(p, x, cfg, positions, dt, use_rope: bool = True):
 
 def attention_layer(p, x, cfg, ctx: ParallelCtx, kind: str,
                     positions: torch.Tensor, return_kv: bool = False):
-    """Training/prefill attention. kind in {'global','local'}.  With
-    ``return_kv`` also returns the roped (k, v) for the decode cache."""
+    """Training/prefill attention. kind in {'global','local','enc'}; an
+    encoder ('enc') layer is unmasked on every route.  With ``return_kv``
+    also returns the roped (k, v) for the decode cache."""
     dt = ctx.compute_dtype
     B, S, _ = x.shape
-    if kind not in ("global", "local"):
-        raise NotImplementedError(f"attention kind {kind!r} is not ported yet")
+    causal = kind != "enc"
     q, k, v = _project_qkv(p, x, cfg, positions, dt, use_rope=True)
     if ctx.use_kernels:
         window = cfg.window if kind == "local" else None
-        o = fa_kernel.flash_attention(q, k, v, causal=True, window=window,
+        o = fa_kernel.flash_attention(q, k, v, causal=causal, window=window,
                                       softcap=cfg.attn_softcap)
     elif kind == "local":
         o = local_attention_jnp(q, k, v, window=cfg.window,
                                 softcap=cfg.attn_softcap)
-    elif S >= ctx.flash_threshold:
+    elif S >= ctx.flash_threshold and causal:
         o = flash_attention_jnp(q, k, v, causal=True,
                                 softcap=cfg.attn_softcap,
                                 block=ctx.flash_block)
     else:
-        o = full_attention(q, k, v, causal=True, softcap=cfg.attn_softcap)
+        o = full_attention(q, k, v, causal=causal, softcap=cfg.attn_softcap)
     o = o.reshape(B, S, cfg.n_heads * cfg.hd) @ p["wo"].to(dt)
     return (o, k, v) if return_kv else o
 

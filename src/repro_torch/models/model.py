@@ -12,12 +12,17 @@ the parameters keep the reference's tree (``{"embed", "stack": {"blocks",
 "rem"}, "final_norm"[, "lm_head"]}``, superblocks stacked on a leading
 axis), so weights carry across from the reference leaf for leaf
 (``repro_torch.interop.params_from_numpy``), and the functions that apply
-them stay the reference's functions.  Nothing here trains yet.
+them stay the reference's functions.  An encoder-decoder model adds
+``"encoder"`` (a stack of ``"enc"`` layers) and ``"enc_norm"``.  Nothing
+here trains yet.
 
-``batch`` is a dict holding ``tokens`` (B, S).  The modality frontends of
-the reference (``patches`` / ``frames``), its encoder-decoder, MoE and RWKV
-layers are not ported yet: configs that need them raise
-``NotImplementedError`` at ``build_model``.
+``batch`` is a dict holding ``tokens`` (B, S) and, for the modality
+stubs, ``patches`` (B, n_patches, d) -- a vision model's precomputed
+patch embeddings, written over the first ``min(n_patches, S)`` positions
+-- or ``frames`` (B, src_seq, d) -- an audio encoder-decoder's precomputed
+frame embeddings, run through the encoder stack (``"enc"`` layers,
+unmasked) whose output every decoder layer cross-attends to.  Other keys
+are ignored, as in the reference.
 
 Device rule: everything lives on the CUDA device unless the model was
 built with ``device="cpu"``; without CUDA and without that request,
@@ -39,18 +44,13 @@ from .layers import ParallelCtx, embed, init_embedding, init_norm, rms_norm, une
 class Model:
     def __init__(self, cfg: ModelConfig, ctx: Optional[ParallelCtx] = None,
                  device: DeviceLike = None) -> None:
-        if cfg.frontend is not None:
-            raise NotImplementedError(
-                f"{cfg.name}: the {cfg.frontend} frontend is not ported yet")
-        if cfg.is_encdec:
-            raise NotImplementedError(
-                f"{cfg.name}: encoder-decoder models are not ported yet")
         self.cfg = cfg
         self.ctx = ctx or ParallelCtx()
         self._device_req = device
         self.sm = tf.stack_meta(cfg)
-        for meta in self.sm.metas + self.sm.rem_metas:
-            tf.check_ported(meta)
+        self.enc_sm = (tf.stack_meta(cfg, n_layers=cfg.encoder_layers,
+                                     pattern_override=("enc",))
+                       if cfg.is_encdec else None)
 
     @property
     def device(self) -> torch.device:
@@ -72,6 +72,9 @@ class Model:
         if not cfg.tie_embeddings:
             params["lm_head"] = init_embedding(generator, cfg.vocab,
                                                cfg.d_model, dev)
+        if cfg.is_encdec:
+            params["encoder"] = tf.init_stack(generator, cfg, self.enc_sm, dev)
+            params["enc_norm"] = init_norm(cfg.d_model, dev)
         return params
 
     # -- shared pieces ----------------------------------------------------------
@@ -79,13 +82,24 @@ class Model:
         return torch.as_tensor(tokens, device=self.device).long()
 
     def _embed_inputs(self, params, batch) -> torch.Tensor:
-        extra = set(batch) - {"tokens"}
-        if extra:
-            raise NotImplementedError(
-                f"batch inputs {sorted(extra)} (modality frontends) are not "
-                "ported yet")
-        return embed(self._tokens(batch["tokens"]), params["embed"],
-                     self.ctx.compute_dtype)
+        cfg, ctx = self.cfg, self.ctx
+        x = embed(self._tokens(batch["tokens"]), params["embed"],
+                  ctx.compute_dtype)
+        if cfg.frontend == "vision" and "patches" in batch:
+            n = min(cfg.n_patches, x.shape[1])
+            patches = torch.as_tensor(batch["patches"], device=x.device)
+            x[:, :n] = patches[:, :n].to(x.dtype)
+        return x
+
+    def _encode(self, params, batch) -> Optional[torch.Tensor]:
+        if not self.cfg.is_encdec:
+            return None
+        frames = torch.as_tensor(batch["frames"], device=self.device).to(
+            self.ctx.compute_dtype)
+        pos = torch.arange(frames.shape[1], device=frames.device)
+        h, _, _ = tf.apply_stack(params["encoder"], frames, self.cfg, self.ctx,
+                                 self.enc_sm, pos)
+        return rms_norm(h, params["enc_norm"], self.cfg.norm_eps)
 
     def _logits(self, params, x) -> torch.Tensor:
         table = params.get("lm_head", params["embed"])
@@ -96,8 +110,10 @@ class Model:
         """Training/scoring forward. Returns (logits (B,S,V) fp32, aux)."""
         cfg, ctx = self.cfg, self.ctx
         x = self._embed_inputs(params, batch)
+        enc_out = self._encode(params, batch)
         pos = torch.arange(x.shape[1], device=x.device)
-        x, aux, _ = tf.apply_stack(params["stack"], x, cfg, ctx, self.sm, pos)
+        x, aux, _ = tf.apply_stack(params["stack"], x, cfg, ctx, self.sm, pos,
+                                   enc_out=enc_out)
         x = rms_norm(x, params["final_norm"], cfg.norm_eps)
         return self._logits(params, x), aux
 
@@ -111,9 +127,10 @@ class Model:
         Returns (last-position logits (B,V), cache)."""
         cfg, ctx = self.cfg, self.ctx
         x = self._embed_inputs(params, batch)
+        enc_out = self._encode(params, batch)
         pos = torch.arange(x.shape[1], device=x.device)
         x, _, cache = tf.apply_stack(params["stack"], x, cfg, ctx, self.sm,
-                                     pos, cache=cache)
+                                     pos, enc_out=enc_out, cache=cache)
         x = rms_norm(x[:, -1:], params["final_norm"], cfg.norm_eps)
         return self._logits(params, x)[:, 0], cache
 

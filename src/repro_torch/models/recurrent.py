@@ -1,6 +1,6 @@
 """Recurrent sequence mixing on PyTorch: the RG-LRU block
-(Griffin / recurrentgemma), same names and casting points as the
-reference package's ``models/recurrent.py``.
+(Griffin / recurrentgemma) and the RWKV6 (Finch) time-mix, same names and
+casting points as the reference package's ``models/recurrent.py``.
 
 RG-LRU recurrence (per channel):
     r_t = sigmoid(alpha_r * x_t + beta_r)          (recurrence gate)
@@ -12,17 +12,23 @@ Training/prefill runs the scan through the LRU-scan kernel's wrapper when
 the CPU), else through a plain associative scan; decode is a single step.
 The gates are per-channel (diagonal), as in the reference.
 
-The RWKV6 time-mix of the reference is not ported yet.
+RWKV6 time-mix: data-dependent per-channel decay w_t from a low-rank
+projection; state S (dk x dv) per head:
+    S_t = diag(w_t) S_{t-1} + k_t v_t^T
+    o_t = r_t^T (S_{t-1} + diag(u) k_t v_t^T)
+Training/prefill uses the reference's exact chunked form (``wkv_chunked``,
+module code: the reference has no kernel for it); decode is one step.
 """
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
 
 from ..kernels import lru_scan as lru_kernel
-from .layers import ParallelCtx, _dense_init, gelu
+from .layers import ParallelCtx, _dense_init, gelu, init_norm, rms_norm
 
 RG_LRU_C = 8.0
 
@@ -134,3 +140,169 @@ def init_rglru_cache(cfg, B: int, dtype: torch.dtype = torch.bfloat16,
     return {"h": torch.zeros((B, w), dtype=torch.float32, device=device),
             "conv": torch.zeros((B, cfg.conv1d_size - 1, w), dtype=dtype,
                                 device=device)}
+
+
+# ---------------------------------------------------------------------------
+# RWKV6 time-mix
+# ---------------------------------------------------------------------------
+W_LORA_RANK = 64
+
+
+def init_rwkv(gen: torch.Generator, cfg, device=None) -> dict:
+    d = cfg.d_model
+    H, hd = cfg.n_heads, cfg.hd
+    if H * hd != d:
+        raise ValueError("rwkv requires n_heads*head_dim == d_model")
+
+    def dense(shape, scale=1.0):
+        return _dense_init(gen, shape, scale=scale, device=device)
+    return {
+        # token-shift mixes (r, k, v, w, g)
+        "mu": torch.full((5, d), 0.5, dtype=torch.float32, device=device),
+        "w_r": dense((d, d)),
+        "w_k": dense((d, d)),
+        "w_v": dense((d, d)),
+        "w_g": dense((d, d)),
+        "w_o": dense((d, d), scale=1.0 / math.sqrt(2 * cfg.n_layers)),
+        "w_lora_a": dense((d, W_LORA_RANK)),
+        "w_lora_b": dense((W_LORA_RANK, d), scale=0.1),
+        # decay bias (w ~ 0.87)
+        "w_bias": torch.full((d,), -2.0, dtype=torch.float32, device=device),
+        "u": dense((H, hd)),
+        "ln_out": init_norm(d, device),
+    }
+
+
+def _rwkv_project(p, x: torch.Tensor, x_prev: torch.Tensor, cfg, dt):
+    """Token-shift + projections. x, x_prev: (B, S, d)."""
+    B, S, d = x.shape
+    H, hd = cfg.n_heads, cfg.hd
+    mu = p["mu"].to(dt)
+    xs = [x + mu[i] * (x_prev - x) for i in range(5)]
+    r = (xs[0] @ p["w_r"].to(dt)).reshape(B, S, H, hd)
+    k = (xs[1] @ p["w_k"].to(dt)).reshape(B, S, H, hd)
+    v = (xs[2] @ p["w_v"].to(dt)).reshape(B, S, H, hd)
+    w_raw = (xs[3] @ p["w_lora_a"].to(dt)) @ p["w_lora_b"].to(dt)
+    log_w = -torch.exp(torch.clamp(w_raw.float() + p["w_bias"],
+                                   -8.0, 8.0))               # (B,S,d) <= 0
+    log_w = log_w.reshape(B, S, H, hd)
+    g = F.silu(xs[4] @ p["w_g"].to(dt))
+    return r, k, v, log_w, g
+
+
+def _shift(x: torch.Tensor) -> torch.Tensor:
+    return F.pad(x, (0, 0, 1, 0))[:, :-1]
+
+
+# "factored" (default): per-row decay factors, no pairwise tensor.
+# "pairwise": materializes the (B, c, c, H, hd) decay tensor -- the
+# reference for the factored form's tests.
+WKV_FORM = "factored"
+# chunk length (the reference's, settled on 64)
+WKV_CHUNK = 64
+
+
+def wkv_chunked(r, k, v, log_w, u, chunk: int = 16,
+                state0: Optional[torch.Tensor] = None,
+                form: Optional[str] = None):
+    """Chunked WKV6 scan, the reference's two forms.
+
+    r, k, v, log_w: (B, S, H, hd); u: (H, hd).  Returns (out fp32, final
+    state) with state (B, H, hd_k, hd_v) fp32.  The chunk is ``chunk``, or
+    gcd(S, chunk) where ``chunk`` does not divide S.
+
+    The factored form writes the intra-chunk decay exp(lwprev[t] -
+    lwcum[i]) as exp(lwprev[t] - E) * exp(E - lwcum[i]) relative to the
+    chunk end E: the k-side factor is <= 1 and the r-side exponent is
+    clamped at +40, as in the reference.  That is the recurrence while a
+    chunk's total decay stays above e^-40; past it, a pair of near
+    neighbours gets e^40 times a k-side factor far below e^-40 and is
+    lost, in the reference as here.  The pairwise form materializes the
+    decays, clipped to [-60, 0], and is the recurrence throughout.
+
+    Everything within a chunk is computed for all chunks at once (a chunk
+    axis beside the batch); only the carried state runs chunk by chunk,
+    S_{j+1} = diag(exp E_j) S_j + sum_i diag(decay_i->end) k_i v_i, one
+    fused multiply-add per chunk, as the reference's scan carries it.
+    """
+    B, S, H, hd = r.shape
+    c = math.gcd(S, chunk) if S % min(chunk, S) else min(chunk, S)
+    n = S // c
+    f32 = torch.float32
+    rc, kc, vc, lw = (a.reshape(B, n, c, H, hd).to(f32)
+                      for a in (r, k, v, log_w))
+    lw_cum = torch.cumsum(lw, dim=2)                   # lw_1..t inclusive
+    lw_prev = lw_cum - lw                              # lw_1..t-1
+    E = lw_cum[:, :, -1:]                              # (B,n,1,H,hd) chunk total
+    k_fac = kc * torch.exp(E - lw_cum)                 # decay i -> chunk end
+    if (form or WKV_FORM) == "pairwise":
+        decay = torch.exp(torch.clamp(
+            lw_prev[:, :, :, None] - lw_cum[:, :, None, :], -60.0, 0.0))
+        score = torch.einsum("bnthd,bnihd,bntihd->bnhti", rc, kc, decay)
+    else:
+        r_fac = rc * torch.exp(torch.clamp_max(lw_prev - E, 40.0))
+        score = torch.einsum("bnthd,bnihd->bnhti", r_fac, k_fac)
+    tri = torch.tril(torch.ones((c, c), dtype=torch.bool, device=r.device),
+                     diagonal=-1)                      # strictly causal (i < t)
+    score = score * tri
+    # bonus (i == t) term with u
+    bonus = torch.einsum("bnthd,hd,bnthd->bnth", rc, u.to(f32), kc)
+    o = torch.einsum("bnhti,bnihd->bnthd", score, vc)
+    o = o + bonus[..., None] * vc
+    # the state each chunk starts from: S' = diag(prod w) S + sum_i
+    # diag(decay_i->end) k_i v_i
+    kv = torch.einsum("bnihk,bnihv->bnhkv", k_fac, vc)
+    w_end = torch.exp(E[:, :, 0])[..., None]           # (B,n,H,hd,1)
+    state = (torch.zeros((B, H, hd, hd), dtype=f32, device=r.device)
+             if state0 is None else state0)
+    starts = []
+    for j in range(n):
+        starts.append(state)
+        state = torch.addcmul(kv[:, j], state, w_end[:, j])
+    # inter-chunk: r_t decayed back to its chunk's start hits that state
+    r_dec = rc * torch.exp(lw_prev)
+    o = o + torch.einsum("bnthk,bnhkv->bnthv", r_dec,
+                         torch.stack(starts, dim=1))
+    return o.reshape(B, S, H, hd), state
+
+
+def rwkv_layer(p, x: torch.Tensor, cfg, ctx: ParallelCtx,
+               chunk: Optional[int] = None, return_cache: bool = False):
+    dt = ctx.compute_dtype
+    B, S, d = x.shape
+    r, k, v, log_w, g = _rwkv_project(p, x, _shift(x), cfg, dt)
+    o, state = wkv_chunked(r, k, v, log_w, p["u"], chunk=chunk or WKV_CHUNK)
+    o = rms_norm(o.reshape(B, S, d).to(dt), p["ln_out"], cfg.norm_eps)
+    out = (o * g) @ p["w_o"].to(dt)
+    if return_cache:
+        return out, {"state": state, "x_prev": x[:, -1:]}
+    return out
+
+
+def rwkv_decode(p, x: torch.Tensor, cache: dict, cfg, ctx: ParallelCtx):
+    """One step. x: (B, 1, d); cache = {'state': (B,H,hd,hd) fp32,
+    'x_prev': (B,1,d)}, updated **in place** and the same dict returned."""
+    dt = ctx.compute_dtype
+    B, _, d = x.shape
+    r, k, v, log_w, g = _rwkv_project(p, x, cache["x_prev"].to(dt), cfg, dt)
+    rt, kt, vt = (a[:, 0].float() for a in (r, k, v))
+    w = torch.exp(log_w[:, 0])                            # (B,H,hd)
+    S0 = cache["state"]
+    o = torch.einsum("bhk,bhkv->bhv", rt, S0)
+    bonus = torch.einsum("bhk,hk,bhk->bh", rt, p["u"].float(), kt)
+    o = o + bonus[..., None] * vt
+    S1 = S0 * w[..., None] + torch.einsum("bhk,bhv->bhkv", kt, vt)
+    o = rms_norm(o.reshape(B, 1, d).to(dt), p["ln_out"], cfg.norm_eps)
+    out = (o * g) @ p["w_o"].to(dt)
+    cache["state"].copy_(S1)
+    cache["x_prev"].copy_(x)
+    return out, cache
+
+
+def init_rwkv_cache(cfg, B: int, dtype: torch.dtype = torch.bfloat16,
+                    device=None) -> dict:
+    H, hd = cfg.n_heads, cfg.hd
+    return {"state": torch.zeros((B, H, hd, hd), dtype=torch.float32,
+                                 device=device),
+            "x_prev": torch.zeros((B, 1, cfg.d_model), dtype=dtype,
+                                  device=device)}

@@ -1,5 +1,5 @@
-"""Decoder stack assembly on PyTorch, with the reference's parameter and
-cache layout.
+"""Decoder/encoder stack assembly on PyTorch, with the reference's
+parameter and cache layout.
 
 Layers are grouped into *superblocks* of P = lcm(|pattern|, moe_every)
 layers so every superblock is structurally identical; parameters are
@@ -10,18 +10,15 @@ remainder.  The reference scans the stack; the port runs eagerly and loops
 over superblocks, indexing views of the stacked parameters and caches.
 
 Each sublayer is pre-norm residual:
-    x += mix(norm(x))        mix in {attention, RG-LRU}
-    x += mlp(norm(x))
+    x += mix(norm(x))        mix in {attention, RG-LRU, RWKV6 time-mix}
+    x += ffn(norm(x))        ffn in {gated MLP, MoE}
+(+ an extra cross-attention sublayer in enc-dec decoder layers).
 
 Three entry points share the layer code:
     apply_stack(...)                   training (no cache)
     apply_stack(..., cache=...)        prefill (fills the decode cache)
     apply_stack_decode(...)            one-token decode
 Caches are updated **in place** (the reference returns updated copies).
-
-Not ported yet: RWKV6 layers, MoE layers, enc-dec cross-attention and
-encoder (``"enc"``) stacks -- each raises ``NotImplementedError``, so no
-config that needs them builds.
 """
 from __future__ import annotations
 
@@ -31,12 +28,13 @@ from typing import Any, Callable, Optional
 
 import torch
 
+from . import moe as moe_mod
 from . import recurrent as rec
 from .layers import (ParallelCtx, attention_decode, attention_layer,
-                     init_attention, init_attn_cache, init_mlp, init_norm,
-                     mlp, rms_norm)
+                     decode_attention, full_attention, init_attention,
+                     init_attn_cache, init_mlp, init_norm, mlp, rms_norm)
 
-PORTED_KINDS = ("global", "local", "rglru")
+ATTN_KINDS = ("global", "local", "enc")
 
 
 def _lcm(a: int, b: int) -> int:
@@ -53,18 +51,6 @@ def superblock_len(cfg) -> int:
 def layer_meta(cfg, i: int) -> dict:
     return {"kind": cfg.kind_of_layer(i), "moe": cfg.is_moe_layer(i),
             "cross": cfg.cross_attn and cfg.is_encdec}
-
-
-def check_ported(meta: dict) -> None:
-    """Raise ``NotImplementedError`` for a layer the port cannot run yet."""
-    if meta["kind"] not in PORTED_KINDS:
-        raise NotImplementedError(
-            f"layer kind {meta['kind']!r} is not ported yet (ported: "
-            f"{', '.join(PORTED_KINDS)})")
-    if meta["moe"]:
-        raise NotImplementedError("MoE layers are not ported yet")
-    if meta["cross"]:
-        raise NotImplementedError("cross-attention is not ported yet")
 
 
 # ---------------------------------------------------------------------------
@@ -88,25 +74,54 @@ def _index(tree, i: int):
 # ---------------------------------------------------------------------------
 # per-layer init
 # ---------------------------------------------------------------------------
+def has_cross(meta: dict) -> bool:
+    """A decoder layer beside an encoder: it holds a cross-attention."""
+    return meta["cross"] and meta["kind"] != "enc"
+
+
+def layer_groups(meta: dict) -> tuple:
+    """The parameter groups a layer of ``meta`` holds beside its two norms,
+    in the order :func:`init_layer` draws them: its mixer (``attn`` /
+    ``rglru`` / ``rwkv``), its cross-attention (``norm_x``, ``cross``) and
+    its feed-forward (``moe`` / ``mlp``)."""
+    kind = meta["kind"]
+    if kind not in ATTN_KINDS + ("rglru", "rwkv"):
+        raise ValueError(kind)
+    return ("attn" if kind in ATTN_KINDS else kind,
+            *(("norm_x", "cross") if has_cross(meta) else ()),
+            "moe" if meta["moe"] else "mlp")
+
+
+_INIT_GROUP = {"attn": init_attention, "cross": init_attention,
+               "rglru": rec.init_rglru, "rwkv": rec.init_rwkv,
+               "moe": moe_mod.init_moe, "mlp": init_mlp}
+
+
 def init_layer(gen: torch.Generator, cfg, meta: dict, device=None) -> dict:
-    check_ported(meta)
     p: dict[str, Any] = {"norm1": init_norm(cfg.d_model, device),
                          "norm2": init_norm(cfg.d_model, device)}
-    if meta["kind"] == "rglru":
-        p["rglru"] = rec.init_rglru(gen, cfg, device)
-    else:
-        p["attn"] = init_attention(gen, cfg, device)
-    p["mlp"] = init_mlp(gen, cfg, device=device)
+    for g in layer_groups(meta):
+        p[g] = (init_norm(cfg.d_model, device) if g == "norm_x"
+                else _INIT_GROUP[g](gen, cfg, device=device))
     return p
 
 
 def init_layer_cache(cfg, meta: dict, B: int, S: int,
                      dtype: torch.dtype = torch.bfloat16, device=None) -> dict:
-    check_ported(meta)
     kind = meta["kind"]
-    if kind == "rglru":
-        return {"rec": rec.init_rglru_cache(cfg, B, dtype, device)}
-    return {"attn": init_attn_cache(cfg, B, S, kind, dtype, device)}
+    c: dict[str, Any] = {}
+    if kind in ATTN_KINDS:
+        c["attn"] = init_attn_cache(cfg, B, S, kind, dtype, device)
+    elif kind == "rglru":
+        c["rec"] = rec.init_rglru_cache(cfg, B, dtype, device)
+    else:
+        c["rec"] = rec.init_rwkv_cache(cfg, B, dtype, device)
+    if has_cross(meta):
+        shape = (B, cfg.src_seq, cfg.n_kv, cfg.hd)
+        c["cross_kv"] = {
+            "k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+    return c
 
 
 # ---------------------------------------------------------------------------
@@ -134,49 +149,100 @@ def _write_attn_cache(entry: dict, k: torch.Tensor, v: torch.Tensor,
 # ---------------------------------------------------------------------------
 # per-layer apply
 # ---------------------------------------------------------------------------
+def _fill(dst: dict, src: dict) -> None:
+    """Copy a prefilled state into its cache tensors, casting as it goes."""
+    for name, t in src.items():
+        dst[name].copy_(t)
+
+
 def apply_layer(p, x, cfg, ctx: ParallelCtx, meta: dict,
-                positions: torch.Tensor, cache: Optional[dict] = None):
+                positions: torch.Tensor,
+                enc_out: Optional[torch.Tensor] = None,
+                cache: Optional[dict] = None):
     """Training/prefill.  Returns (x, aux_loss, cache_or_None); the cache,
     when given, is filled in place."""
     kind = meta["kind"]
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     h = rms_norm(x, p["norm1"], cfg.norm_eps)
-    if kind in ("global", "local"):
+    if kind in ATTN_KINDS:
         if cache is not None:
             o, k, v = attention_layer(p["attn"], h, cfg, ctx, kind, positions,
                                       return_kv=True)
             _write_attn_cache(cache["attn"], k, v, kind)
         else:
             o = attention_layer(p["attn"], h, cfg, ctx, kind, positions)
-    elif kind == "rglru":
-        if cache is not None:
-            o, st = rec.rglru_layer(p["rglru"], h, cfg, ctx, return_cache=True)
-            cache["rec"]["h"].copy_(st["h"])
-            cache["rec"]["conv"].copy_(st["conv"])
-        else:
-            o = rec.rglru_layer(p["rglru"], h, cfg, ctx)
     else:
-        check_ported(meta)
+        layer = rec.rglru_layer if kind == "rglru" else rec.rwkv_layer
+        if cache is not None:
+            o, st = layer(p[kind], h, cfg, ctx, return_cache=True)
+            _fill(cache["rec"], st)
+        else:
+            o = layer(p[kind], h, cfg, ctx)
     x = x + o
+    if has_cross(meta) and enc_out is not None:
+        hx = rms_norm(x, p["norm_x"], cfg.norm_eps)
+        o, ckv = _cross_attention(p["cross"], hx, enc_out, cfg, ctx)
+        x = x + o
+        if cache is not None:
+            _fill(cache["cross_kv"], ckv)
     h = rms_norm(x, p["norm2"], cfg.norm_eps)
-    x = x + mlp(p["mlp"], h, cfg, ctx)
+    if meta["moe"]:
+        o, aux = moe_mod.moe_layer(p["moe"], h, cfg, ctx)
+    else:
+        o = mlp(p["mlp"], h, cfg, ctx)
+    x = x + o
     return x, aux, cache
+
+
+def _cross_attention(p, x, enc_out, cfg, ctx: ParallelCtx):
+    """Decoder cross-attention over encoder output (no mask, no rope; the
+    plain ``full_attention``, as in the reference: B5 takes only a query
+    length equal to the key length)."""
+    dt = ctx.compute_dtype
+    B, S, _ = x.shape
+    hd = cfg.hd
+    q = (x @ p["wq"].to(dt)).reshape(B, S, cfg.n_heads, hd)
+    Senc = enc_out.shape[1]
+    k = (enc_out @ p["wk"].to(dt)).reshape(B, Senc, cfg.n_kv, hd)
+    v = (enc_out @ p["wv"].to(dt)).reshape(B, Senc, cfg.n_kv, hd)
+    o = full_attention(q, k, v, causal=False)
+    o = o.reshape(B, S, cfg.n_heads * hd) @ p["wo"].to(dt)
+    return o, {"k": k, "v": v}
+
+
+def _cross_decode(p, x, cross_kv, cfg, ctx: ParallelCtx) -> torch.Tensor:
+    dt = ctx.compute_dtype
+    B = x.shape[0]
+    hd = cfg.hd
+    q = (x @ p["wq"].to(dt)).reshape(B, 1, cfg.n_heads, hd)
+    k = cross_kv["k"].to(dt)
+    v = cross_kv["v"].to(dt)
+    mask = torch.ones((B, k.shape[1]), dtype=torch.bool, device=x.device)
+    o = decode_attention(q, k, v, length_mask=mask)
+    return o.reshape(B, 1, cfg.n_heads * hd) @ p["wo"].to(dt)
 
 
 def apply_layer_decode(p, x, cache, cfg, ctx: ParallelCtx, meta: dict,
                        positions: torch.Tensor):
     kind = meta["kind"]
     h = rms_norm(x, p["norm1"], cfg.norm_eps)
-    if kind in ("global", "local"):
+    if kind in ATTN_KINDS:
         o, _ = attention_decode(p["attn"], h, cache["attn"], cfg, ctx, kind,
                                 positions)
     elif kind == "rglru":
         o, _ = rec.rglru_decode(p["rglru"], h, cache["rec"], cfg, ctx)
     else:
-        check_ported(meta)
+        o, _ = rec.rwkv_decode(p["rwkv"], h, cache["rec"], cfg, ctx)
     x = x + o
+    if has_cross(meta) and "cross_kv" in cache:
+        hx = rms_norm(x, p["norm_x"], cfg.norm_eps)
+        x = x + _cross_decode(p["cross"], hx, cache["cross_kv"], cfg, ctx)
     h = rms_norm(x, p["norm2"], cfg.norm_eps)
-    return x + mlp(p["mlp"], h, cfg, ctx), cache
+    if meta["moe"]:
+        o, _ = moe_mod.moe_layer(p["moe"], h, cfg, ctx)
+    else:
+        o = mlp(p["mlp"], h, cfg, ctx)
+    return x + o, cache
 
 
 # ---------------------------------------------------------------------------
@@ -248,7 +314,7 @@ def init_stack_cache(cfg, sm: StackMeta, B: int, S: int,
 
 
 def apply_stack(stack_params, x, cfg, ctx: ParallelCtx, sm: StackMeta,
-                positions, cache: Optional[dict] = None):
+                positions, enc_out=None, cache: Optional[dict] = None):
     """Training (cache=None) or prefill (cache filled in place).  Returns
     (x, aux_total, cache_or_None)."""
     fill = cache is not None
@@ -258,11 +324,11 @@ def apply_stack(stack_params, x, cfg, ctx: ParallelCtx, sm: StackMeta,
         c_sb = _index(cache["blocks"], s) if fill else None
         for j in range(sm.P):
             x, a, _ = apply_layer(p_sb[j], x, cfg, ctx, sm.metas[j], positions,
-                                  c_sb[j] if fill else None)
+                                  enc_out, c_sb[j] if fill else None)
             aux = aux + a
     for j in range(sm.remainder):
         x, a, _ = apply_layer(stack_params["rem"][j], x, cfg, ctx,
-                              sm.rem_metas[j], positions,
+                              sm.rem_metas[j], positions, enc_out,
                               cache["rem"][j] if fill else None)
         aux = aux + a
     return x, aux, cache

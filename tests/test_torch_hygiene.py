@@ -25,6 +25,7 @@ def test_port_and_chip_smoke_import_no_jax_and_no_reference():
         "import repro_torch.kernels.build, repro_torch.kernels.flash_attention\n"
         "import repro_torch.kernels.lru_scan, repro_torch.configs\n"
         "import repro_torch.models, repro_torch.models.transformer\n"
+        "import repro_torch.models.moe, repro_torch.configs.shapes\n"
         "import repro_torch.serve.engine, repro_torch.launch.serve\n"
         "import repro_torch.serve.admission, repro_torch.core.serving\n"
         "import chip_smoke\n"

@@ -71,6 +71,8 @@ CASES = {
     "softcap20": (1, 256, 4, 4, 64, {"softcap": 20.0}, 128),
     "softcap50_window": (1, 256, 4, 2, 64,
                          {"softcap": 50.0, "window": 32}, 128),
+    "hd96": (1, 128, 2, 2, 96, {}, 128),
+    "gqa_hd96": (2, 256, 4, 2, 96, {}, 128),
 }
 
 
@@ -87,7 +89,7 @@ def test_flash_plain_matches_pallas_and_oracle_f32(case):
 
 
 @pytest.mark.parametrize("case", ["gqa", "mqa", "hd256", "window16",
-                                  "softcap50_window"])
+                                  "softcap50_window", "gqa_hd96"])
 def test_flash_plain_matches_oracle_bf16(case):
     B, S, Hq, Hkv, hd, kw, _ = CASES[case]
     q, k, v = _qkv(2, B, S, Hq, Hkv, hd)
@@ -112,6 +114,19 @@ def test_flash_plain_non_causal():
     q, k, v = _qkv(4, 1, 64, 2, 1, 32)
     _close(_port(q, k, v, causal=False), _ref(q, k, v, causal=False),
            F32_TOL)
+
+
+@pytest.mark.parametrize("hd", [64, 96])
+def test_flash_plain_unmasked_matches_pallas(hd):
+    """The encoder's form (causal=False, no window, MHA) at an S that no
+    128-row tile divides (the reference kernel takes it as one block), at
+    whisper's hd 64 and phi-3's hd 96."""
+    q, k, v = _qkv(9 + hd, 2, 150, 4, 4, hd)
+    got = _port(q, k, v, causal=False)
+    _close(got, _ref(q, k, v, causal=False), F32_TOL)
+    pallas = ops.flash_attention(jnp.asarray(q), jnp.asarray(k),
+                                 jnp.asarray(v), causal=False)
+    _close(got, np.asarray(pallas), F32_TOL)
 
 
 def test_flash_takes_any_sequence_length():
@@ -141,20 +156,22 @@ def test_flash_causality():
 
 def test_flash_wrapper_on_cpu_is_the_plain_version():
     q, k, v = (torch.tensor(a) for a in _qkv(7, 1, 32, 4, 1, 16))
-    before = fa.launches
+    before, by_shape = fa.launches, dict(fa.launches_by_shape)
     got = fa.flash_attention(q, k, v, window=8, softcap=30.0)
     want = fa.flash_attention_plain(q, k, v, window=8, softcap=30.0)
     assert torch.equal(got, want) and got.dtype == q.dtype
     assert fa.launches == before         # no kernel launch on the CPU
+    assert dict(fa.launches_by_shape) == by_shape
 
 
 def test_flash_wrapper_on_cpu_is_the_plain_version_bf16():
     q, k, v = (torch.tensor(a).bfloat16() for a in _qkv(7, 1, 48, 4, 2, 32))
-    before = fa.launches
+    before, by_shape = fa.launches, dict(fa.launches_by_shape)
     got = fa.flash_attention(q, k, v, window=8)
     want = fa.flash_attention_plain(q, k, v, window=8)
     assert torch.equal(got, want) and got.dtype == torch.bfloat16
     assert fa.launches == before
+    assert dict(fa.launches_by_shape) == by_shape
 
 
 def test_flash_wrapper_refuses_bf16_inputs_the_kernel_does_not_take():
@@ -240,6 +257,8 @@ TC_CASES = {
     "softcap50_hd64": (1, 256, 4, 2, 64, {"softcap": 50.0}, 1.0),
     "x100_hd64": (1, 256, 2, 2, 64, {}, 100.0),
     "path_mqa_hd256_window": (1, 384, 4, 1, 256, {"window": 128}, 1.0),
+    "encoder_noncausal_hd64": (2, 300, 4, 4, 64, {"causal": False}, 1.0),
+    "phi3_causal_hd96": (1, 333, 4, 4, 96, {}, 1.0),
 }
 
 

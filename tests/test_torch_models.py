@@ -36,9 +36,7 @@ torch.set_num_threads(1)
 MODULE_TOL = 1e-5
 MODEL_TOL = 1e-4
 R_CTX = RCtx(compute_dtype=jnp.float32, flash_threshold=1 << 30)
-# every registered config with no MoE, encoder, frontend or RWKV
-PORTED_ARCHS = ("gemma2-2b", "gemma3-1b", "gemma3-4b", "minitron-4b",
-                "recurrentgemma-9b")
+ALL_ARCHS = tuple(sorted(r_configs()))
 
 
 def t_ctx(use_kernels: bool) -> TCtx:
@@ -182,30 +180,53 @@ def test_rglru_decode_steps():
 B, S, P = 2, 24, 8       # batch, sequence, prefill length (then S-P decodes)
 
 
+def frontend_inputs(cfg, seed: int = 14) -> dict:
+    """The modality stubs' numpy inputs of a smoke config, from the shapes
+    ``configs/shapes.py`` gives them: ``patches`` (vision), ``frames``
+    (audio), seeded."""
+    out = {}
+    if cfg.frontend == "vision":
+        out["patches"] = randn(seed, B, cfg.n_patches, cfg.d_model, scale=0.5)
+    if cfg.is_encdec:
+        out["frames"] = randn(seed + 1, B, cfg.src_seq, cfg.d_model)
+    return out
+
+
+def r_batch(toks, extra: dict) -> dict:
+    return {"tokens": jnp.asarray(toks),
+            **{k: jnp.asarray(v) for k, v in extra.items()}}
+
+
+def t_batch(toks, extra: dict) -> dict:
+    return {"tokens": torch.tensor(toks),
+            **{k: torch.tensor(v) for k, v in extra.items()}}
+
+
 @functools.lru_cache(maxsize=None)
 def reference_run(arch: str):
-    """The reference's plain route: params, tokens, forward logits, prefill
-    logits and the teacher-forced decode logits at positions P..S-1."""
+    """The reference's plain route: params, tokens, frontend inputs,
+    forward logits and aux, prefill logits and the teacher-forced decode
+    logits at positions P..S-1."""
     cfg = r_configs()[arch].smoke()
     model = r_build(cfg, R_CTX)
     params = model.init(jax.random.key(0))
     toks = np.random.default_rng(11).integers(0, cfg.vocab, (B, S))
-    fwd, _ = model.forward(params, {"tokens": jnp.asarray(toks)})
+    extra = frontend_inputs(cfg)
+    fwd, aux = model.forward(params, r_batch(toks, extra))
     cache = model.init_cache(B, S, dtype=jnp.float32)
-    pre, cache = model.prefill(params, {"tokens": jnp.asarray(toks[:, :P])},
-                               cache)
+    pre, cache = model.prefill(params, r_batch(toks[:, :P], extra), cache)
     decode = jax.jit(model.decode_step)
     steps = []
     for t in range(P, S):
         lt, cache = decode(params, cache, jnp.asarray(toks[:, t:t + 1]),
                            jnp.full((B,), t, jnp.int32))
         steps.append(np.asarray(lt))
-    return (export_params(params), toks, np.asarray(fwd), np.asarray(pre),
-            np.stack(steps, 1))
+    return (export_params(params), toks, extra, np.asarray(fwd),
+            float(aux), np.asarray(pre), np.stack(steps, 1))
 
 
-def port_model(arch: str, use_kernels: bool, tree=None):
-    cfg = t_configs()[arch].smoke()
+def port_model(arch: str, use_kernels: bool, tree=None, **overrides):
+    cfg = t_configs()[arch].smoke().scaled(**overrides)
     model = t_build(cfg, t_ctx(use_kernels), device="cpu")
     params = (params_from_numpy(cfg, tree, device="cpu") if tree is not None
               else model.init(torch.Generator().manual_seed(0)))
@@ -213,18 +234,23 @@ def port_model(arch: str, use_kernels: bool, tree=None):
 
 
 @pytest.mark.parametrize("use_kernels", [True, False])
-@pytest.mark.parametrize("arch", PORTED_ARCHS)
+@pytest.mark.parametrize("arch", ALL_ARCHS)
 def test_model_matches_reference(arch, use_kernels):
-    """forward, prefill and 16 teacher-forced decode steps (the local
-    layers' rolling buffer of 16 wraps) on carried weights."""
-    tree, toks, fwd, pre, steps = reference_run(arch)
+    """forward (logits and MoE aux loss), prefill and 16 teacher-forced
+    decode steps (the local layers' rolling buffer of 16 wraps; MoE
+    routing of two tokens a step; whisper's cross-attention over the
+    prefilled encoder keys) on carried weights."""
+    tree, toks, extra, fwd, aux_want, pre, steps = reference_run(arch)
     model, params = port_model(arch, use_kernels, tree)
-    got, aux = model.forward(params, {"tokens": torch.tensor(toks)})
-    assert got.dtype == torch.float32 and float(aux) == 0.0
+    got, aux = model.forward(params, t_batch(toks, extra))
+    assert got.dtype == torch.float32
     close(got, fwd, MODEL_TOL)
+    if model.cfg.n_experts > 0:
+        close(aux, aux_want, MODEL_TOL)
+    else:
+        assert float(aux) == aux_want == 0.0
     cache = model.init_cache(B, S, dtype=torch.float32)
-    lp, cache = model.prefill(params, {"tokens": torch.tensor(toks[:, :P])},
-                              cache)
+    lp, cache = model.prefill(params, t_batch(toks[:, :P], extra), cache)
     close(lp, pre, MODEL_TOL)
     for i, t in enumerate(range(P, S)):
         lt, cache = model.decode_step(params, cache,
@@ -233,31 +259,46 @@ def test_model_matches_reference(arch, use_kernels):
         close(lt, steps[:, i], MODEL_TOL)
 
 
-def test_model_kernel_routes_agree_with_reference_pallas():
-    """recurrentgemma (flash attention + LRU scan): the port's kernel route
-    against the reference's Pallas route in interpret mode."""
-    arch = "recurrentgemma-9b"
-    tree, toks, _, _, _ = reference_run(arch)
+def _kernel_route_against_pallas(arch: str) -> None:
+    tree, toks, extra, _, _, _, _ = reference_run(arch)
     cfg = r_configs()[arch].smoke()
     rmodel = r_build(cfg, RCtx(compute_dtype=jnp.float32, use_kernels=True))
     want, _ = rmodel.forward(jax.tree.map(jnp.asarray, tree),
-                             {"tokens": jnp.asarray(toks)})
+                             r_batch(toks, extra))
     model, params = port_model(arch, True, tree)
-    got, _ = model.forward(params, {"tokens": torch.tensor(toks)})
+    got, _ = model.forward(params, t_batch(toks, extra))
     close(got, want, MODEL_TOL)
 
 
-@pytest.mark.parametrize("arch", PORTED_ARCHS)
+def test_model_kernel_routes_agree_with_reference_pallas():
+    """recurrentgemma (flash attention + LRU scan): the port's kernel route
+    against the reference's Pallas route in interpret mode."""
+    _kernel_route_against_pallas("recurrentgemma-9b")
+
+
+def test_encdec_kernel_route_agrees_with_reference_pallas():
+    """whisper (flash attention unmasked in the encoder, causal in the
+    decoder): the port's kernel route against the reference's Pallas
+    route in interpret mode."""
+    _kernel_route_against_pallas("whisper-large-v3")
+
+
+@pytest.mark.parametrize("arch", ALL_ARCHS)
 def test_prefill_decode_matches_forward(arch):
     """The port on its own: prefill(tokens[:p]) then teacher-forced decode
-    reproduces the forward logits, for every cache type."""
-    model, params = port_model(arch, True)
-    toks = torch.tensor(np.random.default_rng(12).integers(
-        0, model.cfg.vocab, (B, S)))
-    full, _ = model.forward(params, {"tokens": toks})
+    reproduces the forward logits, for every cache type.  MoE capacity is
+    raised (as in the reference's own test): a grouped prefill and a
+    per-token decode legitimately drop different token-slots."""
+    cfg = t_configs()[arch].smoke()
+    model, params = port_model(
+        arch, True, **({"capacity_factor": 16.0} if cfg.n_experts else {}))
+    toks = np.random.default_rng(12).integers(0, model.cfg.vocab, (B, S))
+    extra = frontend_inputs(cfg, seed=15)
+    full, _ = model.forward(params, t_batch(toks, extra))
     cache = model.init_cache(B, S, dtype=torch.float32)
-    lp, cache = model.prefill(params, {"tokens": toks[:, :P]}, cache)
+    lp, cache = model.prefill(params, t_batch(toks[:, :P], extra), cache)
     close(lp, full[:, P - 1], MODEL_TOL)
+    toks = torch.tensor(toks)
     for t in range(P, S):
         lt, cache = model.decode_step(params, cache, toks[:, t:t + 1],
                                       torch.full((B,), t))
@@ -284,7 +325,7 @@ def test_local_window_rolling_cache(p):
 
 
 # ---------------------------------------------------------------------------
-# what is not ported, and the parameter layout
+# configs and the parameter layout
 # ---------------------------------------------------------------------------
 def test_configs_match_reference():
     import dataclasses
@@ -296,15 +337,7 @@ def test_configs_match_reference():
         assert cfg.param_count() == ref.param_count()
 
 
-@pytest.mark.parametrize("arch", sorted(set(t_configs()) - set(PORTED_ARCHS)))
-def test_unported_configs_raise(arch):
-    with pytest.raises(NotImplementedError):
-        t_build(t_configs()[arch].smoke(), device="cpu")
-
-
-def test_params_layout_and_count():
-    """The port's own init has the reference's tree and leaf shapes."""
-    arch = "recurrentgemma-9b"
+def _layout_and_count(arch: str) -> None:
     tree = reference_run(arch)[0]
     _, params = port_model(arch, True)
     shapes = []
@@ -313,6 +346,18 @@ def test_params_layout_and_count():
     assert shapes and all(a == b for a, b in shapes)
     n = sum(int(np.prod(a)) for a, _ in shapes)
     assert abs(n - t_configs()[arch].smoke().param_count()) / n < 0.05
+
+
+def test_params_layout_and_count():
+    """The port's own init has the reference's tree and leaf shapes."""
+    _layout_and_count("recurrentgemma-9b")
+
+
+@pytest.mark.parametrize("arch", sorted(set(ALL_ARCHS) - {"recurrentgemma-9b"}))
+def test_params_layout_of_every_config(arch):
+    """The same for the other nine configs: MoE, RWKV6, the encoder and
+    cross-attention trees included."""
+    _layout_and_count(arch)
 
 
 def test_params_from_numpy_refuses_a_wrong_layout():
