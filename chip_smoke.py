@@ -69,12 +69,24 @@ Then it drives the port's paths through their public entry points:
   prefill(2, S) + 16 decode steps in bfloat16, timed, with B5 launched
   once per attention layer (24, 0, 32 + 32, 32);
 * ``serve_full``: ``repro_torch.launch.serve`` at full width (tenant
-  placement on the simulated TPU fleet, then 8 requests over 4 slots).
+  placement on the simulated TPU fleet, then 8 requests over 4 slots);
+* ``train_smoke``: three train steps (the second over two microbatches)
+  of gemma3-1b and granite-moe-1b-a400m ``.smoke()`` in float32, card
+  against CPU from the same weights (made on the CPU, copied);
+* ``train_full``: ``repro_torch.launch.train`` on gemma3-1b at full width
+  and depth (~1.0 B float32 parameters, bf16 compute): 20 steps of batch
+  4 x 1024 tokens through ``launch/train.py``'s data, prefetch, step and FT
+  manager, whose checkpoint of the whole state at step 20 is restored and
+  compared bit for bit; one step more under ``remat="block"`` against
+  ``"none"``; the AdamW update timed alone; the kernel wrappers' refusal
+  of a tensor that requires grad.  Training takes the plain route, as
+  the reference's does: B5 and B6 must launch 0 times.
 
 The phases run in the order kernels, ``model_x_smoke``, ``x8``,
 ``walk_oracle``, ``vr``,
 ``x128``, ``serve_x64``, ``serve_churn``, ``bwchurn_x128``,
-``model_full``, ``model_families``, ``serve_full``.  ``--compare PARENT --session
+``model_full``, ``model_families``, ``serve_full``, ``train_smoke``,
+``train_full``.  ``--compare PARENT --session
 vr|x128`` instead runs a session of the tree at PARENT and of this one in
 turns, each in a fresh process.  One JSON object per line; the last line
 is ``{"ok": true, "device": {...}}``.  Any failing phase raises, and the
@@ -120,6 +132,12 @@ from repro_torch.models import ParallelCtx, build_model      # noqa: E402
 from repro_torch.models.transformer import (ATTN_KINDS,      # noqa: E402
                                             tree_map)
 from repro_torch.serve.engine import Request, ServeEngine    # noqa: E402
+import repro_torch.checkpoint as train_ckpt                  # noqa: E402
+import repro_torch.data.pipeline as train_data               # noqa: E402
+import repro_torch.launch.train as train_launch              # noqa: E402
+import repro_torch.optim as train_optim                      # noqa: E402
+import repro_torch.train.step as train_step                  # noqa: E402
+from repro_torch import tree as train_tree                   # noqa: E402
 
 # published peaks of one H100 SXM (NVIDIA data sheet): device memory rate,
 # the float64 and float32 rates outside the tensor cores, the dense bf16
@@ -2754,6 +2772,297 @@ def serve_full(seed: int) -> dict:
                 driver_output=out.getvalue().splitlines()[:3])
 
 
+# ---------------------------------------------------------------------------
+# training (the plain route, as the reference trains)
+# ---------------------------------------------------------------------------
+TRAIN_SMOKE_ARCHS = ("gemma3-1b", "granite-moe-1b-a400m")
+TRAIN_SMOKE_MICRO = (1, 2, 1)      # microbatches of the three steps
+TRAIN_REL_TOL = 1e-5               # loss and grad_norm, card vs CPU
+TRAIN_PARAM_TOL = 1e-5             # moments; parameters, plus the below
+# Adam's step m_hat / (sqrt(v_hat) + eps) is ill conditioned where
+# sqrt(v_hat) is near eps (1e-8): a gradient of 1e-9 that two sum orders
+# give 1e-10 apart moves the step by a tenth of lr.  So a parameter is held
+# to TRAIN_PARAM_TOL plus the sum over the steps so far of lr * |ratio_card
+# - ratio_cpu|, the ratio computed in float64 from each side's own moments
+# (themselves held to TRAIN_PARAM_TOL); that term passes TRAIN_PARAM_TOL on
+# under 1 % of the parameters (held).  tests/test_torch_train.py holds the
+# port against the reference the same way.
+TRAIN_OPT = dict(lr=1e-2, warmup_steps=4, decay_steps=100)
+TRAIN_FULL_ARCH = "gemma3-1b"
+TRAIN_FULL_ARGS = ("--arch", TRAIN_FULL_ARCH, "--steps", "20", "--batch", "4",
+                   "--seq", "1024", "--log-every", "5", "--ckpt-every", "20")
+TRAIN_REMAT_TOL = 1e-3             # grad_norm, remat="block" vs "none"
+
+
+def _adam_ratio(m: torch.Tensor, v: torch.Tensor, step: int,
+                cfg) -> torch.Tensor:
+    m, v = m.detach().cpu().double(), v.detach().cpu().double()
+    return (m / (1 - cfg.b1 ** step)) / (
+        torch.sqrt(v / (1 - cfg.b2 ** step)) + cfg.eps)
+
+
+def _train_state_err(gs, cs, explained: list, lr: float, cfg) -> tuple:
+    """(max |param diff| beyond what the moments explain, max |m| / |v|
+    diff, the explained term per leaf after this step); raises where the
+    explained term is wide on 1 % of the parameters or more."""
+    step = int(cs["opt"]["step"])
+    p_err = mv_err = 0.0
+    out, n_wide, n = [], 0, 0
+    for g, c, gm, gv, cm, cv, before in zip(
+            *(train_tree.leaves(t) for t in (
+                gs["params"], cs["params"], gs["opt"]["m"], gs["opt"]["v"],
+                cs["opt"]["m"], cs["opt"]["v"])), explained):
+        wide = before + lr * (_adam_ratio(gm, gv, step, cfg)
+                              - _adam_ratio(cm, cv, step, cfg)).abs()
+        out.append(wide)
+        n_wide, n = n_wide + int((wide > TRAIN_PARAM_TOL).sum()), n + wide.numel()
+        d = (g.detach().cpu().double() - c.detach().double()).abs() - wide
+        p_err = max(p_err, float(d.max()))
+        mv_err = max(mv_err, _logit_err(gm, cm), _logit_err(gv, cv))
+    if n_wide >= 0.01 * n:
+        raise AssertionError(f"train_smoke: Adam's step explains more than "
+                             f"{TRAIN_PARAM_TOL} on {n_wide} of {n} "
+                             "parameters")
+    return p_err, mv_err, out
+
+
+def train_smoke(seed: int) -> dict:
+    """Three train steps (the second over two microbatches) of gemma3-1b and
+    granite-moe-1b-a400m ``.smoke()`` in float32 on the card against the
+    same steps on the CPU, from weights made on the CPU and copied."""
+    out = {}
+    reset_counts()
+    for arch in TRAIN_SMOKE_ARCHS:
+        cfg = get_config(arch).smoke()
+        ctx = ParallelCtx(use_kernels=False, compute_dtype=torch.float32)
+        opt_cfg = train_optim.OptConfig(**TRAIN_OPT)
+        cm = build_model(cfg, ctx, device="cpu")
+        gm = build_model(cfg, ctx)
+        cparams = cm.init(torch.Generator().manual_seed(seed))
+        states = {"cpu": {"params": cparams},
+                  "cuda": {"params": tree_map(lambda t: t.to(gm.device, copy=True),
+                                              cparams)}}
+        for st in states.values():
+            st["opt"] = train_optim.init_opt_state(st["params"], opt_cfg)
+        it = train_data.synthetic_batches(train_data.DataConfig(
+            batch=4, seq=32, vocab=cfg.vocab, seed=seed), cfg)
+        batches = [next(it) for _ in TRAIN_SMOKE_MICRO]
+        steps, explained = [], [0.0] * len(train_tree.leaves(cparams))
+        for mb, batch in zip(TRAIN_SMOKE_MICRO, batches):
+            mets = {}
+            for name, m in (("cuda", gm), ("cpu", cm)):
+                fn = train_step.make_train_step(m, opt_cfg, microbatches=mb)
+                states[name], mets[name] = fn(states[name], batch)
+            g, c = ({k: float(v) for k, v in mets[d].items()}
+                    for d in ("cuda", "cpu"))
+            rel = {k: abs(g[k] - c[k]) / max(abs(c[k]), 1e-30)
+                   for k in ("loss", "grad_norm")}
+            if not (max(rel.values()) <= TRAIN_REL_TOL and g["lr"] == c["lr"]
+                    and abs(g["aux"] - c["aux"]) <= TRAIN_PARAM_TOL):
+                raise AssertionError(f"train_smoke {arch}: card {g} vs CPU "
+                                     f"{c}")
+            p_err, mv_err, explained = _train_state_err(
+                states["cuda"], states["cpu"], explained, c["lr"], opt_cfg)
+            if not (p_err <= TRAIN_PARAM_TOL and mv_err <= TRAIN_PARAM_TOL):
+                raise AssertionError(f"train_smoke {arch}: params {p_err}, "
+                                     f"moments {mv_err} past "
+                                     f"{TRAIN_PARAM_TOL}")
+            steps.append(dict(microbatches=mb, loss=g["loss"], aux=g["aux"],
+                              grad_norm=g["grad_norm"], rel_err=rel,
+                              param_err_beyond_explained=p_err,
+                              moment_err=mv_err,
+                              explained_max=max(float(x.max())
+                                                for x in explained),
+                              explained_wide=sum(
+                                  int((x > TRAIN_PARAM_TOL).sum())
+                                  for x in explained)))
+        out[arch] = steps
+    counts = read_counts()
+    if counts["flash_attention"] or counts["lru_scan"]:
+        raise AssertionError(f"train_smoke launched a model kernel: {counts}")
+    return dict(steps=out, tolerance=dict(
+        rel=TRAIN_REL_TOL, abs=TRAIN_PARAM_TOL,
+        params="abs + sum of lr * |adam ratio card - cpu|"),
+        launches={k: counts[k] for k in MODEL_KERNELS})
+
+
+def _train_flops(model, B: int, S: int, n_params: int) -> float:
+    """6 N tokens plus the attention's score and value products (2 matmuls
+    x 2 flops x hd per live (query, key) pair and head, forward; x3 with
+    the backward)."""
+    cfg = model.cfg
+    pairs = 0
+    for meta in _metas(model):
+        if meta["kind"] == "local":
+            pairs += sum(min(i + 1, cfg.window) for i in range(S))
+        elif meta["kind"] in ATTN_KINDS:
+            pairs += S * (S + 1) // 2
+    attn = 3 * 4 * B * cfg.n_heads * cfg.hd * pairs
+    return 6.0 * n_params * B * S + attn
+
+
+def _grad_step(model, opt_cfg, state, batch) -> dict:
+    """One train step on the card: loss, grad_norm, its ms (host clock to
+    the loss's read, the allocator's cache emptied before) and the peak
+    bytes above what was allocated before it."""
+    fn = train_step.make_train_step(model, opt_cfg)
+    base = _fresh_peak()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, m = fn(state, batch)
+    loss = float(m["loss"])
+    ms = (time.perf_counter() - t0) * 1e3
+    return dict(loss=loss, grad_norm=float(m["grad_norm"]), ms=ms,
+                peak_bytes=torch.cuda.max_memory_allocated(),
+                bytes_before=base,
+                peak_above_before=torch.cuda.max_memory_allocated() - base)
+
+
+def _time_update(state, opt_cfg, seed: int, reps: int = 3) -> float:
+    """ms of one ``adamw_update`` over the whole state (CUDA events), on
+    seeded gradients of the parameters' shapes; the state is consumed."""
+    dev = train_tree.leaves(state["params"])[0].device
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    grads = tree_map(lambda p: torch.randn(p.shape, generator=gen,
+                                           device=p.device) * 1e-3,
+                     state["params"])
+    opt = state["opt"]
+    train_optim.adamw_update(state["params"], grads, opt, opt_cfg)   # warm
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    ev[0].record()
+    for _ in range(reps):
+        _, opt, _ = train_optim.adamw_update(state["params"], grads, opt,
+                                             opt_cfg)
+    ev[1].record()
+    torch.cuda.synchronize()
+    return ev[0].elapsed_time(ev[1]) / reps
+
+
+def train_full(seed: int) -> dict:
+    """``repro_torch.launch.train`` on gemma3-1b at full width and depth
+    (bf16 compute, fp32 master weights and AdamW state): 20 steps of the
+    entry point's own path (data -> Prefetcher -> train step -> FTManager, a
+    checkpoint of the whole state at step 20), then the checkpoint restored
+    and compared bit for bit, one step more under ``remat="block"``
+    against ``"none"``, and the forward-only guard on the card."""
+    import contextlib
+    import dataclasses
+    import io
+    import shutil
+    import tempfile
+    ckpt_dir = tempfile.mkdtemp(prefix="train_full_ckpt_")
+    try:
+        args = train_launch.parse_args(
+            [*TRAIN_FULL_ARGS, "--ckpt-dir", ckpt_dir])
+        base = _fresh_peak()
+        reset_counts()
+        log = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(log):
+            rep = train_launch.run(args)
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+        peak = torch.cuda.max_memory_allocated()
+        model, state = rep.model, rep.state
+        if not (all(math.isfinite(x) for x in rep.losses + rep.grad_norms)
+                and rep.losses[-1] < rep.losses[0]):
+            raise AssertionError(f"train_full: losses {rep.losses}")
+        n_params = sum(p.numel() for p in train_tree.leaves(state["params"]))
+        B, S = args.batch, args.seq
+        step_ms = statistics.median(rep.step_ms[4:])
+        flops = _train_flops(model, B, S, n_params)
+        out = dict(
+            config=TRAIN_FULL_ARCH, params=n_params, batch=B, seq=S,
+            steps=rep.steps[-1], wall_s=wall, step_ms=rep.step_ms,
+            step_ms_median_5_20=step_ms,
+            tokens_per_s=B * S / (step_ms * 1e-3),
+            flops_per_step=flops,
+            tflops_per_s=flops / (step_ms * 1e-3) / 1e12,
+            bf16_peak_share=flops / (step_ms * 1e-3) / BF16_FLOPS,
+            loss_first=rep.losses[0], loss_last=rep.losses[-1],
+            losses=rep.losses, grad_norms=rep.grad_norms, lrs=rep.lrs,
+            peak_device_bytes=peak, bytes_before=base,
+            train_log=log.getvalue().splitlines())
+
+        # the checkpoint launch.train's FTManager took at step 20, restored
+        ckpt_bytes = sum(os.path.getsize(os.path.join(d, f))
+                         for d, _, fs in os.walk(ckpt_dir) for f in fs)
+        t1 = time.perf_counter()
+        restored = train_ckpt.restore(ckpt_dir, state)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t1
+        n_leaves = 0
+        for (key, a), b in zip(train_tree.flatten_with_paths(restored),
+                               train_tree.leaves(state)):
+            if not (a.dtype == b.dtype and a.device == b.device
+                    and torch.equal(a, b)):
+                raise AssertionError(f"train_full: checkpoint leaf {key} "
+                                     "not restored bit for bit")
+            n_leaves += 1
+        del restored
+        out["checkpoint"] = dict(
+            step=rep.steps[-1], bytes=ckpt_bytes,
+            save_s=rep.ckpt_seconds, restore_s=restore_s,
+            leaves_equal=n_leaves, what="the whole state: params, m, v, step")
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+
+    # one step more, remat "none" (on a copy) against "block"
+    it = train_data.synthetic_batches(train_data.DataConfig(
+        batch=B, seq=S, vocab=model.cfg.vocab, seed=args.steps), model.cfg)
+    batch = {k: torch.as_tensor(v).to(model.device)
+             for k, v in next(it).items()}
+    opt_cfg = train_optim.OptConfig(lr=args.lr, warmup_steps=max(
+        args.steps // 20, 5), decay_steps=args.steps)
+    copy = tree_map(torch.clone, state)
+    none = _grad_step(model, opt_cfg, copy, batch)
+    none["ms_second_call"] = _grad_step(model, opt_cfg, copy, batch)["ms"]
+    update_ms = _time_update(copy, opt_cfg, seed)
+    del copy
+    block_model = build_model(model.cfg, dataclasses.replace(
+        model.ctx, remat="block"))
+    block = _grad_step(block_model, opt_cfg, state, batch)
+    # the first checkpointed step pays a one-time warm-up: time a second
+    block["ms_second_call"] = _grad_step(block_model, opt_cfg, state,
+                                         batch)["ms"]
+    del state, rep, model
+    if block["loss"] != none["loss"]:
+        raise AssertionError(f"train_full: remat loss {block['loss']} != "
+                             f"{none['loss']}")
+    gn_rel = abs(block["grad_norm"] - none["grad_norm"]) / none["grad_norm"]
+    if not gn_rel <= TRAIN_REMAT_TOL:
+        raise AssertionError(f"train_full: remat grad_norm rel err {gn_rel}")
+    out.update(remat=dict(none=none, block=block, grad_norm_rel=gn_rel,
+                          loss_equal=True, tolerance=TRAIN_REMAT_TOL),
+               update_ms=update_ms, update_share=update_ms / step_ms)
+
+    # the forward-only guard, on the card
+    dev = torch.device("cuda", 0)
+    q = torch.randn((1, 64, 4, 256), device=dev, dtype=torch.bfloat16,
+                    requires_grad=True)
+    a = torch.rand((1, 64, 128), device=dev, requires_grad=True)
+    for name, call in (
+            ("flash_attention",
+             lambda: fa_kernel.flash_attention(q, q.detach(), q.detach())),
+            ("lru_scan", lambda: lru_kernel.lru_scan(a, a.detach()))):
+        try:
+            call()
+        except RuntimeError as e:
+            if "use_kernels=False" not in str(e):
+                raise
+        else:
+            raise AssertionError(f"train_full: {name} took a tensor that "
+                                 "requires grad")
+    after = read_counts()
+    if any(counts[k] or after[k] for k in MODEL_KERNELS):
+        raise AssertionError(f"train_full launched a model kernel: "
+                             f"{counts} {after}")
+    out["launches"] = {k: counts[k] + after[k] for k in MODEL_KERNELS}
+    out["guard_raised"] = ["flash_attention", "lru_scan"]
+    _fresh_peak()
+    return out
+
+
 def _traced_session(mult: int, seed: int, activities) -> tuple:
     """(wall s, the finished torch.profiler) of one session traced."""
     from torch.profiler import profile as tprofile
@@ -2985,7 +3294,7 @@ def main() -> None:
                     choices=("kernels", "model_x_smoke", "x8", "walk_oracle",
                              "vr", "x128", "serve_x64", "serve_churn",
                              "bwchurn_x128", "model_full",
-                             "model_families"),
+                             "model_families", "train_smoke", "train_full"),
                     help="debugging: end (without the ok line) after a phase")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -3106,6 +3415,12 @@ def main() -> None:
     stop("model_families")
     emit("serve_full", serve_full(args.seed))
     done("serve_full")
+    emit("train_smoke", train_smoke(args.seed))
+    done("train_smoke")
+    stop("train_smoke")
+    emit("train_full", train_full(args.seed))
+    done("train_full")
+    stop("train_full")
     # the traces, after every timed phase
     measure_bodies(kernels)
     done("bodies")

@@ -227,6 +227,23 @@ def check_tensor(name: str, t: torch.Tensor, dtype, ndim: int, device) -> None:
         raise ValueError(f"{name} must be contiguous")
 
 
+def refuse_grad(name: str, *tensors: torch.Tensor) -> None:
+    """Raise when autograd would record through a forward-only kernel.
+
+    The kernels have no backward: a result built from ``data_ptr()``s
+    carries no ``grad_fn``, so a trainer routed through them would get no
+    gradient on the card and silently train without it.  The check runs
+    on every device (the CPU's plain versions are differentiable), so a
+    CPU test catches such a trainer too.  Training takes the plain route,
+    ``ParallelCtx(use_kernels=False)``, as the reference does."""
+    if torch.is_grad_enabled() and any(
+            isinstance(t, torch.Tensor) and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name} has no backward: an input requires grad with autograd "
+            "recording; train with ParallelCtx(use_kernels=False), or call "
+            "it under torch.no_grad()")
+
+
 def check_tensors(device, *specs) -> None:
     """:func:`check_tensor` over ``(name, tensor, dtype, ndim)`` specs, a
     fast test first (wrappers on the scheduler's hot path call this once

@@ -32,7 +32,9 @@ not divide.  The kernels are built for hd in :data:`KERNEL_HEAD_DIMS`.
 
 ``flash_attention`` is the wrapper ``models/layers.py`` calls: the plain
 version for CPU tensors, the kernel of the tensor's dtype for CUDA tensors
-(or an exception; there is no fallback).
+(or an exception; there is no fallback).  It is forward only: with autograd
+recording and an input that requires grad it raises on every device
+(``build.refuse_grad``); training takes ``use_kernels=False``.
 """
 from __future__ import annotations
 
@@ -113,6 +115,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: Optional[int] = None,
                     softcap: Optional[float] = None) -> torch.Tensor:
     """(B,S,Hq,hd) x (B,S,Hkv,hd) -> (B,S,Hq,hd); see the module docstring."""
+    build.refuse_grad("flash_attention", q, k, v)
     dev = q.device
     if q.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"q must be float32 or bfloat16, got {q.dtype}")

@@ -19,7 +19,9 @@ are rounded separately, so the kernel agrees to the bit with
 
 ``lru_scan`` is the wrapper ``models/recurrent.py`` calls: the plain
 version for CPU tensors, the kernel for CUDA tensors (or an exception;
-there is no fallback).
+there is no fallback).  It is forward only: with autograd recording and
+an input that requires grad it raises on every device
+(``build.refuse_grad``); training takes ``use_kernels=False``.
 """
 from __future__ import annotations
 
@@ -43,6 +45,7 @@ def lru_scan_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 def lru_scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """(B, S, W) float32 a, b -> (B, S, W) float32 h."""
+    build.refuse_grad("lru_scan", a, b)
     dev = a.device
     build.check_tensor("a", a, torch.float32, 3, dev)
     build.check_tensor("b", b, torch.float32, 3, dev)

@@ -42,10 +42,15 @@ class ParallelCtx:
     of the reference (``full_attention`` / ``local_attention_jnp`` /
     ``flash_attention_jnp``, the associative scan; names kept from the
     reference) only when its caller passes ``use_kernels=False``.
-    ``compute_dtype`` defaults to bfloat16, as in the reference.  The mesh
-    fields of the reference's context are not ported yet."""
+    ``compute_dtype`` defaults to bfloat16, as in the reference.  The
+    kernels are forward only: a trainer passes ``use_kernels=False``.
+    ``remat="block"`` recomputes each superblock's layers in the backward
+    pass instead of keeping their activations (the reference's
+    ``jax.checkpoint`` of its scan body).  The mesh fields of the
+    reference's context are not ported yet."""
 
     use_kernels: bool = True
+    remat: str = "none"                  # "none" | "block"
     compute_dtype: torch.dtype = torch.bfloat16
     flash_block: int = 1024              # q/kv chunk for chunked attention
     flash_threshold: int = 8192          # use chunked attention when S >= this

@@ -24,10 +24,12 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Any, Callable, Optional
+from typing import Any, Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
+from ..tree import tree_map
 from . import moe as moe_mod
 from . import recurrent as rec
 from .layers import (ParallelCtx, attention_decode, attention_layer,
@@ -51,19 +53,6 @@ def superblock_len(cfg) -> int:
 def layer_meta(cfg, i: int) -> dict:
     return {"kind": cfg.kind_of_layer(i), "moe": cfg.is_moe_layer(i),
             "cross": cfg.cross_attn and cfg.is_encdec}
-
-
-# ---------------------------------------------------------------------------
-# trees of tensors (dicts / tuples), as the reference's pytrees
-# ---------------------------------------------------------------------------
-def tree_map(fn: Callable, tree, *rest):
-    if isinstance(tree, dict):
-        return {k: tree_map(fn, v, *(r[k] for r in rest))
-                for k, v in tree.items()}
-    if isinstance(tree, (tuple, list)):
-        return tuple(tree_map(fn, v, *(r[i] for r in rest))
-                     for i, v in enumerate(tree))
-    return fn(tree, *rest)
 
 
 def _index(tree, i: int):
@@ -319,13 +308,27 @@ def apply_stack(stack_params, x, cfg, ctx: ParallelCtx, sm: StackMeta,
     (x, aux_total, cache_or_None)."""
     fill = cache is not None
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for s in range(sm.n_super):
-        p_sb = _index(stack_params["blocks"], s)
-        c_sb = _index(cache["blocks"], s) if fill else None
+
+    def superblock(x, aux, p_sb, c_sb):
         for j in range(sm.P):
             x, a, _ = apply_layer(p_sb[j], x, cfg, ctx, sm.metas[j], positions,
                                   enc_out, c_sb[j] if fill else None)
             aux = aux + a
+        return x, aux
+
+    remat = ctx.remat == "block" and not fill
+    if ctx.remat not in ("none", "block"):
+        raise ValueError(f"remat must be 'none' or 'block', got {ctx.remat!r}")
+    for s in range(sm.n_super):
+        p_sb = _index(stack_params["blocks"], s)
+        c_sb = _index(cache["blocks"], s) if fill else None
+        if remat:
+            # the superblock's activations are recomputed in the backward
+            # pass; the remainder layers below are not (as in the reference)
+            x, aux = checkpoint(superblock, x, aux, p_sb, c_sb,
+                                use_reentrant=False)
+        else:
+            x, aux = superblock(x, aux, p_sb, c_sb)
     for j in range(sm.remainder):
         x, a, _ = apply_layer(stack_params["rem"][j], x, cfg, ctx,
                               sm.rem_metas[j], positions, enc_out,

@@ -13,7 +13,9 @@ from repro_torch import interop
 from repro_torch.configs import get_config
 from repro_torch.device import resolve_device
 from repro_torch.models import build_model
+from repro_torch.launch import train as train_launch
 from repro_torch.serve.engine import ServeEngine
+from repro_torch.train.step import init_train_state
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -28,6 +30,9 @@ def test_port_and_chip_smoke_import_no_jax_and_no_reference():
         "import repro_torch.models.moe, repro_torch.configs.shapes\n"
         "import repro_torch.serve.engine, repro_torch.launch.serve\n"
         "import repro_torch.serve.admission, repro_torch.core.serving\n"
+        "import repro_torch.optim, repro_torch.train.step, repro_torch.tree\n"
+        "import repro_torch.data.pipeline, repro_torch.checkpoint\n"
+        "import repro_torch.ft.manager, repro_torch.launch.train\n"
         "import chip_smoke\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'jaxlib' or m == 'repro' or m.startswith('repro.')]\n"
@@ -96,6 +101,10 @@ ENTRY_POINTS = {
     "ServeEngine": lambda g: ServeEngine(_model_without_cpu_request(), None),
     "params_from_numpy": lambda g: interop.params_from_numpy(
         _smoke_cfg(), {"stack": {"blocks": (), "rem": ()}}),
+    "init_train_state": lambda g: init_train_state(
+        build_model(_smoke_cfg()), torch.Generator()),
+    "launch.train.main": lambda g: train_launch.main(
+        ["--smoke", "--steps", "1", "--batch", "2", "--seq", "8"]),
 }
 
 
