@@ -80,13 +80,25 @@ Then it drives the port's paths through their public entry points:
   compared bit for bit; one step more under ``remat="block"`` against
   ``"none"``; the AdamW update timed alone; the kernel wrappers' refusal
   of a tensor that requires grad.  Training takes the plain route, as
-  the reference's does: B5 and B6 must launch 0 times.
+  the reference's does: B5 and B6 must launch 0 times.  ``launch.train``
+  runs its step on the card's mesh of one ((1, 1), NCCL) as DTensors;
+* ``placement``: the placement search (``core/placement.py``) for every
+  config x shape on both production meshes, on the host;
+* ``train_mesh``: ``repro_torch.launch.train`` on gemma3-1b at full width
+  on the (1, 1) mesh, 10 steps of 4 x 1024, each step's loss against the
+  same steps on plain tensors (1e-6 relative), with both median step
+  times;
+* ``dryrun``: ``python -m repro_torch.launch.dryrun`` on two cells
+  (gemma3-1b train_4k on the (16, 16) mesh, granite-moe-1b-a400m
+  decode_32k on (2, 16, 16)), each in a process of its own on a fake
+  process group: both must end ok with a useful-FLOP ratio in (0, 1].
 
 The phases run in the order kernels, ``model_x_smoke``, ``x8``,
 ``walk_oracle``, ``vr``,
 ``x128``, ``serve_x64``, ``serve_churn``, ``bwchurn_x128``,
 ``model_full``, ``model_families``, ``serve_full``, ``train_smoke``,
-``train_full``.  ``--compare PARENT --session
+``train_full``, ``placement``, ``train_mesh``, ``dryrun``.
+``--compare PARENT --session
 vr|x128`` instead runs a session of the tree at PARENT and of this one in
 turns, each in a fresh process.  One JSON object per line; the last line
 is ``{"ok": true, "device": {...}}``.  Any failing phase raises, and the
@@ -122,6 +134,8 @@ import repro_torch.core.slowdown as sd_mod                   # noqa: E402
 import repro_torch.launch.serve as serve_launch              # noqa: E402
 from repro_torch import device as rt_device                  # noqa: E402
 from repro_torch.configs import get_config, shapes           # noqa: E402
+from repro_torch.configs import SHAPES, all_configs          # noqa: E402
+import repro_torch.core.placement as placement_mod           # noqa: E402
 from repro_torch.core.workloads import (mining_workload,     # noqa: E402
                                          vr_workload)
 from repro_torch.kernels import (build, slowdown_kernel,     # noqa: E402
@@ -3063,6 +3077,179 @@ def train_full(seed: int) -> dict:
     return out
 
 
+PLACEMENT_MESHES = (((16, 16), ("data", "model")),
+                    ((2, 16, 16), ("pod", "data", "model")))
+TRAIN_MESH_ARGS = ("--arch", TRAIN_FULL_ARCH, "--steps", "10", "--batch", "4",
+                   "--seq", "1024", "--log-every", "100", "--ckpt-every",
+                   "100")
+TRAIN_MESH_TOL = 1e-6              # per-step loss, mesh of one vs plain
+# the dry run's cells: a train cell on the pod mesh, a decode cell on two
+# pods, each in a process of its own (the fake group is process-global)
+DRYRUN_CELLS = (("gemma3-1b", "train_4k", "single"),
+                ("granite-moe-1b-a400m", "decode_32k", "multi"))
+DRYRUN_TIMEOUT_S = 600
+
+
+def placement() -> dict:
+    """The placement search over every config x shape on both production
+    meshes, on the host: the plans, and the cells no plan fits (notes)."""
+    plans, notes = {}, []
+    t0 = time.perf_counter()
+    for arch in all_configs():
+        cfg = get_config(arch)
+        for sname, shape in SHAPES.items():
+            for mesh_shape, axes in PLACEMENT_MESHES:
+                plan, cost = placement_mod.choose_plan(cfg, shape,
+                                                       mesh_shape, axes)
+                key = f"{arch}|{sname}|{'multi' if len(axes) == 3 else 'single'}"
+                plans[key] = f"{plan.describe()} {cost.mem_bytes / 1e9:.2f}GB"
+                if plan.notes:
+                    notes.append(key)
+    return dict(cells=len(plans), cells_with_notes=len(notes), notes=notes,
+                seconds=time.perf_counter() - t0, plans=plans,
+                budget="the planner's v5e chip: 0.9 x 16 GB (not the card)")
+
+
+def _plain_train(args, steps: int) -> tuple[list, list]:
+    """The steps ``launch.train`` runs, on plain tensors: (losses, step
+    ms by CUDA events)."""
+    cfg = get_config(args.arch)
+    model = build_model(cfg, ParallelCtx(use_kernels=False,
+                                         compute_dtype=torch.bfloat16))
+    dev = model.device
+    opt_cfg = train_optim.OptConfig(lr=args.lr,
+                                    warmup_steps=max(args.steps // 20, 5),
+                                    decay_steps=args.steps)
+    state = train_step.init_train_state(
+        model, torch.Generator(device=dev).manual_seed(0), opt_cfg)
+    step = train_step.make_train_step(model, opt_cfg)
+    data = train_data.synthetic_batches(train_data.DataConfig(
+        batch=args.batch, seq=args.seq, vocab=cfg.vocab, seed=0), cfg)
+    losses, ev = [], [torch.cuda.Event(enable_timing=True)]
+    ev[0].record()
+    for _ in range(steps):
+        batch = {k: torch.as_tensor(v).to(dev) for k, v in next(data).items()}
+        state, m = step(state, batch)
+        losses.append(m["loss"])
+        ev.append(torch.cuda.Event(enable_timing=True))
+        ev[-1].record()
+    torch.cuda.synchronize()
+    ms = [a.elapsed_time(b) for a, b in zip(ev, ev[1:])]
+    return [float(x) for x in losses], ms
+
+
+def train_mesh() -> dict:
+    """``repro_torch.launch.train`` on gemma3-1b at full width on the card's
+    mesh of one, (1, 1) over NCCL: 10 steps of 4 x 1024, each step's loss
+    against the same steps on plain tensors, and the median step ms of
+    both (what DTensor dispatch costs a step)."""
+    import contextlib
+    import io
+    import shutil
+    import tempfile
+    ckpt_dir = tempfile.mkdtemp(prefix="train_mesh_ckpt_")
+    try:
+        args = train_launch.parse_args([*TRAIN_MESH_ARGS, "--ckpt-dir",
+                                        ckpt_dir])
+        _fresh_peak()
+        reset_counts()
+        with contextlib.redirect_stdout(io.StringIO()):
+            rep = train_launch.run(args)
+        counts = read_counts()
+        mesh_peak = torch.cuda.max_memory_allocated()
+        del rep.state, rep.ft
+        rep.model = None
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    _fresh_peak()
+    losses, plain_ms = _plain_train(args, len(rep.losses))
+    plain_peak = torch.cuda.max_memory_allocated()
+    rel = [abs(a - b) / abs(b) for a, b in zip(rep.losses, losses)]
+    if not max(rel) <= TRAIN_MESH_TOL:
+        raise AssertionError(f"train_mesh: losses {rep.losses} against "
+                             f"plain {losses}")
+    if any(counts[k] for k in MODEL_KERNELS):
+        raise AssertionError(f"train_mesh launched a model kernel: {counts}")
+    mesh_ms = statistics.median(rep.step_ms[2:])
+    plain_med = statistics.median(plain_ms[2:])
+    _fresh_peak()
+    return dict(config=TRAIN_FULL_ARCH, batch=args.batch, seq=args.seq,
+                steps=len(rep.losses), mesh="(1, 1) data x model, NCCL",
+                losses_mesh=rep.losses, losses_plain=losses,
+                max_rel_loss_diff=max(rel), bit_equal=rep.losses == losses,
+                tolerance=TRAIN_MESH_TOL,
+                step_ms_mesh=rep.step_ms, step_ms_plain=plain_ms,
+                step_ms_median_3_10_mesh=mesh_ms,
+                step_ms_median_3_10_plain=plain_med,
+                dtensor_ms_per_step=mesh_ms - plain_med,
+                peak_bytes_mesh=mesh_peak, peak_bytes_plain=plain_peak)
+
+
+def dryrun() -> dict:
+    """``python -m repro_torch.launch.dryrun`` on the two cells, each in a
+    process of its own, started together; both must end ok with a useful
+    FLOP ratio in (0, 1].  Host only: the steps run on fake tensors."""
+    import tempfile
+    out = {}
+    env = dict(os.environ, PYTHONPATH=os.path.join(TREE, "src"))
+    with tempfile.TemporaryDirectory(prefix="dryrun_") as tmp:
+        procs = []
+        t0 = time.perf_counter()
+        for arch, shape, mesh in DRYRUN_CELLS:
+            path = os.path.join(tmp, f"{arch}_{shape}_{mesh}.json")
+            log = open(path + ".log", "w")
+            procs.append((arch, shape, mesh, path, log, subprocess.Popen(
+                [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+                 arch, "--shape", shape, "--mesh", mesh, "--out", path],
+                env=env, stdout=log, stderr=subprocess.STDOUT)))
+        try:
+            for arch, shape, mesh, path, log, proc in procs:
+                proc.wait(timeout=max(1.0, DRYRUN_TIMEOUT_S
+                                      - (time.perf_counter() - t0)))
+        finally:
+            for *_, log, proc in procs:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+                log.close()
+        wall = time.perf_counter() - t0
+        for arch, shape, mesh, path, _, proc in procs:
+            key = f"{arch}|{shape}|{mesh}"
+            if proc.returncode != 0 or not os.path.exists(path):
+                tail = open(path + ".log").read()[-3000:]
+                raise AssertionError(f"dryrun {key}: exit {proc.returncode}"
+                                     f"\n{tail}")
+            rec = json.load(open(path))[f"{key}|baseline"]
+            terms = rec["roofline"]
+            if not (rec["status"] == "ok"
+                    and 0.0 < terms["useful_flops_ratio"] <= 1.0):
+                raise AssertionError(f"dryrun {key}: {rec.get('status')} "
+                                     f"ratio {terms['useful_flops_ratio']}")
+            n = math.prod(16 if a != "pod" else 2 for a in
+                          (("pod", "data", "model") if mesh == "multi"
+                           else ("data", "model")))
+            out[key] = dict(
+                status=rec["status"], plan=rec["plan"],
+                counted=rec.get("counted", "the step once"),
+                flops_per_device=terms["hlo_flops_total"] / n,
+                model_flops_total=terms["model_flops_total"],
+                useful_flops_ratio=terms["useful_flops_ratio"],
+                collective_bytes_per_device=terms["collective_breakdown"],
+                collective_count=rec["collective_count"],
+                peak_gb_per_device=rec["memory"]["peak_gb"],
+                argument_gb_per_device=rec["memory"]["argument_gb"],
+                fits_16gb=rec["memory"]["fits_hbm"],
+                gathered=rec["gathered"], build_s=rec["build_s"],
+                run_s=rec["run_s"],
+                v5e_planner_terms_s=dict(
+                    compute=terms["t_compute_s"], memory=terms["t_memory_s"],
+                    collective=terms["t_collective_s"],
+                    bound=terms["bottleneck"]))
+    return dict(cells=out, wall_s=wall,
+                note="counts per fake device; the v5e terms are the "
+                     "reference's planner model, not the card")
+
+
 def _traced_session(mult: int, seed: int, activities) -> tuple:
     """(wall s, the finished torch.profiler) of one session traced."""
     from torch.profiler import profile as tprofile
@@ -3294,7 +3481,8 @@ def main() -> None:
                     choices=("kernels", "model_x_smoke", "x8", "walk_oracle",
                              "vr", "x128", "serve_x64", "serve_churn",
                              "bwchurn_x128", "model_full",
-                             "model_families", "train_smoke", "train_full"),
+                             "model_families", "train_smoke", "train_full",
+                             "placement", "train_mesh", "dryrun"),
                     help="debugging: end (without the ok line) after a phase")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -3421,6 +3609,15 @@ def main() -> None:
     emit("train_full", train_full(args.seed))
     done("train_full")
     stop("train_full")
+    emit("placement", placement())
+    done("placement")
+    stop("placement")
+    emit("train_mesh", train_mesh())
+    done("train_mesh")
+    stop("train_mesh")
+    emit("dryrun", dryrun())
+    done("dryrun")
+    stop("dryrun")
     # the traces, after every timed phase
     measure_bodies(kernels)
     done("bodies")

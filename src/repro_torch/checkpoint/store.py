@@ -18,6 +18,10 @@ package restores in the other, bit for bit.  The manifest's
 * restore reads only checkpoints with a DONE marker, so an interrupted
   save is invisible; each leaf lands on the device and dtype of the
   matching leaf of ``like``.
+
+A DTensor leaf (training on a mesh) is saved whole (``full_tensor()``),
+so the files do not depend on the mesh; restoring into a DTensor leaf
+gives it back its mesh and placements, each rank keeping its block.
 """
 from __future__ import annotations
 
@@ -29,6 +33,7 @@ from typing import Any, Optional
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor, distribute_tensor
 
 from .. import tree as tr
 
@@ -44,6 +49,8 @@ _TORCH_NAME = {v[0]: k for k, v in _VIEW_AS.items()}
 
 def _to_host(x: torch.Tensor) -> np.ndarray:
     """A leaf as a host numpy array in its stored form (bf16 / f8 as uint)."""
+    if isinstance(x, DTensor):
+        x = x.full_tensor()      # the whole leaf, in the reference's format
     # a copy even on the CPU: the state is updated in place after the save
     t = x.detach().to("cpu", copy=True)
     name = _TORCH_NAME.get(t.dtype)
@@ -136,7 +143,8 @@ def _from_host(arr: np.ndarray, true_dt: str) -> torch.Tensor:
 
 def restore(directory: str, like: Tree, step: Optional[int] = None) -> Tree:
     """Restore into the structure of ``like``: leaves matched by key, each
-    on the device and in the dtype of its ``like`` leaf."""
+    on the device and in the dtype of its ``like`` leaf (and on its mesh,
+    with its placements, where it is a DTensor)."""
     if step is None:
         step = latest_step(directory)
         if step is None:
@@ -154,6 +162,10 @@ def restore(directory: str, like: Tree, step: Optional[int] = None) -> Tree:
             arr = data[key]
             true_dt = manifest["leaves"].get(key, {}).get("dtype",
                                                           str(arr.dtype))
-            t = _from_host(arr, true_dt)
-            out.append(t.to(device=leaf.device, dtype=leaf.dtype))
+            t = _from_host(arr, true_dt).to(device=leaf.device,
+                                            dtype=leaf.dtype)
+            if isinstance(leaf, DTensor):
+                t = distribute_tensor(t, leaf.device_mesh, leaf.placements,
+                                      src_data_rank=None)
+            out.append(t)
     return tr.unflatten(like, out)

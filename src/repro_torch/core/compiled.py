@@ -1009,6 +1009,12 @@ class CompiledHWGraph:
         rt.fast.pop(i, None)
         rt.over.pop(i, None)
 
+    def summary(self) -> str:
+        P = len(self.pu_names)
+        return (f"CompiledHWGraph({P} PUs, {len(self.resource_names)} resources, "
+                f"{len(self.rclass_names)} rclasses, "
+                f"{len(self.routable_names)} routable, v{self.version})")
+
     # ------------------------------------------------------------------
     # per-ORC-group shard views (the sharded orchestration snapshot)
     # ------------------------------------------------------------------

@@ -12,9 +12,19 @@ restart-from-latest, with the FT manager watching step times for
 stragglers.  The model takes the plain route (``use_kernels=False``; the
 kernels are forward only), with float32 compute under ``--smoke`` and
 bfloat16 otherwise; ``--remat block`` recomputes each superblock in the
-backward pass.  The port has no mesh layer yet: it trains on one
-device (``--device``, the CUDA card by default), without sharding, and
-its FT manager watches a one-chip fleet.
+backward pass.
+
+As in the reference, the step runs on a mesh over the devices that exist
+(``launch/mesh.make_host_mesh``; the production meshes are the dry run's):
+the state is placed with ``launch/sharding.make_shardings`` and every
+batch with ``batch_sharding``, as DTensors, and each step runs under
+``GatherOnRefusal`` (DTensor's implicit replication, and gathered
+arguments where DTensor refuses an op's sharding).  This process is one
+rank, so on the card (``--device``, the CUDA card by default) the mesh is
+(1, 1) and every op runs on the whole tensor.  The loss and the gradient
+norm come back partial or replicated and are reduced before they are
+read; the report's state is whole tensors.  The run ends its one-rank
+process group when it started one.
 """
 from __future__ import annotations
 
@@ -25,15 +35,21 @@ import time
 from dataclasses import dataclass, field
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from ..checkpoint import latest_step, restore
 from ..configs import get_config
+from ..configs.shapes import TensorSpec
 from ..core.topology import build_tpu_fleet
 from ..data.pipeline import DataConfig, Prefetcher, synthetic_batches
+from ..device import resolve_device
 from ..ft.manager import FTConfig, FTManager
 from ..models import ParallelCtx, build_model
 from ..optim import OptConfig
 from ..train.step import init_train_state, make_train_step
+from ..tree import tree_map
+from . import mesh as mesh_mod
+from .sharding import GatherOnRefusal, batch_sharding, make_shardings, place
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -79,11 +95,29 @@ class TrainReport:
     ft: object = None
 
 
+def _whole(x):
+    """A DTensor as the whole tensor it stands for (partial sums reduced);
+    anything else as it is."""
+    return x.full_tensor() if isinstance(x, DTensor) else x
+
+
 def run(args: argparse.Namespace) -> TrainReport:
+    dev = resolve_device(args.device)
+    n_dev = torch.cuda.device_count() if dev.type == "cuda" else 1
+    mesh = mesh_mod.make_host_mesh(data=n_dev, device=dev)
+    try:
+        return _run(args, mesh)
+    finally:
+        mesh_mod.release()
+
+
+def _run(args: argparse.Namespace, mesh) -> TrainReport:
     cfg = get_config(args.arch)
     if args.smoke:
         cfg = cfg.smoke()
-    ctx = ParallelCtx(use_kernels=False, remat=args.remat,
+    baxes = mesh_mod.batch_axes(mesh)
+    ctx = ParallelCtx(batch_axes=baxes, model_axis="model", mesh=mesh,
+                      use_kernels=False, remat=args.remat,
                       compute_dtype=torch.float32 if args.smoke
                       else torch.bfloat16)
     model = build_model(cfg, ctx, device=args.device)
@@ -98,13 +132,17 @@ def run(args: argparse.Namespace) -> TrainReport:
         start_step = latest_step(args.ckpt_dir)
         state = restore(args.ckpt_dir, state)
         print(f"[train] resumed from step {start_step}")
+    state = place(state, make_shardings(state, mesh))
 
     dcfg = DataConfig(batch=args.batch, seq=args.seq, vocab=cfg.vocab,
                       seed=start_step)
+    tokens = TensorSpec((args.batch, args.seq), torch.int32)
+    b_sh = batch_sharding({"tokens": tokens}, mesh, baxes)["tokens"]
     data = Prefetcher(synthetic_batches(dcfg, cfg), depth=2, device=dev)
     step_fn = make_train_step(model, opt_cfg, microbatches=args.microbatches)
     ft = FTManager(build_tpu_fleet(n_pods=1, hosts_per_pod=1,
-                                   chips_per_host=1, device=dev).graph,
+                                   chips_per_host=mesh.size(),
+                                   device=dev).graph,
                    FTConfig(checkpoint_every=args.ckpt_every),
                    ckpt_dir=args.ckpt_dir)
     rep = TrainReport(start_step=start_step, model=model, ft=ft)
@@ -123,8 +161,11 @@ def run(args: argparse.Namespace) -> TrainReport:
     t_last = time.time()
     try:
         for step in range(start_step, args.steps):
-            batch = next(data)
-            state, metrics = step_fn(state, batch)
+            batch = {k: place(v, b_sh) if v.shape == tokens.shape else v
+                     for k, v in next(data).items()}
+            with GatherOnRefusal():
+                state, metrics = step_fn(state, batch)
+            metrics = {k: _whole(v) for k, v in metrics.items()}
             marks.append(mark())
             metrics_by_step.append(metrics)
             if (step + 1) % args.log_every == 0:
@@ -156,7 +197,7 @@ def run(args: argparse.Namespace) -> TrainReport:
         rep.losses.append(float(m["loss"]))
         rep.grad_norms.append(float(m["grad_norm"]))
         rep.lrs.append(float(m["lr"]))
-    rep.state = state
+    rep.state = tree_map(_whole, state)
     print(f"[train] done at step {args.steps}; "
           f"last checkpoint: {latest_step(args.ckpt_dir)}")
     return rep

@@ -24,8 +24,11 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.device_mesh import DeviceMesh
+from torch.distributed.tensor import DTensor
 
 from ..kernels import flash_attention as fa_kernel
+from ..launch.sharding import spec_placements
 
 NEG_INF = -2.0 ** 30   # large-but-finite mask value (bf16-safe)
 
@@ -46,14 +49,42 @@ class ParallelCtx:
     kernels are forward only: a trainer passes ``use_kernels=False``.
     ``remat="block"`` recomputes each superblock's layers in the backward
     pass instead of keeping their activations (the reference's
-    ``jax.checkpoint`` of its scan body).  The mesh fields of the
-    reference's context are not ported yet."""
+    ``jax.checkpoint`` of its scan body).
 
+    The mesh fields are the reference's, and ``mesh`` carries the
+    ``DeviceMesh`` that JAX keeps ambient (``with mesh:``).  A model runs
+    on a mesh when its parameters are DTensors (``launch.sharding``); the
+    caller runs it under ``launch.sharding.GatherOnRefusal``, which takes
+    the plain tensors the model makes (rotary tables, masks) as replicated
+    and gathers the arguments of an op whose sharding DTensor refuses."""
+
+    batch_axes: tuple[str, ...] = ()     # mesh axes sharding the batch dim
+    model_axis: Optional[str] = None     # tensor-parallel axis name
+    model_size: int = 1                  # size of the model axis (for guards)
     use_kernels: bool = True
     remat: str = "none"                  # "none" | "block"
     compute_dtype: torch.dtype = torch.bfloat16
     flash_block: int = 1024              # q/kv chunk for chunked attention
     flash_threshold: int = 8192          # use chunked attention when S >= this
+    mesh: Optional[DeviceMesh] = None
+
+    def shard(self, x: torch.Tensor, *spec) -> torch.Tensor:
+        """``x`` redistributed to the placements of ``spec`` on the mesh
+        (the reference's sharding constraint); ``x`` itself without a mesh
+        or when ``x`` is not a DTensor."""
+        if self.mesh is None or not isinstance(x, DTensor):
+            return x
+        placements = spec_placements(self.mesh, spec)
+        if tuple(x.placements) == placements:
+            return x
+        return x.redistribute(self.mesh, placements)
+
+    def head_axis(self, n_heads: int) -> Optional[str]:
+        """The model axis iff the head count divides it — sharding 8 heads
+        onto a 16-way axis pads 2x and triggers SPMD full-remat copies."""
+        if self.model_axis is not None and n_heads % max(self.model_size, 1) == 0:
+            return self.model_axis
+        return None
 
 
 # ---------------------------------------------------------------------------
@@ -281,12 +312,19 @@ def init_attention(gen: torch.Generator, cfg, device=None) -> dict:
     return p
 
 
-def _project_qkv(p, x, cfg, positions, dt, use_rope: bool = True):
+def _project_qkv(p, x, cfg, positions, dt, use_rope: bool = True,
+                 ctx: Optional[ParallelCtx] = None):
     B, S, _ = x.shape
     hd = cfg.hd
     q = (x @ p["wq"].to(dt)).reshape(B, S, cfg.n_heads, hd)
     k = (x @ p["wk"].to(dt)).reshape(B, S, cfg.n_kv, hd)
     v = (x @ p["wv"].to(dt)).reshape(B, S, cfg.n_kv, hd)
+    if ctx is not None and (ctx.batch_axes or ctx.model_axis):
+        ba = ctx.batch_axes or None
+        q = ctx.shard(q, ba, None, ctx.head_axis(cfg.n_heads), None)
+        kv_ax = ctx.head_axis(cfg.n_kv)
+        k = ctx.shard(k, ba, None, kv_ax, None)
+        v = ctx.shard(v, ba, None, kv_ax, None)
     if cfg.qk_norm:
         q = rms_norm(q, p["q_norm"], cfg.norm_eps)
         k = rms_norm(k, p["k_norm"], cfg.norm_eps)
@@ -304,7 +342,7 @@ def attention_layer(p, x, cfg, ctx: ParallelCtx, kind: str,
     dt = ctx.compute_dtype
     B, S, _ = x.shape
     causal = kind != "enc"
-    q, k, v = _project_qkv(p, x, cfg, positions, dt, use_rope=True)
+    q, k, v = _project_qkv(p, x, cfg, positions, dt, use_rope=True, ctx=ctx)
     if ctx.use_kernels:
         window = cfg.window if kind == "local" else None
         o = fa_kernel.flash_attention(q, k, v, causal=causal, window=window,
@@ -332,12 +370,22 @@ def attention_decode(p, x, cache, cfg, ctx: ParallelCtx, kind: str,
     copies) and returns the same dict."""
     dt = ctx.compute_dtype
     B = x.shape[0]
-    q, k, v = _project_qkv(p, x, cfg, positions[:, None], dt, use_rope=True)
+    q, k, v = _project_qkv(p, x, cfg, positions[:, None], dt, use_rope=True,
+                           ctx=ctx)
     C = cache["k"].shape[1]
     slot = positions % C if kind == "local" else positions
-    bidx = torch.arange(B, device=x.device)
-    cache["k"][bidx, slot] = k[:, 0].to(cache["k"].dtype)
-    cache["v"][bidx, slot] = v[:, 0].to(cache["v"].dtype)
+    if isinstance(cache["k"], DTensor):
+        # DTensor cannot index-put into a sharded cache in place; a masked
+        # select writes the same slots, then copies into the cache's shards
+        hit = (torch.arange(C, device=x.device)[None, :]
+               == slot[:, None])[:, :, None, None]
+        for name, new in (("k", k), ("v", v)):
+            buf = cache[name]
+            buf.copy_(torch.where(hit, new.to(buf.dtype), buf))
+    else:
+        bidx = torch.arange(B, device=x.device)
+        cache["k"][bidx, slot] = k[:, 0].to(cache["k"].dtype)
+        cache["v"][bidx, slot] = v[:, 0].to(cache["v"].dtype)
     kpos = torch.arange(C, device=x.device)[None, :]
     if kind == "local":
         # rolling buffer: valid entries are the last min(pos+1, window)
@@ -382,4 +430,5 @@ def mlp(p, x, cfg, ctx: ParallelCtx) -> torch.Tensor:
     dt = ctx.compute_dtype
     act = gelu if cfg.act == "gelu" else F.silu
     h = act(x @ p["wg"].to(dt)) * (x @ p["wu"].to(dt))
+    h = ctx.shard(h, ctx.batch_axes or None, None, ctx.model_axis)
     return h @ p["wd"].to(dt)

@@ -119,8 +119,17 @@ def moe_layer_einsum(p, x: torch.Tensor, cfg, ctx: ParallelCtx,
         comb = comb + slot_disp.float() * gate_vals[..., slot][..., None, None]
         prev_counts = prev_counts + torch.sum(oh * keep, dim=1)
 
+    # dispatch -> expert FFN -> combine.  On a mesh, the constraints
+    # implement EP: groups shard over the batch axes, experts over the
+    # model axis; the G<->E resharding of xin/out_e is expert parallelism's
+    # all-to-all.
+    ba = ctx.batch_axes or None
+    disp = ctx.shard(disp, ba, None, ctx.model_axis, None)
+    comb = ctx.shard(comb, ba, None, ctx.model_axis, None)
     xin = torch.einsum("gsec,gsd->gecd", disp, xg)           # (G, E, C, d)
+    xin = ctx.shard(xin, ba, ctx.model_axis, None, None)
     out_e = _expert_ffn(p, xin, cfg, dt)                     # (G, E, C, d)
+    out_e = ctx.shard(out_e, ba, ctx.model_axis, None, None)
     out = torch.einsum("gsec,gecd->gsd", comb.to(dt), out_e)
     return out.reshape(B, S, d), aux
 

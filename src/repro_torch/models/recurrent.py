@@ -74,8 +74,10 @@ def _causal_conv(p, x: torch.Tensor) -> torch.Tensor:
     K = p["conv_w"].shape[0]
     S = x.shape[1]
     out = torch.zeros_like(x)
-    for j in range(K):
-        shifted = F.pad(x, (0, 0, j, 0))[:, :S]
+    for j in range(min(K, S)):
+        # x delayed by j steps, zeros first (a shift past S adds only zeros)
+        shifted = x if j == 0 else torch.cat(
+            [torch.zeros_like(x[:, :j]), x[:, :S - j]], dim=1)
         out = out + shifted * p["conv_w"][K - 1 - j].to(x.dtype)
     return out + p["conv_b"].to(x.dtype)
 

@@ -20,6 +20,8 @@ from __future__ import annotations
 from typing import Any, Optional
 
 import torch
+from torch.distributed.tensor import (DTensor, Replicate, Shard,
+                                      distribute_tensor)
 
 from .. import tree as tr
 from ..models.model import Model
@@ -36,10 +38,29 @@ def cross_entropy(logits: torch.Tensor, labels) -> torch.Tensor:
     labels = torch.as_tensor(labels, device=logits.device).long()
     mask = labels != IGNORE
     safe = torch.where(mask, labels, torch.zeros_like(labels))
-    logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.take_along_dim(logits, safe[..., None], dim=-1)[..., 0]
+    if not isinstance(logits, DTensor):
+        logz = torch.logsumexp(logits, dim=-1)
+        gold = torch.take_along_dim(logits, safe[..., None], dim=-1)[..., 0]
+    else:
+        logz, gold = _sharded_logz_and_gold(logits, safe)
     nll = (logz - gold) * mask
     return nll.sum() / torch.clamp_min(mask.sum(), 1)
+
+
+def _sharded_logz_and_gold(logits: DTensor, safe) -> tuple:
+    """``logsumexp`` and the gold logit of DTensor logits.  DTensor's
+    gather of the gold column from vocab-sharded logits fails; a
+    compare-and-sum against vocabulary ids laid out as the logits' last
+    dim picks the same value exactly (one nonzero term per row), each rank
+    on its own block of the vocabulary."""
+    last = logits.ndim - 1
+    ids = distribute_tensor(
+        torch.arange(logits.shape[-1], device=logits.device),
+        logits.device_mesh,
+        [Shard(0) if p.is_shard(last) else Replicate()
+         for p in logits.placements], src_data_rank=None)
+    gold = torch.where(ids == safe[..., None], logits, 0.0).sum(-1)
+    return torch.logsumexp(logits, dim=-1), gold
 
 
 def make_loss_fn(model: Model):
@@ -77,10 +98,24 @@ def _grads(loss_fn, params, batch):
 
 def _split(batch: dict, microbatches: int) -> list[dict]:
     def parts(x):
-        x = torch.as_tensor(x)
+        if not isinstance(x, DTensor):
+            x = torch.as_tensor(x)
         if x.shape[0] % microbatches:
             raise ValueError(f"batch axis {x.shape[0]} is not a multiple of "
                              f"{microbatches} microbatches")
+        if isinstance(x, DTensor) and x.to_local().shape[0] % microbatches:
+            # fewer rows per rank than microbatches: each microbatch's rows
+            # spread over the ranks anew (some ranks hold none)
+            return [distribute_tensor(c, x.device_mesh, x.placements,
+                                      src_data_rank=None)
+                    for c in torch.chunk(x.full_tensor(), microbatches)]
+        if isinstance(x, DTensor):
+            # each rank splits its own rows, so microbatch i holds the i-th
+            # block of every rank's rows (the rows of a one-rank mesh in
+            # order); the mean over microbatches is the same
+            return [DTensor.from_local(c, x.device_mesh, x.placements,
+                                       run_check=False)
+                    for c in torch.chunk(x.to_local(), microbatches, dim=0)]
         return torch.chunk(x, microbatches, dim=0)
     cols = {k: parts(v) for k, v in batch.items()}
     return [{k: c[i] for k, c in cols.items()} for i in range(microbatches)]
@@ -103,8 +138,8 @@ def make_train_step(model: Model, opt_cfg: Optional[OptConfig] = None,
         if microbatches <= 1:
             metrics, grads = _grads(loss_fn, params, batch)
         else:
-            g_acc = tr.tree_map(lambda p: torch.zeros(
-                p.shape, dtype=accum_dtype, device=p.device), params)
+            g_acc = tr.tree_map(lambda p: torch.zeros_like(
+                p, dtype=accum_dtype), params)
             loss_sum = torch.zeros((), dtype=torch.float32,
                                    device=tr.leaves(params)[0].device)
             for mb in _split(batch, microbatches):

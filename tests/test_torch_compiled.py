@@ -118,3 +118,10 @@ def test_mutation_invalidates_and_rebuilds():
                 fresh.transfer_time(a, b, 1e6), abs=TOL, rel=TOL)
     assert c1.transfer_time(src, dst, 1e6) == pytest.approx(
         rtb.graph.compiled().transfer_time(src, dst, 1e6), rel=TOL)
+
+
+def test_summary_equals_reference():
+    rtb, ttb = make_testbeds()
+    want = rtb.graph.compiled().summary()
+    assert ttb.graph.compiled().summary() == want
+    assert want.startswith("CompiledHWGraph(") and want.endswith(", v0)")

@@ -33,6 +33,9 @@ def test_port_and_chip_smoke_import_no_jax_and_no_reference():
         "import repro_torch.optim, repro_torch.train.step, repro_torch.tree\n"
         "import repro_torch.data.pipeline, repro_torch.checkpoint\n"
         "import repro_torch.ft.manager, repro_torch.launch.train\n"
+        "import repro_torch.core.placement, repro_torch.launch.mesh\n"
+        "import repro_torch.launch.sharding, repro_torch.launch.hlo_analysis\n"
+        "import repro_torch.launch.dryrun\n"
         "import chip_smoke\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'jaxlib' or m == 'repro' or m.startswith('repro.')]\n"
@@ -141,3 +144,139 @@ def test_chip_smoke_fails_without_cuda():
                          cwd=ROOT, capture_output=True, text=True, timeout=300)
     assert out.returncode != 0
     assert '"ok"' not in out.stdout
+
+
+# ---------------------------------------------------------------------------
+# every public name of a reference module is in its port
+# ---------------------------------------------------------------------------
+# The reference's names the port does not carry, each with its reason.
+NOT_PORTED = {
+    # TPU-only: the Pallas kernels and their forced entry points (the port's
+    # kernels are CUDA, behind their own wrappers), and the pytree alias
+    "*_pallas": "a Pallas kernel (TPU)",
+    "*_forced": "a Pallas kernel forced on (TPU)",
+    "kernels/flash_attention.py:flash_attention_bhsd":
+        "the Pallas kernel itself (pallas_call, TPU); the port's is "
+        "flash_attention",
+    "*:Pytree": "JAX's pytree alias",
+    # the reference's numpy oracles stay in the reference; the port's tests
+    # import them from there, as they import kernels/ref.py
+    "kernels/walk_kernel.py:scan_reduce_ref": "a numpy oracle of the tests",
+    # XLA's HLO text: torch produces none (launch/hlo_analysis.py)
+    "launch/hlo_analysis.py:analyze_hlo": "parses XLA HLO text",
+}
+
+
+def _not_ported(rel: str, name: str) -> bool:
+    import fnmatch
+    return any(fnmatch.fnmatch(f"{rel}:{name}", pat if ":" in pat
+                               else f"*:{pat}") for pat in NOT_PORTED)
+
+
+def _module_names(path: str, instance_attrs: bool) -> dict:
+    """Top-level names a module's source defines: {name: members}, where a
+    class's members are its methods and class-level fields, and with
+    ``instance_attrs`` also the attributes its methods assign on ``self``
+    (None for anything but a class).  A package's ``__init__.py`` also
+    defines the names it imports."""
+    import ast
+    tree = ast.parse(open(path).read())
+    out: dict = {}
+    for node in tree.body:
+        if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef)):
+            out[node.name] = None
+        elif isinstance(node, ast.ClassDef):
+            members = set()
+            for sub in node.body:
+                if isinstance(sub, (ast.FunctionDef, ast.AsyncFunctionDef)):
+                    members.add(sub.name)
+                elif isinstance(sub, ast.AnnAssign) and isinstance(
+                        sub.target, ast.Name):
+                    members.add(sub.target.id)
+                elif isinstance(sub, ast.Assign):
+                    members.update(t.id for t in sub.targets
+                                   if isinstance(t, ast.Name))
+            if instance_attrs:
+                members.update(
+                    sub.attr for sub in ast.walk(node)
+                    if isinstance(sub, ast.Attribute)
+                    and isinstance(sub.ctx, ast.Store)
+                    and isinstance(sub.value, ast.Name)
+                    and sub.value.id == "self")
+            out[node.name] = members
+        elif isinstance(node, (ast.Assign, ast.AnnAssign)):
+            targets = node.targets if isinstance(node, ast.Assign) \
+                else [node.target]
+            for t in targets:
+                if isinstance(t, ast.Name):
+                    out[t.id] = None
+        elif isinstance(node, ast.ImportFrom) and node.module and \
+                path.endswith("__init__.py"):
+            # a package's re-exports are its public names (its submodules
+            # are the other test's)
+            out.update((a.asname or a.name, None) for a in node.names)
+    return out
+
+
+def test_port_modules_carry_the_reference_public_names():
+    """For every reference module that has a port module: each public
+    top-level name and each public method or field of its classes is in
+    the port (as a method, field or attribute set on ``self``),
+    or ``NOT_PORTED`` gives its reason (and every entry there is used).
+    Private helpers (the reference's ``mesh._auto``, the HLO parser's
+    ``_parse_computations`` ...) are each package's own."""
+    ref_root = os.path.join(ROOT, "src", "repro")
+    port_root = os.path.join(ROOT, "src", "repro_torch")
+    missing, ported, used = [], 0, set()
+    for d, _, names in os.walk(ref_root):
+        for n in names:
+            if not n.endswith(".py"):
+                continue
+            rel = os.path.relpath(os.path.join(d, n), ref_root)
+            port = os.path.join(port_root, rel)
+            if not os.path.exists(port):
+                continue
+            ported += 1
+            ref = _module_names(os.path.join(d, n), False)
+            got = _module_names(port, True)
+            for name, members in ref.items():
+                if name.startswith("_"):
+                    continue
+                if _not_ported(rel, name):
+                    used.add(f"{rel}:{name}")
+                    continue
+                if name not in got:
+                    missing.append(f"{rel}:{name}")
+                    continue
+                for m in sorted(members or ()):
+                    if not m.startswith("_") and m not in (got[name] or ()):
+                        missing.append(f"{rel}:{name}.{m}")
+    assert ported and not missing, missing
+    import fnmatch
+    stale = [pat for pat in NOT_PORTED if not any(fnmatch.fnmatch(
+        u, pat if ":" in pat else f"*:{pat}") for u in used)]
+    assert not stale, stale
+
+
+def test_every_reference_module_but_the_kernel_helpers_has_a_port():
+    ref_root = os.path.join(ROOT, "src", "repro")
+    port_root = os.path.join(ROOT, "src", "repro_torch")
+    unported = sorted(
+        os.path.relpath(os.path.join(d, n), ref_root)
+        for d, _, names in os.walk(ref_root) for n in names
+        if n.endswith(".py") and not os.path.exists(os.path.join(
+            port_root, os.path.relpath(os.path.join(d, n), ref_root))))
+    # the reference's jit wrappers and oracles: the port's kernel modules
+    # carry their own wrappers and plain versions
+    assert unported == ["kernels/ops.py", "kernels/ref.py"]
+
+
+def test_configs_export_the_shapes():
+    import repro.configs as R
+    import repro_torch.configs as C
+    from repro_torch.configs import SHAPES, Shape, cells, input_specs
+    assert SHAPES is C.shapes.SHAPES and Shape is C.shapes.Shape
+    assert cells is C.shapes.cells and input_specs is C.shapes.input_specs
+    assert sorted(SHAPES) == sorted(R.SHAPES)
+    assert [c[:3] for c in cells(include_skipped=True)] == \
+        [c[:3] for c in R.cells(include_skipped=True)]

@@ -8,6 +8,8 @@ Only the tests import both packages; the port itself imports neither
 ``jax`` nor ``repro``."""
 from __future__ import annotations
 
+import contextlib
+
 import jax
 import numpy as np
 import torch
@@ -167,3 +169,35 @@ def export_params(params) -> dict:
     """A reference model's parameter pytree with numpy leaves, the input of
     ``repro_torch.interop.params_from_numpy``."""
     return jax.tree.map(np.asarray, params)
+
+
+# ---------------------------------------------------------------------------
+# process groups: a fake world (the production meshes) or one real rank
+# ---------------------------------------------------------------------------
+@contextlib.contextmanager
+def fake_mesh(shape, axes, rank: int = 0):
+    """A ``DeviceMesh`` of ``shape`` on a ``fake`` process group in which
+    this process is ``rank``; the group is destroyed on exit.  The default
+    group is process-global and test files share a worker under
+    ``--dist loadfile``, so every test that needs one opens and closes it
+    here."""
+    import math
+    from repro_torch.launch import mesh as M
+    M.release()
+    M.start_fake_group(math.prod(shape), rank)
+    try:
+        yield M.make_mesh(tuple(shape), tuple(axes))
+    finally:
+        M.release()
+
+
+@contextlib.contextmanager
+def host_mesh():
+    """The one-rank CPU mesh (a gloo group of one, started from a
+    ``HashStore``), released on exit."""
+    from repro_torch.launch import mesh as M
+    M.release()
+    try:
+        yield M.make_host_mesh(device="cpu")
+    finally:
+        M.release()
