@@ -88,10 +88,14 @@ Then it drives the port's paths through their public entry points:
   on the (1, 1) mesh, 10 steps of 4 x 1024, each step's loss against the
   same steps on plain tensors (1e-6 relative), with both median step
   times;
-* ``dryrun``: ``python -m repro_torch.launch.dryrun`` on two cells
+* ``dryrun``: ``python -m repro_torch.launch.dryrun`` on three cells
   (gemma3-1b train_4k on the (16, 16) mesh, granite-moe-1b-a400m
-  decode_32k on (2, 16, 16)), each in a process of its own on a fake
-  process group: both must end ok with a useful-FLOP ratio in (0, 1].
+  decode_32k and rwkv6-1.6b prefill_32k on (2, 16, 16)), each in a
+  process of its own on a fake process group: each must end ok with its
+  counted FLOPs at least the model FLOPs (a prefill's less the unembedding
+  it skips) and its peak at most 4x the reference's own dry run of the
+  cell (``tests/data/torch_dryrun_reference.json``); the port /
+  reference ratios of peak, FLOPs and collective bytes are printed.
 
 The phases run in the order kernels, ``model_x_smoke``, ``x8``,
 ``walk_oracle``, ``vr``,
@@ -3083,11 +3087,19 @@ TRAIN_MESH_ARGS = ("--arch", TRAIN_FULL_ARCH, "--steps", "10", "--batch", "4",
                    "--seq", "1024", "--log-every", "100", "--ckpt-every",
                    "100")
 TRAIN_MESH_TOL = 1e-6              # per-step loss, mesh of one vs plain
-# the dry run's cells: a train cell on the pod mesh, a decode cell on two
-# pods, each in a process of its own (the fake group is process-global)
+# the dry run's cells: a train cell on the pod mesh, a decode cell and a
+# prefill cell on two pods, each in a process of its own (the fake group
+# is process-global)
 DRYRUN_CELLS = (("gemma3-1b", "train_4k", "single"),
-                ("granite-moe-1b-a400m", "decode_32k", "multi"))
+                ("granite-moe-1b-a400m", "decode_32k", "multi"),
+                ("rwkv6-1.6b", "prefill_32k", "multi"))
 DRYRUN_TIMEOUT_S = 600
+# the reference's dry run of every cell (``python -m repro.launch.dryrun
+# --all --mesh both`` on the CPU, trimmed by
+# tests/data/make_torch_dryrun_reference.py): the card's host has no JAX
+DRYRUN_REFERENCE = os.path.join("tests", "data",
+                                "torch_dryrun_reference.json")
+DRYRUN_PEAK_RATIO = 4.0            # port peak / the reference's, at most
 
 
 def placement() -> dict:
@@ -3186,11 +3198,18 @@ def train_mesh() -> dict:
 
 
 def dryrun() -> dict:
-    """``python -m repro_torch.launch.dryrun`` on the two cells, each in a
-    process of its own, started together; both must end ok with a useful
-    FLOP ratio in (0, 1].  Host only: the steps run on fake tensors."""
+    """``python -m repro_torch.launch.dryrun`` on the cells, each in a
+    process of its own, started together; each must end ok with a useful
+    FLOP ratio in (0, 1] (a prefill's counted FLOPs at least the model
+    FLOPs less the unembedding of every position but the last), and its
+    peak at most ``DRYRUN_PEAK_RATIO`` times the reference's
+    (``DRYRUN_REFERENCE``); the port / reference ratios of peak, FLOPs
+    and collective bytes are printed.  Host only: the steps run on fake
+    tensors."""
     import tempfile
     out = {}
+    reference = os.path.join(TREE, DRYRUN_REFERENCE)
+    ref_cells = json.load(open(reference))["cells"]
     env = dict(os.environ, PYTHONPATH=os.path.join(TREE, "src"))
     with tempfile.TemporaryDirectory(prefix="dryrun_") as tmp:
         procs = []
@@ -3200,7 +3219,8 @@ def dryrun() -> dict:
             log = open(path + ".log", "w")
             procs.append((arch, shape, mesh, path, log, subprocess.Popen(
                 [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
-                 arch, "--shape", shape, "--mesh", mesh, "--out", path],
+                 arch, "--shape", shape, "--mesh", mesh, "--out", path,
+                 "--reference", reference],
                 env=env, stdout=log, stderr=subprocess.STDOUT)))
         try:
             for arch, shape, mesh, path, log, proc in procs:
@@ -3221,10 +3241,30 @@ def dryrun() -> dict:
                                      f"\n{tail}")
             rec = json.load(open(path))[f"{key}|baseline"]
             terms = rec["roofline"]
+            cfg, sh = get_config(arch), SHAPES[shape]
+            tokens = sh.global_batch * (1 if sh.mode == "decode"
+                                        else sh.seq_len)
+            # a prefill unembeds each row's last position only
+            skipped = (2.0 * (tokens - sh.global_batch) * cfg.d_model
+                       * cfg.vocab if sh.mode == "prefill" else 0.0)
             if not (rec["status"] == "ok"
-                    and 0.0 < terms["useful_flops_ratio"] <= 1.0):
+                    and 0.0 < terms["useful_flops_ratio"]
+                    and terms["hlo_flops_total"]
+                    >= terms["model_flops_total"] - skipped):
                 raise AssertionError(f"dryrun {key}: {rec.get('status')} "
                                      f"ratio {terms['useful_flops_ratio']}")
+            vs = rec["reference"]
+            print(f"dryrun {key} against the reference: peak "
+                  f"{vs['peak_gb'][0]:.3f} / {vs['peak_gb'][1]:.3f} GB = "
+                  f"{vs['peak_ratio']:.3f}, FLOPs {vs['flops_ratio']:.3f}, "
+                  f"collective bytes {vs['collective_ratio']:.3f}",
+                  flush=True)
+            if not vs["peak_ratio"] <= DRYRUN_PEAK_RATIO:
+                raise AssertionError(f"dryrun {key}: peak {vs['peak_gb']} "
+                                     f"GB, {vs['peak_ratio']:.2f}x the "
+                                     f"reference's")
+            if ref_cells[key]["plan"] != rec["plan"]:
+                raise AssertionError(f"dryrun {key}: plan {rec['plan']}")
             n = math.prod(16 if a != "pod" else 2 for a in
                           (("pod", "data", "model") if mesh == "multi"
                            else ("data", "model")))
@@ -3240,7 +3280,7 @@ def dryrun() -> dict:
                 argument_gb_per_device=rec["memory"]["argument_gb"],
                 fits_16gb=rec["memory"]["fits_hbm"],
                 gathered=rec["gathered"], build_s=rec["build_s"],
-                run_s=rec["run_s"],
+                run_s=rec["run_s"], vs_reference=vs,
                 v5e_planner_terms_s=dict(
                     compute=terms["t_compute_s"], memory=terms["t_memory_s"],
                     collective=terms["t_collective_s"],

@@ -139,13 +139,14 @@ def build_and_lower(cfg, shape, mesh, plan: Plan) -> BuiltStep:
             return BuiltStep(lambda: step(state, batch), (state, batch),
                              n_chips, B * S, "train")
         step = make_train_step(model, opt_cfg, microbatches=1)
-        first = _split(batch, mb)[0]
+        parts = _split(batch, mb)
+        first = parts[0]
         adt = _DTYPES[plan.accum_dtype]
         grads = tr.tree_map(lambda p: torch.zeros_like(p, dtype=adt),
                             state["params"])
         return BuiltStep(
             lambda: step(state, first), (state, batch), n_chips, B * S,
-            "train", trips=mb,
+            "train", trips=len(parts),
             update=lambda: adamw_update(state["params"], grads, state["opt"],
                                         opt_cfg),
             accum_bytes=_local_bytes(grads))
@@ -310,6 +311,7 @@ def _compile_cell(arch, shape_name, mesh_kind, mesh, cfg, shape, plan,
                             comm.get_comm_counts().items()}
     record["collective_count"] = dict(rep.collective_count)
     record["gathered"] = dict(g.gathered)
+    record["gathered_at"] = dict(g.sites)
     record["top_traffic"] = rep.top_traffic[:5]
 
     mf = model_flops(cfg, built.tokens,
@@ -332,6 +334,77 @@ def _compile_cell(arch, shape_name, mesh_kind, mesh, cfg, shape, plan,
               f"useful={terms['useful_flops_ratio']:.2f} "
               f"frac={terms['roofline_fraction']:.2f}", flush=True)
     return record
+
+
+def against_reference(rec: dict, ref: dict) -> dict:
+    """The port's record of a cell against the reference's record of it
+    (an entry of ``tests/data/torch_dryrun_reference.json``): port /
+    reference ratios of the peak bytes, the counted FLOPs a device and the
+    collective bytes a device; the plans must be the same."""
+    if rec["status"] != "ok" or ref["status"] != "ok":
+        return {"port": rec["status"], "reference": ref["status"]}
+    if rec["plan"] != ref["plan"]:
+        raise ValueError(f"{rec['arch']}|{rec['shape']}|{rec['mesh']}: plan "
+                         f"{rec['plan']} against the reference's "
+                         f"{ref['plan']}")
+    ours, theirs = rec["roofline"], ref["roofline"]
+
+    def ratio(a: float, b: float) -> float:
+        return a / b if b else float("inf") if a else 1.0
+    return {
+        "peak_gb": [rec["memory"]["peak_gb"], ref["memory"]["peak_gb"]],
+        "peak_ratio": ratio(rec["memory"]["peak_gb"],
+                            ref["memory"]["peak_gb"]),
+        "flops_ratio": ratio(ours["hlo_flops_total"],
+                             theirs["hlo_flops_total"]),
+        "collective_ratio": ratio(ours["collective_bytes_per_chip"],
+                                  theirs["collective_bytes_per_chip"]),
+    }
+
+
+def comparison_table(records: dict, reference: dict) -> list[str]:
+    """A markdown table of ``records`` (a dry run's output) beside the
+    reference's records: a row per (arch, shape), a column per mesh, each
+    cell "port / reference peak GB (ratio); FLOPs a device (ratio);
+    collective bytes a device (ratio)", or the two statuses where either
+    is not ``ok``; then a line of totals."""
+    meshes = ("single", "multi")
+    rows: dict = {}
+    n_ok = n_fit = n_le4 = 0
+    for rec in records.values():
+        cell = f"{rec['arch']}|{rec['shape']}|{rec['mesh']}"
+        ref = reference["cells"].get(cell)
+        if ref is None:
+            continue
+        if rec["status"] != "ok" or ref["status"] != "ok":
+            text = f"{rec['status']} / {ref['status']}"
+        else:
+            c = against_reference(rec, ref)
+            n_ok += 1
+            n_fit += rec["memory"]["fits_hbm"]
+            n_le4 += c["peak_ratio"] <= 4
+            n = reference["n_chips"][rec["mesh"]]
+            ours, theirs = rec["roofline"], ref["roofline"]
+            text = (f"{c['peak_gb'][0]:.2f} / {c['peak_gb'][1]:.2f} "
+                    f"({c['peak_ratio']:.2f}x); "
+                    f"{ours['hlo_flops_total'] / n:.2e} / "
+                    f"{theirs['hlo_flops_total'] / n:.2e} "
+                    f"({c['flops_ratio']:.2f}x); "
+                    f"{ours['collective_bytes_per_chip']:.1e} / "
+                    f"{theirs['collective_bytes_per_chip']:.1e} "
+                    f"({c['collective_ratio']:.2f}x)")
+            if rec.get("gathered"):
+                text += f"; {sum(rec['gathered'].values())} gathered"
+        rows.setdefault((rec["arch"], rec["shape"]), {})[rec["mesh"]] = text
+    lines = ["| cell | " + " | ".join(meshes) + " |",
+             "| --- |" + " --- |" * len(meshes)]
+    for (arch, shape), by_mesh in sorted(rows.items()):
+        lines.append(f"| {arch} {shape} | "
+                     + " | ".join(by_mesh.get(m, "") for m in meshes) + " |")
+    lines.append(f"{n_ok} cells ok beside the reference; {n_le4} with the "
+                 f"peak within 4x of the reference's; {n_fit} within "
+                 f"{HBM_PER_CHIP / 1e9:.0f} GB")
+    return lines
 
 
 def _plan_overrides(pairs: list[str]) -> dict:
@@ -365,7 +438,27 @@ def main(argv=None) -> int:
                     help="label stored with overridden-plan records")
     ap.add_argument("--cells", default=None,
                     help="slice of the cell list, e.g. 0:16 (parallel shards)")
+    ap.add_argument("--reference", default=None, metavar="JSON",
+                    help="the reference's records "
+                         "(tests/data/torch_dryrun_reference.json): each "
+                         "cell's record gains its ratios to the reference's")
+    ap.add_argument("--compare", nargs="+", default=None, metavar="JSON",
+                    help="run nothing: print the records of these files "
+                         "beside --reference's, a line per cell")
     args = ap.parse_args(argv)
+    reference = None
+    if args.reference:
+        with open(args.reference) as f:
+            reference = json.load(f)
+    if args.compare:
+        if reference is None:
+            ap.error("--compare needs --reference")
+        records = {}
+        for path in args.compare:
+            with open(path) as f:
+                records.update(json.load(f))
+        print("\n".join(comparison_table(records, reference)))
+        return 0
 
     if args.all:
         cell_list = [(a, s) for a in all_configs() for s in SHAPES]
@@ -401,6 +494,12 @@ def main(argv=None) -> int:
             rec = run_cell(arch, shape_name, mesh_kind, plan=plan,
                            autofit=args.autofit)
             rec["variant"] = args.variant
+            ref = (reference or {}).get("cells", {}).get(
+                f"{arch}|{shape_name}|{mesh_kind}")
+            if ref is not None and not overrides:
+                rec["reference"] = against_reference(rec, ref)
+                print(f"  against the reference: {rec['reference']}",
+                      flush=True)
             results[key] = rec
             gc.collect()
             if rec["status"] == "FAILED":

@@ -34,6 +34,7 @@ from __future__ import annotations
 import contextlib
 import logging
 import math
+import os
 import re
 from dataclasses import dataclass
 from typing import Any, Optional
@@ -270,9 +271,10 @@ class _GatherMode(TorchDispatchMode):
     of its outermost sharded dim; refused again, on arguments gathered
     whole; and with no rule at all, on each rank's whole copies."""
 
-    def __init__(self, gathered: dict) -> None:
+    def __init__(self, gathered: dict, sites: dict) -> None:
         super().__init__()
         self.gathered = gathered
+        self.sites = sites
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
@@ -298,7 +300,29 @@ class _GatherMode(TorchDispatchMode):
                 continue
             key = f"{func} ({level})"
             self.gathered[key] = self.gathered.get(key, 0) + 1
+            here = self.sites.setdefault(key, [])
+            site = _model_site()
+            if site not in here and len(here) < 4:
+                here.append(site)
             return out
+
+
+def _model_site() -> str:
+    """``file:line`` of the innermost frame of the port outside the
+    launch layer (the model or step line that issued an op), or ``""``;
+    ``backward`` for an op autograd's engine runs."""
+    import traceback
+    sep = os.sep
+    frames = [f for f in traceback.extract_stack()
+              if f"{sep}repro_torch{sep}" in f.filename
+              and f"{sep}launch{sep}" not in f.filename]
+    if not frames:
+        return ""
+    f = frames[-1]
+    where = f"{f.filename.split(sep + 'repro_torch' + sep)[-1]}:{f.lineno}"
+    node = torch._C._current_autograd_node()
+    return f"{where} (backward of {node.name()})" if node is not None \
+        else where
 
 
 def _replicated_call(func, args, kwargs):
@@ -325,11 +349,13 @@ class GatherOnRefusal:
     ``Replicate()``: all-gathers and all-reduces on the mesh); an op
     DTensor has no rule for at all (``roll``, ``flip``) then runs on each
     rank's whole copies.  ``gathered`` counts those ops by name and
-    level.  Plain tensors beside DTensors count as replicated (DTensor's
+    level, ``sites`` lists the model lines that issued them (up to four
+    an op).  Plain tensors beside DTensors count as replicated (DTensor's
     ``implicit_replication``).  A context manager around a step."""
 
     def __init__(self) -> None:
         self.gathered: dict[str, int] = {}
+        self.sites: dict[str, list] = {}
         self._stack: Optional[contextlib.ExitStack] = None
 
     def __enter__(self) -> "GatherOnRefusal":
@@ -340,7 +366,7 @@ class GatherOnRefusal:
         self._stack.callback(log.setLevel, level)
         log.setLevel(logging.ERROR)
         self._stack.enter_context(implicit_replication())
-        self._stack.enter_context(_GatherMode(self.gathered))
+        self._stack.enter_context(_GatherMode(self.gathered, self.sites))
         return self
 
     def __exit__(self, *exc) -> bool:

@@ -13,8 +13,9 @@ Attention comes in four execution strategies:
 * banded chunked local attention   -- O(S * 2w) compute for sliding windows
 
 Parameters are float32 and are cast to ``ctx.compute_dtype`` at every use
-(``x @ p["wq"].to(dt)``); norms, rotary embeddings and the softmax compute
-in float32 and cast back, as in the reference.
+(``ctx.proj(x, p["wq"])``, which on a mesh also places the weight); norms,
+rotary embeddings and the softmax compute in float32 and cast back, as in
+the reference.
 """
 from __future__ import annotations
 
@@ -25,12 +26,49 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 from torch.distributed.device_mesh import DeviceMesh
-from torch.distributed.tensor import DTensor
+from torch.distributed.tensor import (DTensor, Partial, Replicate,
+                                      distribute_tensor)
 
 from ..kernels import flash_attention as fa_kernel
 from ..launch.sharding import spec_placements
 
 NEG_INF = -2.0 ** 30   # large-but-finite mask value (bf16-safe)
+
+
+class _Constrain(torch.autograd.Function):
+    """A DTensor redistributed to ``placements`` forward, and its gradient
+    redistributed to the input's placements backward, always.  DTensor's
+    own ``redistribute`` is no op at all where the placements already
+    match, and a gradient that arrives as a partial sum over the model
+    axis then flows on into the next matmul's backward, which gathers its
+    sharded operand whole to contract with it."""
+
+    @staticmethod
+    def forward(ctx, x: DTensor, placements: tuple) -> DTensor:
+        # a partial input's gradient keeps the output's placement, as in
+        # DTensor's own redistribute (nothing redistributes to partial)
+        ctx.placements = tuple(o if i.is_partial() else i
+                               for i, o in zip(x.placements, placements))
+        if tuple(x.placements) == placements:
+            return x.view_as(x)
+        return x.redistribute(x.device_mesh, placements)
+
+    @staticmethod
+    def backward(ctx, grad: DTensor):
+        if tuple(grad.placements) != ctx.placements:
+            grad = grad.redistribute(grad.device_mesh, ctx.placements)
+        return grad, None
+
+
+def own_layout(t: torch.Tensor) -> torch.Tensor:
+    """``t`` itself, its gradient placed as ``t`` is (reduce-scattered
+    where it comes back as a partial sum): a slice of a stacked weight
+    then gets its gradient in the weight's own shards, and the stack's
+    gradient is never built whole."""
+    if (isinstance(t, DTensor) and t.requires_grad
+            and torch.is_grad_enabled()):
+        return _Constrain.apply(t, tuple(t.placements))
+    return t
 
 
 @dataclass(frozen=True)
@@ -70,14 +108,81 @@ class ParallelCtx:
 
     def shard(self, x: torch.Tensor, *spec) -> torch.Tensor:
         """``x`` redistributed to the placements of ``spec`` on the mesh
-        (the reference's sharding constraint); ``x`` itself without a mesh
+        (the reference's sharding constraint), and its gradient back to
+        ``x``'s placements (``_Constrain``).  ``x`` itself without a mesh
         or when ``x`` is not a DTensor."""
         if self.mesh is None or not isinstance(x, DTensor):
             return x
         placements = spec_placements(self.mesh, spec)
+        if x.requires_grad and torch.is_grad_enabled():
+            return _Constrain.apply(x, placements)
         if tuple(x.placements) == placements:
             return x
         return x.redistribute(self.mesh, placements)
+
+    def rows(self, x: torch.Tensor) -> torch.Tensor:
+        """``x`` split over the batch axes on its first dim, whole on every
+        other (Megatron's all-reduce of a row-parallel output, a partial
+        sum over the model axis, before the residual add).  Left to
+        itself, DTensor reduce-scatters the sum over the hidden dim and
+        then splits the next column-parallel matmul's contraction instead
+        of its output."""
+        return self.shard(x, self.batch_axes or None, *([None] * (x.ndim - 1)))
+
+    def weight(self, w: torch.Tensor, x: torch.Tensor,
+               dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+        """Weight ``w`` for its product with ``x`` (features on its last
+        dim, which the product contracts): cast to ``dtype`` when one is
+        given, then placed on the
+        mesh the way that moves fewer bytes, as GSPMD chooses.  Where this
+        rank's rows of ``x`` outnumber the weight's dims split over axes
+        other than the model axis, the weight is gathered over those axes,
+        its model-axis sharding kept (ZeRO-3's all-gather before use; the
+        backward reduce-scatters its gradient).  Without that gather
+        DTensor splits the contraction over the data axis, where the FSDP
+        shard lies, and returns partial sums over every row of the batch:
+        right for a decode step's few rows, ruinous for a training
+        microbatch's thousands."""
+        if dtype is not None:
+            w = w.to(dtype)
+        if self.mesh is None or not isinstance(w, DTensor):
+            return w
+        names = self.mesh.mesh_dim_names
+        keep = tuple(p if names[i] == self.model_axis
+                     or self.mesh.size(i) == 1 else Replicate()
+                     for i, p in enumerate(w.placements))
+        if keep == tuple(w.placements):
+            return w
+        gathered = math.prod(w.shape[p.dim] for p, k in zip(
+            w.placements, keep) if p != k and p.is_shard())
+        with torch.no_grad():
+            n = (x.to_local() if isinstance(x, DTensor) else x).numel()
+        if n // max(x.shape[-1], 1) < gathered:
+            return w
+        return w.redistribute(self.mesh, keep)
+
+    def proj(self, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+        """``x @ w`` in the compute dtype, ``w`` placed by :meth:`weight`."""
+        return x @ self.weight(w, x, self.compute_dtype)
+
+    def plain(self) -> "ParallelCtx":
+        """This context without its mesh fields: for code running on each
+        rank's local blocks as plain tensors."""
+        return ParallelCtx(use_kernels=self.use_kernels, remat=self.remat,
+                           compute_dtype=self.compute_dtype,
+                           flash_block=self.flash_block,
+                           flash_threshold=self.flash_threshold)
+
+    def query_split(self, n_heads: int, length: int) -> bool:
+        """On a mesh whose model axis does not divide ``n_heads``, split
+        attention's queries over the model axis instead (a dim of
+        ``length`` that it divides): keys and values stay whole on every
+        rank, each computes the scores of its queries.  With the heads
+        replicated instead, every rank of the model axis would compute
+        the whole attention."""
+        return (self.mesh is not None and self.model_axis is not None
+                and self.model_size > 1 and self.head_axis(n_heads) is None
+                and length % self.model_size == 0)
 
     def head_axis(self, n_heads: int) -> Optional[str]:
         """The model axis iff the head count divides it — sharding 8 heads
@@ -117,12 +222,48 @@ def init_embedding(gen: torch.Generator, vocab: int, d: int,
 
 
 def embed(tokens: torch.Tensor, table: torch.Tensor,
-          compute_dtype: torch.dtype) -> torch.Tensor:
+          compute_dtype: torch.dtype,
+          ctx: Optional["ParallelCtx"] = None) -> torch.Tensor:
     # gather, then cast: the same values as the reference's cast-then-gather
     # without a compute-dtype copy of the whole table
-    x = table[tokens].to(compute_dtype)
+    x = _lookup(ctx, tokens, table).to(compute_dtype)
     return x * torch.tensor(math.sqrt(table.shape[1]), dtype=compute_dtype,
                             device=x.device)
+
+
+def _lookup(ctx, tokens: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    """``table[tokens]``.  On ``ctx``'s mesh, where the rows split evenly
+    over the batch axes, each rank looks up its own rows in its block of
+    the vocabulary (the table gathered over the other axes), zeros where
+    an id lies outside the block: the rows' embeddings as a partial sum
+    over the model axis, summed by the caller's ``ParallelCtx.rows``.
+    DTensor's own lookup refuses ids split over two mesh axes and gathers
+    them whole."""
+    if ctx is None or ctx.mesh is None or not isinstance(table, DTensor):
+        return table[tokens]
+    mesh, ba, m = ctx.mesh, ctx.batch_axes or None, ctx.model_axis
+    rows = spec_placements(mesh, (ba, None))
+    n_rows = math.prod(mesh.size(i) for i, p in enumerate(rows)
+                       if p.is_shard(0))
+    if tokens.shape[0] % n_rows:
+        return table[tokens]
+    names = mesh.mesh_dim_names
+    split = any(p.is_shard(0) and names[i] == m and mesh.size(i) > 1
+                for i, p in enumerate(table.placements))
+    local = local_param(ctx, table, m if split else None, None)
+    ids = (ctx.shard(tokens, ba, None).to_local()
+           if isinstance(tokens, DTensor) else
+           distribute_tensor(tokens, mesh, rows,
+                             src_data_rank=None).to_local())
+    if split:
+        first = mesh.get_local_rank(m) * local.shape[0]
+        inside = (ids >= first) & (ids < first + local.shape[0])
+        x = local[torch.where(inside, ids - first, 0)] * inside[..., None]
+    else:
+        x = local[ids]
+    out = [Partial() if split and names[i] == m else p
+           for i, p in enumerate(spec_placements(mesh, (ba, None, None)))]
+    return DTensor.from_local(x, mesh, out, run_check=False)
 
 
 def unembed(x: torch.Tensor, table: torch.Tensor,
@@ -174,11 +315,16 @@ def _masked(scores: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
 
 
 def full_attention(q, k, v, *, causal: bool,
-                   softcap: Optional[float] = None) -> torch.Tensor:
+                   softcap: Optional[float] = None,
+                   ctx: Optional[ParallelCtx] = None) -> torch.Tensor:
     """Reference masked attention. q: (B,Sq,Hq,hd), k/v: (B,Skv,Hkv,hd);
-    unmasked (``causal=False``) it takes Sq != Skv (cross-attention)."""
+    unmasked (``causal=False``) it takes Sq != Skv (cross-attention).
+    On ``ctx``'s mesh the queries split over the model axis where the
+    heads cannot (``ParallelCtx.query_split``)."""
     B, Sq, Hq, hd = q.shape
     Hkv = k.shape[2]
+    if ctx is not None and ctx.query_split(Hq, Sq):
+        q = ctx.shard(q, ctx.batch_axes or None, ctx.model_axis, None, None)
     k = _repeat_kv(k, Hq // Hkv)
     v = _repeat_kv(v, Hq // Hkv)
     scores = torch.einsum("bqhd,bkhd->bhqk", q, k).float()
@@ -193,11 +339,14 @@ def full_attention(q, k, v, *, causal: bool,
 
 def flash_attention_jnp(q, k, v, *, causal: bool = True,
                         softcap: Optional[float] = None,
-                        block: int = 1024) -> torch.Tensor:
+                        block: int = 1024,
+                        ctx: Optional[ParallelCtx] = None) -> torch.Tensor:
     """Chunked online-softmax attention (flash-style) in plain PyTorch
     (name kept from the reference, where it is pure jnp): q chunks in
     parallel, kv chunks in a loop with running (max, sum, acc), peak live
-    memory O(S * block)."""
+    memory O(S * block).  The running state starts at the first kv chunk
+    (the same values as from zeros and -inf).  On ``ctx``'s mesh the q
+    chunks split over the model axis where the heads cannot."""
     B, S, Hq, hd = q.shape
     Hkv = k.shape[2]
     n_rep = Hq // Hkv
@@ -208,11 +357,12 @@ def flash_attention_jnp(q, k, v, *, causal: bool = True,
     scale = 1.0 / math.sqrt(hd)
     dev = q.device
     qc = q.reshape(B, n, blk, Hq, hd)
+    if ctx is not None and ctx.query_split(Hq, n):
+        qc = ctx.shard(qc, ctx.batch_axes or None, ctx.model_axis, None,
+                       None, None)
     kc = k.reshape(B, n, blk, Hkv, hd)
     vc = v.reshape(B, n, blk, Hkv, hd)
-    o = torch.zeros((B, n, blk, Hq, hd), dtype=torch.float32, device=dev)
-    m = torch.full((B, n, Hq, blk), -math.inf, dtype=torch.float32, device=dev)
-    l = torch.zeros((B, n, Hq, blk), dtype=torch.float32, device=dev)
+    o = m = l = None
     qpos = (torch.arange(n, device=dev)[:, None] * blk
             + torch.arange(blk, device=dev)[None, :])
     for j in range(n):
@@ -224,12 +374,16 @@ def flash_attention_jnp(q, k, v, *, causal: bool = True,
             kpos = j * blk + torch.arange(blk, device=dev)
             mask = kpos[None, None, :] <= qpos[:, :, None]    # (n,blk,blk)
             s = _masked(s, mask[None, :, None, :, :])
-        m_new = torch.maximum(m, s.amax(dim=-1))              # (B,n,H,blk)
+        s_max = s.amax(dim=-1)                                # (B,n,H,blk)
+        m_new = s_max if m is None else torch.maximum(m, s_max)
         p = torch.exp(s - m_new[..., None])
-        corr = torch.exp(m - m_new)
-        l = l * corr + p.sum(dim=-1)
         pv = torch.einsum("bnhqk,bkhd->bnqhd", p.to(q.dtype), vj)
-        o = o * corr.permute(0, 1, 3, 2)[..., None] + pv.float()
+        if m is None:
+            l, o = p.sum(dim=-1), pv.float()
+        else:
+            corr = torch.exp(m - m_new)
+            l = l * corr + p.sum(dim=-1)
+            o = o * corr.permute(0, 1, 3, 2)[..., None] + pv.float()
         m = m_new
     l = l.permute(0, 1, 3, 2)[..., None]                       # (B,n,blk,Hq,1)
     out = (o / torch.clamp_min(l, 1e-20)).to(q.dtype)
@@ -237,10 +391,14 @@ def flash_attention_jnp(q, k, v, *, causal: bool = True,
 
 
 def local_attention_jnp(q, k, v, *, window: int,
-                        softcap: Optional[float] = None) -> torch.Tensor:
+                        softcap: Optional[float] = None,
+                        ctx: Optional[ParallelCtx] = None) -> torch.Tensor:
     """Banded sliding-window attention in plain PyTorch (name kept from the
     reference): chunk size = window; each q chunk attends to
-    its own + the previous chunk -> exact for span <= window."""
+    its own + the previous chunk -> exact for span <= window.  On
+    ``ctx``'s mesh the queries of each chunk split over the model axis
+    where the heads cannot, and the output is gathered back whole before
+    the chunks merge."""
     B, S, Hq, hd = q.shape
     Hkv = k.shape[2]
     w = min(window, S)
@@ -255,6 +413,10 @@ def local_attention_jnp(q, k, v, *, window: int,
     k = _repeat_kv(k, n_rep)
     v = _repeat_kv(v, n_rep)
     qc = q.reshape(B, n, w, Hq, hd)
+    split = ctx is not None and ctx.query_split(Hq, w)
+    ba = (ctx.batch_axes or None) if split else None
+    if split:
+        qc = ctx.shard(qc, ba, None, ctx.model_axis, None, None)
     kc = k.reshape(B, n, w, Hq, hd)
     vc = v.reshape(B, n, w, Hq, hd)
     # previous chunk (zeros before chunk 0)
@@ -274,6 +436,8 @@ def local_attention_jnp(q, k, v, *, window: int,
     m = torch.where(first[:, None, None], mask_first[None], mask[None])
     p = torch.softmax(_masked(s, m[None, :, None, :, :]), dim=-1).to(q.dtype)
     o = torch.einsum("bnhqk,bnkhd->bnqhd", p, v2)
+    if split:
+        o = ctx.shard(o, ba, None, None, None, None)
     return o.reshape(B, Sp, Hq, hd)[:, :S]
 
 
@@ -312,14 +476,108 @@ def init_attention(gen: torch.Generator, cfg, device=None) -> dict:
     return p
 
 
-def _project_qkv(p, x, cfg, positions, dt, use_rope: bool = True,
-                 ctx: Optional[ParallelCtx] = None):
-    B, S, _ = x.shape
+def split_heads(ctx: ParallelCtx, t: torch.Tensor, n: int,
+                hd: int) -> torch.Tensor:
+    """A projection (..., n*hd) as (..., n, hd), its last dim alone split.
+    Where the model axis does not divide ``n`` the projection is gathered
+    over it first, as the head constraint that follows asks: a view cannot
+    split a dim sharded 16 ways into 4 heads."""
+    if ctx.mesh is not None and ctx.head_axis(n) is None:
+        t = ctx.rows(t)
+    return t.unflatten(-1, (n, hd))
+
+
+def by_heads(ctx: ParallelCtx, core, q, k, v) -> torch.Tensor:
+    """``core(q, k, v, ctx)`` -- an attention over (B, S, H, hd) -- run by
+    each rank on its own rows and query heads, where the batch and the
+    heads split evenly over the mesh: the queries placed as (batch axes,
+    -, model, -), each rank's block given to ``core`` as plain tensors
+    (with a plain context) beside the key and value heads its query heads
+    read (:func:`_kv_block`), and the output put back with the queries'
+    placements.  Attention is independent across rows and heads, so
+    nothing crosses ranks.  DTensor itself would fold the batch and head
+    dims into one batch dim of its ``bmm``, and to fold two sharded dims
+    it gathers the heads whole.  Elsewhere ``core`` runs on the DTensors
+    (or plain tensors) as given."""
+    placements = rows_and_heads(ctx, q)
+    if placements is None:
+        return core(q, k, v)
+    ql = ctx.shard(q, ctx.batch_axes or None, None, ctx.model_axis,
+                   None).to_local()
+    kl, vl = (_kv_block(ctx, t, q.shape[2]) for t in (k, v))
+    o = core(ql, kl, vl, ctx=ctx.plain())
+    return DTensor.from_local(o, ctx.mesh, placements, run_check=False)
+
+
+def rows_and_heads(ctx: ParallelCtx, x, heads: int = 2) -> Optional[tuple]:
+    """The placements of ``x`` (rows first, heads on dim ``heads``) split
+    by rows over the batch axes and by heads over the model axis, where
+    ``x`` is a DTensor and both split evenly; else None."""
+    mesh = ctx.mesh
+    if not isinstance(x, DTensor) or ctx.head_axis(x.shape[heads]) is None:
+        return None
+    spec = [None] * x.ndim
+    spec[0], spec[heads] = ctx.batch_axes or None, ctx.model_axis
+    placements = spec_placements(mesh, spec)
+    n_rows = math.prod(mesh.size(i) for i, p in enumerate(placements)
+                       if p.is_shard(0))
+    return None if x.shape[0] % n_rows else placements
+
+
+def local_param(ctx: ParallelCtx, t: DTensor, *spec) -> torch.Tensor:
+    """This rank's block of parameter ``t`` placed by ``spec``, for a
+    computation on the rank's own rows: its gradient a partial sum over
+    the mesh axes that split the rows."""
+    placed = ctx.shard(t, *spec)
+    names = ctx.mesh.mesh_dim_names
+    return placed.to_local(grad_placements=[
+        Partial() if names[i] in ctx.batch_axes else p
+        for i, p in enumerate(placed.placements)])
+
+
+def _kv_block(ctx: ParallelCtx, t: DTensor, n_q: int) -> torch.Tensor:
+    """This rank's key (or value) heads for its block of ``n_q`` query
+    heads split over the model axis, repeated as ``_repeat_kv`` repeats
+    them (query head ``i`` reads head ``i // n_rep``): split over the
+    model axis too where it divides them, else whole on every rank and
+    the heads this rank reads picked out (their gradient then a partial
+    sum over the model axis)."""
+    ba = ctx.batch_axes or None
+    n_kv = t.shape[2]
+    n_rep = n_q // n_kv
+    if n_kv % ctx.model_size == 0:
+        local = ctx.shard(t, ba, None, ctx.model_axis, None).to_local()
+        return _repeat_kv(local, n_rep)
+    whole = ctx.shard(t, ba, None, None, None)
+    names = ctx.mesh.mesh_dim_names
+    local = whole.to_local(grad_placements=[
+        Partial() if names[i] == ctx.model_axis else p
+        for i, p in enumerate(whole.placements)])
+    per = n_q // ctx.model_size
+    first = ctx.mesh.get_local_rank(ctx.model_axis) * per
+    heads = torch.arange(first, first + per, device=local.device) // n_rep
+    return local[:, :, heads]
+
+
+def merge_heads(ctx: ParallelCtx, o: torch.Tensor) -> torch.Tensor:
+    """Heads (..., n, hd) merged as (..., n*hd).  Where the model axis
+    does not divide ``n`` the merged tensor is made whole on the model
+    axis, and so is its gradient: the backward's view cannot split a
+    gradient sharded over the model axis into ``n`` heads."""
+    n = o.shape[-2]
+    o = o.flatten(-2)
+    if ctx.mesh is not None and ctx.head_axis(n) is None:
+        o = ctx.rows(o)
+    return o
+
+
+def _project_qkv(p, x, cfg, positions, ctx: ParallelCtx,
+                 use_rope: bool = True):
     hd = cfg.hd
-    q = (x @ p["wq"].to(dt)).reshape(B, S, cfg.n_heads, hd)
-    k = (x @ p["wk"].to(dt)).reshape(B, S, cfg.n_kv, hd)
-    v = (x @ p["wv"].to(dt)).reshape(B, S, cfg.n_kv, hd)
-    if ctx is not None and (ctx.batch_axes or ctx.model_axis):
+    q = split_heads(ctx, ctx.proj(x, p["wq"]), cfg.n_heads, hd)
+    k = split_heads(ctx, ctx.proj(x, p["wk"]), cfg.n_kv, hd)
+    v = split_heads(ctx, ctx.proj(x, p["wv"]), cfg.n_kv, hd)
+    if ctx.batch_axes or ctx.model_axis:
         ba = ctx.batch_axes or None
         q = ctx.shard(q, ba, None, ctx.head_axis(cfg.n_heads), None)
         kv_ax = ctx.head_axis(cfg.n_kv)
@@ -339,24 +597,27 @@ def attention_layer(p, x, cfg, ctx: ParallelCtx, kind: str,
     """Training/prefill attention. kind in {'global','local','enc'}; an
     encoder ('enc') layer is unmasked on every route.  With ``return_kv``
     also returns the roped (k, v) for the decode cache."""
-    dt = ctx.compute_dtype
-    B, S, _ = x.shape
+    S = x.shape[1]
     causal = kind != "enc"
-    q, k, v = _project_qkv(p, x, cfg, positions, dt, use_rope=True, ctx=ctx)
-    if ctx.use_kernels:
-        window = cfg.window if kind == "local" else None
-        o = fa_kernel.flash_attention(q, k, v, causal=causal, window=window,
-                                      softcap=cfg.attn_softcap)
-    elif kind == "local":
-        o = local_attention_jnp(q, k, v, window=cfg.window,
-                                softcap=cfg.attn_softcap)
-    elif S >= ctx.flash_threshold and causal:
-        o = flash_attention_jnp(q, k, v, causal=True,
-                                softcap=cfg.attn_softcap,
-                                block=ctx.flash_block)
-    else:
-        o = full_attention(q, k, v, causal=causal, softcap=cfg.attn_softcap)
-    o = o.reshape(B, S, cfg.n_heads * cfg.hd) @ p["wo"].to(dt)
+    q, k, v = _project_qkv(p, x, cfg, positions, ctx)
+
+    def core(q, k, v, ctx=ctx):
+        if ctx.use_kernels:
+            window = cfg.window if kind == "local" else None
+            return fa_kernel.flash_attention(q, k, v, causal=causal,
+                                             window=window,
+                                             softcap=cfg.attn_softcap)
+        if kind == "local":
+            return local_attention_jnp(q, k, v, window=cfg.window,
+                                       softcap=cfg.attn_softcap, ctx=ctx)
+        if S >= ctx.flash_threshold and causal:
+            return flash_attention_jnp(q, k, v, causal=True,
+                                       softcap=cfg.attn_softcap,
+                                       block=ctx.flash_block, ctx=ctx)
+        return full_attention(q, k, v, causal=causal,
+                              softcap=cfg.attn_softcap, ctx=ctx)
+    o = by_heads(ctx, core, q, k, v)
+    o = ctx.proj(merge_heads(ctx, o), p["wo"])
     return (o, k, v) if return_kv else o
 
 
@@ -370,8 +631,7 @@ def attention_decode(p, x, cache, cfg, ctx: ParallelCtx, kind: str,
     copies) and returns the same dict."""
     dt = ctx.compute_dtype
     B = x.shape[0]
-    q, k, v = _project_qkv(p, x, cfg, positions[:, None], dt, use_rope=True,
-                           ctx=ctx)
+    q, k, v = _project_qkv(p, x, cfg, positions[:, None], ctx)
     C = cache["k"].shape[1]
     slot = positions % C if kind == "local" else positions
     if isinstance(cache["k"], DTensor):
@@ -394,7 +654,7 @@ def attention_decode(p, x, cache, cfg, ctx: ParallelCtx, kind: str,
         valid = kpos <= positions[:, None]
     o = decode_attention(q, cache["k"].to(dt), cache["v"].to(dt),
                          length_mask=valid, softcap=cfg.attn_softcap)
-    o = o.reshape(B, 1, cfg.n_heads * cfg.hd) @ p["wo"].to(dt)
+    o = ctx.proj(merge_heads(ctx, o), p["wo"])
     return o, cache
 
 
@@ -427,8 +687,7 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
 
 
 def mlp(p, x, cfg, ctx: ParallelCtx) -> torch.Tensor:
-    dt = ctx.compute_dtype
     act = gelu if cfg.act == "gelu" else F.silu
-    h = act(x @ p["wg"].to(dt)) * (x @ p["wu"].to(dt))
+    h = act(ctx.proj(x, p["wg"])) * ctx.proj(x, p["wu"])
     h = ctx.shard(h, ctx.batch_axes or None, None, ctx.model_axis)
-    return h @ p["wd"].to(dt)
+    return ctx.proj(h, p["wd"])

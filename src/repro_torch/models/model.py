@@ -84,12 +84,12 @@ class Model:
     def _embed_inputs(self, params, batch) -> torch.Tensor:
         cfg, ctx = self.cfg, self.ctx
         x = embed(self._tokens(batch["tokens"]), params["embed"],
-                  ctx.compute_dtype)
+                  ctx.compute_dtype, ctx)
         if cfg.frontend == "vision" and "patches" in batch:
             n = min(cfg.n_patches, x.shape[1])
             patches = torch.as_tensor(batch["patches"], device=x.device)
             x[:, :n] = patches[:, :n].to(x.dtype)
-        return x
+        return ctx.rows(x)
 
     def _encode(self, params, batch) -> Optional[torch.Tensor]:
         if not self.cfg.is_encdec:
@@ -102,7 +102,8 @@ class Model:
         return rms_norm(h, params["enc_norm"], self.cfg.norm_eps)
 
     def _logits(self, params, x) -> torch.Tensor:
-        table = params.get("lm_head", params["embed"])
+        table = self.ctx.weight(params.get("lm_head", params["embed"]), x,
+                                x.dtype)
         return unembed(x, table, self.cfg.final_softcap)
 
     # -- entry points -------------------------------------------------------------
@@ -114,7 +115,7 @@ class Model:
         pos = torch.arange(x.shape[1], device=x.device)
         x, aux, _ = tf.apply_stack(params["stack"], x, cfg, ctx, self.sm, pos,
                                    enc_out=enc_out)
-        x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+        x = ctx.rows(rms_norm(x, params["final_norm"], cfg.norm_eps))
         return self._logits(params, x), aux
 
     def init_cache(self, B: int, max_len: int,
@@ -139,7 +140,8 @@ class Model:
         """One decode step. tokens (B,1), positions (B,) integers.
         Returns (logits (B,V) fp32, cache updated in place)."""
         cfg, ctx = self.cfg, self.ctx
-        x = embed(self._tokens(tokens), params["embed"], ctx.compute_dtype)
+        x = ctx.rows(embed(self._tokens(tokens), params["embed"],
+                           ctx.compute_dtype, ctx))
         x, cache = tf.apply_stack_decode(params["stack"], x, cache, cfg, ctx,
                                          self.sm, self._tokens(positions))
         x = rms_norm(x, params["final_norm"], cfg.norm_eps)

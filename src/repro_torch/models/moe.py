@@ -28,7 +28,11 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from .layers import ParallelCtx, _dense_init, gelu
+from torch.distributed.tensor import DTensor, Partial
+
+from ..launch.sharding import spec_placements
+from .layers import (ParallelCtx, _dense_init, gelu, local_param,
+                     rows_and_heads)
 
 
 def init_moe(gen: torch.Generator, cfg, device=None) -> dict:
@@ -75,12 +79,16 @@ def _aux_loss(logits: torch.Tensor, idx: torch.Tensor, E: int) -> torch.Tensor:
     return E * torch.sum(probs_mean * frac)
 
 
-def _expert_ffn(p, xin: torch.Tensor, cfg, dt) -> torch.Tensor:
+def _expert_ffn(p, xin: torch.Tensor, cfg,
+                ctx: ParallelCtx) -> torch.Tensor:
     """xin: (..., E, C, d) -> (..., E, C, d) through per-expert gated MLP."""
+    dt = ctx.compute_dtype
     act = gelu if cfg.act == "gelu" else F.silu
-    h = act(torch.einsum("...ecd,edf->...ecf", xin, p["wg"].to(dt)))
-    h = h * torch.einsum("...ecd,edf->...ecf", xin, p["wu"].to(dt))
-    return torch.einsum("...ecf,efd->...ecd", h, p["wd"].to(dt))
+    h = act(torch.einsum("...ecd,edf->...ecf", xin,
+                         ctx.weight(p["wg"], xin, dt)))
+    h = h * torch.einsum("...ecd,edf->...ecf", xin,
+                         ctx.weight(p["wu"], xin, dt))
+    return torch.einsum("...ecf,efd->...ecd", h, ctx.weight(p["wd"], h, dt))
 
 
 def _slot_positions(oh: torch.Tensor, prev_counts: torch.Tensor):
@@ -100,38 +108,82 @@ def moe_layer_einsum(p, x: torch.Tensor, cfg, ctx: ParallelCtx,
     E, k = cfg.n_experts, max(1, cfg.top_k)
     G, g, C = _group(cfg, B * S, group)
 
-    xg = x.reshape(G, g, d)
-    logits = xg @ p["router"].to(dt)                         # (G, g, E)
+    # groups split over the batch axes as the rows were, whole on the
+    # model axis, and so is their gradient (the view back to (B, S, d)
+    # cannot merge a dim split over two mesh axes)
+    ba = ctx.batch_axes or None
+    xg = ctx.shard(x.reshape(G, g, d), ba, None, None)
+    logits = ctx.proj(xg, p["router"])                     # (G, g, E)
     gate_vals, idx = _route(logits, k)
     aux = _aux_loss(logits, idx, E)
 
-    # per-slot dispatch with capacity-priority across slots
-    disp = torch.zeros((G, g, E, C), dtype=dt, device=x.device)
-    comb = torch.zeros((G, g, E, C), dtype=torch.float32, device=x.device)
+    # per-slot dispatch with capacity-priority across slots.  On a mesh
+    # the one-hots are split over experts from the start (the constraint
+    # on disp / comb below, which XLA carries back to them), and the sums
+    # start at the first slot (the same values as from zeros)
+    e_axis = ctx.head_axis(E)                # the model axis iff it divides E
+    disp = comb = None
     prev_counts = torch.zeros((G, E), dtype=torch.long, device=x.device)
     for slot in range(k):
-        oh = _one_hot(idx[..., slot], E)                     # (G, g, E)
-        pos = _slot_positions(oh, prev_counts)
+        oh = ctx.shard(_one_hot(idx[..., slot], E), ba, None, e_axis)
+        pos = _slot_positions(oh, prev_counts)              # (G, g, E)
         keep = (pos < C) & (oh > 0)
-        pos_oh = _one_hot(pos, C).to(dt) * keep[..., None].to(dt)
+        # the (G, g, E, C) one-hot built as bool, not int64 (8 bytes an
+        # entry: 5 GB a device in a 32k prefill); the same 0 / 1 values
+        pos_oh = ((pos[..., None] == torch.arange(C, device=x.device))
+                  & keep[..., None]).to(dt)
         slot_disp = oh[..., None].to(dt) * pos_oh           # (G,g,E,C)
-        disp = disp + slot_disp
-        comb = comb + slot_disp.float() * gate_vals[..., slot][..., None, None]
+        slot_comb = slot_disp.float() * gate_vals[..., slot][..., None, None]
+        disp = slot_disp if disp is None else disp + slot_disp
+        comb = slot_comb if comb is None else comb + slot_comb
         prev_counts = prev_counts + torch.sum(oh * keep, dim=1)
 
     # dispatch -> expert FFN -> combine.  On a mesh, the constraints
     # implement EP: groups shard over the batch axes, experts over the
     # model axis; the G<->E resharding of xin/out_e is expert parallelism's
     # all-to-all.
-    ba = ctx.batch_axes or None
     disp = ctx.shard(disp, ba, None, ctx.model_axis, None)
     comb = ctx.shard(comb, ba, None, ctx.model_axis, None)
-    xin = torch.einsum("gsec,gsd->gecd", disp, xg)           # (G, E, C, d)
-    xin = ctx.shard(xin, ba, ctx.model_axis, None, None)
-    out_e = _expert_ffn(p, xin, cfg, dt)                     # (G, E, C, d)
-    out_e = ctx.shard(out_e, ba, ctx.model_axis, None, None)
-    out = torch.einsum("gsec,gecd->gsd", comb.to(dt), out_e)
-    return out.reshape(B, S, d), aux
+    out = _experts_by_rows(p, cfg, ctx, disp, comb, xg)
+    if out is None:
+        xin = torch.einsum("gsec,gsd->gecd", disp, xg)       # (G, E, C, d)
+        xin = ctx.shard(xin, ba, ctx.model_axis, None, None)
+        out_e = _expert_ffn(p, xin, cfg, ctx)                # (G, E, C, d)
+        out_e = ctx.shard(out_e, ba, ctx.model_axis, None, None)
+        out = torch.einsum("gsec,gecd->gsd", comb.to(dt), out_e)
+    return ctx.shard(out, ba, None, None).reshape(B, S, d), aux
+
+
+def _experts_by_rows(p, cfg, ctx: ParallelCtx, disp, comb, xg):
+    """Dispatch, expert FFN and combine run by each rank on its own groups
+    and experts, where the mesh splits both evenly: the rank's blocks of
+    ``disp`` / ``comb`` (groups over the batch axes, experts over the model
+    axis), its groups' tokens and its experts' weights (gathered over the
+    other axes) as plain tensors; the combine, a sum over the rank's
+    experts, comes back as a partial sum over the model axis for the
+    caller's constraint to sum.  DTensor would fold groups and experts
+    into one batch dim of its ``bmm``, and refuses to fold two split
+    dims.  None where the mesh does not split them evenly."""
+    placements = rows_and_heads(ctx, disp)
+    if placements is None:
+        return None
+    mesh, ba, m = ctx.mesh, ctx.batch_axes or None, ctx.model_axis
+    names = mesh.mesh_dim_names
+    d_l, c_l = (ctx.shard(t, ba, None, m, None).to_local()
+                for t in (disp, comb))
+    rows = ctx.shard(xg, ba, None, None)
+    x_l = rows.to_local(grad_placements=[
+        Partial() if names[i] == m else pl
+        for i, pl in enumerate(rows.placements)])
+    plain = ctx.plain()
+    weights = {n: local_param(ctx, p[n], m, None, None) for n in
+               ("wg", "wu", "wd")}
+    xin = torch.einsum("gsec,gsd->gecd", d_l, x_l)
+    out_e = _expert_ffn(weights, xin, cfg, plain)
+    out = torch.einsum("gsec,gecd->gsd", c_l.to(plain.compute_dtype), out_e)
+    return DTensor.from_local(out, mesh, [
+        Partial() if names[i] == m else pl for i, pl in
+        enumerate(spec_placements(mesh, (ba, None, None)))], run_check=False)
 
 
 # ---------------------------------------------------------------------------
@@ -144,8 +196,9 @@ def moe_layer_scatter(p, x: torch.Tensor, cfg, ctx: ParallelCtx,
     E, k = cfg.n_experts, max(1, cfg.top_k)
     G, g, C = _group(cfg, B * S, group)
 
-    xg = x.reshape(G, g, d)
-    logits = xg @ p["router"].to(dt)
+    ba = ctx.batch_axes or None
+    xg = ctx.shard(x.reshape(G, g, d), ba, None, None)
+    logits = ctx.proj(xg, p["router"])
     gate_vals, idx = _route(logits, k)
     aux = _aux_loss(logits, idx, E)
 
@@ -168,7 +221,7 @@ def moe_layer_scatter(p, x: torch.Tensor, cfg, ctx: ParallelCtx,
                        torch.where(slot_keep[slot][..., None], xg,
                                    torch.zeros((), dtype=dt, device=x.device)),
                        accumulate=True)
-    out_e = _expert_ffn(p, xin[:, :, :C], cfg, dt)           # (G, E, C, d)
+    out_e = _expert_ffn(p, xin[:, :, :C], cfg, ctx)          # (G, E, C, d)
     out_e = F.pad(out_e, (0, 0, 0, 1))                       # overflow -> 0
 
     out = torch.zeros((G, g, d), dtype=dt, device=x.device)
@@ -176,7 +229,7 @@ def moe_layer_scatter(p, x: torch.Tensor, cfg, ctx: ParallelCtx,
         y = out_e[gidx, idx[..., slot], slot_pos[slot]]      # (G, g, d)
         w = (gate_vals[..., slot] * slot_keep[slot])[..., None].to(dt)
         out = out + y * w
-    return out.reshape(B, S, d), aux
+    return ctx.shard(out, ba, None, None).reshape(B, S, d), aux
 
 
 def moe_layer(p, x: torch.Tensor, cfg, ctx: ParallelCtx,

@@ -26,9 +26,12 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 
 from ..kernels import lru_scan as lru_kernel
-from .layers import ParallelCtx, _dense_init, gelu, init_norm, rms_norm
+from ..launch.sharding import spec_placements
+from .layers import (ParallelCtx, _dense_init, gelu, init_norm, local_param,
+                     merge_heads, rms_norm, rows_and_heads, split_heads)
 
 RG_LRU_C = 8.0
 
@@ -100,15 +103,15 @@ def rglru_layer(p, x: torch.Tensor, cfg, ctx: ParallelCtx,
                 return_cache: bool = False):
     """Training/prefill: (B, S, d) -> (B, S, d)."""
     dt = ctx.compute_dtype
-    u_pre = x @ p["w_x"].to(dt)                    # (B, S, W) pre-conv
+    u_pre = ctx.proj(x, p["w_x"])                      # (B, S, W) pre-conv
     u = _causal_conv(p, u_pre)
     a, b = _rglru_gates(p, u)
     if ctx.use_kernels:
         h = lru_kernel.lru_scan(a, b)
     else:
         h = associative_scan(a, b)
-    gate = gelu(x @ p["w_gate"].to(dt))
-    out = (h.to(dt) * gate) @ p["w_out"].to(dt)
+    gate = gelu(ctx.proj(x, p["w_gate"]))
+    out = ctx.proj(h.to(dt) * gate, p["w_out"])
     if return_cache:
         K = p["conv_w"].shape[0]
         conv_hist = u_pre[:, -(K - 1):]
@@ -123,14 +126,14 @@ def rglru_decode(p, x: torch.Tensor, cache: dict, cfg, ctx: ParallelCtx):
     """One step. x: (B, 1, d); cache = {'h': (B,W) fp32, 'conv': (B,K-1,W)}.
     The cache tensors are updated **in place** and the same dict returned."""
     dt = ctx.compute_dtype
-    u = x @ p["w_x"].to(dt)                        # (B, 1, W)
+    u = ctx.proj(x, p["w_x"])                          # (B, 1, W)
     hist = torch.cat([cache["conv"].to(dt), u], dim=1)   # (B,K,W)
     uc = torch.einsum("bkw,kw->bw", hist, p["conv_w"].to(dt))[:, None]
     uc = uc + p["conv_b"].to(dt)
     a, b = _rglru_gates(p, uc)                     # (B,1,W)
     h = a[:, 0] * cache["h"] + b[:, 0]
-    gate = gelu(x @ p["w_gate"].to(dt))
-    out = (h[:, None].to(dt) * gate) @ p["w_out"].to(dt)
+    gate = gelu(ctx.proj(x, p["w_gate"]))
+    out = ctx.proj(h[:, None].to(dt) * gate, p["w_out"])
     cache["h"].copy_(h)
     cache["conv"].copy_(hist[:, 1:])
     return out, cache
@@ -175,25 +178,29 @@ def init_rwkv(gen: torch.Generator, cfg, device=None) -> dict:
     }
 
 
-def _rwkv_project(p, x: torch.Tensor, x_prev: torch.Tensor, cfg, dt):
-    """Token-shift + projections. x, x_prev: (B, S, d)."""
-    B, S, d = x.shape
+def _rwkv_project(p, x: torch.Tensor, x_prev: torch.Tensor, cfg,
+                  ctx: ParallelCtx):
+    """Token-shift + projections. x, x_prev: (B, S, d); r, k, v and the
+    decay come out (B, S, H, hd) (``split_heads``)."""
+    dt = ctx.compute_dtype
     H, hd = cfg.n_heads, cfg.hd
     mu = p["mu"].to(dt)
     xs = [x + mu[i] * (x_prev - x) for i in range(5)]
-    r = (xs[0] @ p["w_r"].to(dt)).reshape(B, S, H, hd)
-    k = (xs[1] @ p["w_k"].to(dt)).reshape(B, S, H, hd)
-    v = (xs[2] @ p["w_v"].to(dt)).reshape(B, S, H, hd)
-    w_raw = (xs[3] @ p["w_lora_a"].to(dt)) @ p["w_lora_b"].to(dt)
+    r = split_heads(ctx, ctx.proj(xs[0], p["w_r"]), H, hd)
+    k = split_heads(ctx, ctx.proj(xs[1], p["w_k"]), H, hd)
+    v = split_heads(ctx, ctx.proj(xs[2], p["w_v"]), H, hd)
+    w_raw = ctx.proj(ctx.proj(xs[3], p["w_lora_a"]), p["w_lora_b"])
     log_w = -torch.exp(torch.clamp(w_raw.float() + p["w_bias"],
                                    -8.0, 8.0))               # (B,S,d) <= 0
-    log_w = log_w.reshape(B, S, H, hd)
-    g = F.silu(xs[4] @ p["w_g"].to(dt))
+    log_w = split_heads(ctx, log_w, H, hd)
+    g = F.silu(ctx.proj(xs[4], p["w_g"]))
     return r, k, v, log_w, g
 
 
 def _shift(x: torch.Tensor) -> torch.Tensor:
-    return F.pad(x, (0, 0, 1, 0))[:, :-1]
+    """x delayed one step along axis 1, zeros first (by ``cat``: DTensor
+    has no sharding rule for the pad of a sharded tensor)."""
+    return torch.cat([torch.zeros_like(x[:, :1]), x[:, :-1]], dim=1)
 
 
 # "factored" (default): per-row decay factors, no pairwise tensor.
@@ -268,34 +275,74 @@ def wkv_chunked(r, k, v, log_w, u, chunk: int = 16,
     return o.reshape(B, S, H, hd), state
 
 
+def _wkv_by_heads(ctx: ParallelCtx, r, k, v, log_w, u, chunk: int):
+    """``wkv_chunked`` run by each rank on its own rows and heads, where
+    the mesh splits both evenly (``layers.rows_and_heads``): the
+    recurrence is independent across rows and heads, so nothing crosses
+    ranks, and DTensor never sees its ops (it has no rule for the flip in
+    ``cumsum``'s backward, and would gather).  Elsewhere on the tensors as
+    given."""
+    placements = rows_and_heads(ctx, r)
+    if placements is None:
+        return wkv_chunked(r, k, v, log_w, u, chunk=chunk)
+    ba, m = ctx.batch_axes or None, ctx.model_axis
+    local = [ctx.shard(t, ba, None, m, None).to_local()
+             for t in (r, k, v, log_w)]
+    o, state = wkv_chunked(*local, local_param(ctx, u, m, None), chunk=chunk)
+    return (DTensor.from_local(o, ctx.mesh, placements, run_check=False),
+            DTensor.from_local(state, ctx.mesh, spec_placements(
+                ctx.mesh, (ba, m, None, None)), run_check=False))
+
+
 def rwkv_layer(p, x: torch.Tensor, cfg, ctx: ParallelCtx,
                chunk: Optional[int] = None, return_cache: bool = False):
     dt = ctx.compute_dtype
-    B, S, d = x.shape
-    r, k, v, log_w, g = _rwkv_project(p, x, _shift(x), cfg, dt)
-    o, state = wkv_chunked(r, k, v, log_w, p["u"], chunk=chunk or WKV_CHUNK)
-    o = rms_norm(o.reshape(B, S, d).to(dt), p["ln_out"], cfg.norm_eps)
-    out = (o * g) @ p["w_o"].to(dt)
+    r, k, v, log_w, g = _rwkv_project(p, x, _shift(x), cfg, ctx)
+    o, state = _wkv_by_heads(ctx, r, k, v, log_w, p["u"], chunk or WKV_CHUNK)
+    o = rms_norm(merge_heads(ctx, o).to(dt), p["ln_out"], cfg.norm_eps)
+    out = ctx.proj(o * g, p["w_o"])
     if return_cache:
         return out, {"state": state, "x_prev": x[:, -1:]}
     return out
+
+
+def _wkv_step(rt, kt, vt, w, S0, u):
+    """One WKV step: rt, kt, vt, w (B, H, hd); S0 (B, H, hd, hd)."""
+    o = torch.einsum("bhk,bhkv->bhv", rt, S0)
+    bonus = torch.einsum("bhk,hk,bhk->bh", rt, u.float(), kt)
+    o = o + bonus[..., None] * vt
+    S1 = S0 * w[..., None] + torch.einsum("bhk,bhv->bhkv", kt, vt)
+    return o, S1
+
+
+def _wkv_step_by_heads(ctx: ParallelCtx, rt, kt, vt, w, S0, u):
+    """``_wkv_step`` run by each rank on its own rows and heads, as
+    ``_wkv_by_heads`` runs the chunked form; elsewhere on the tensors as
+    given."""
+    placements = rows_and_heads(ctx, rt, heads=1)
+    if placements is None:
+        return _wkv_step(rt, kt, vt, w, S0, u)
+    ba, m, mesh = ctx.batch_axes or None, ctx.model_axis, ctx.mesh
+    local = [ctx.shard(t, ba, m, None).to_local() for t in (rt, kt, vt, w)]
+    o, S1 = _wkv_step(*local, ctx.shard(S0, ba, m, None, None).to_local(),
+                      local_param(ctx, u, m, None))
+    return (DTensor.from_local(o, mesh, placements, run_check=False),
+            DTensor.from_local(S1, mesh, spec_placements(
+                mesh, (ba, m, None, None)), run_check=False))
 
 
 def rwkv_decode(p, x: torch.Tensor, cache: dict, cfg, ctx: ParallelCtx):
     """One step. x: (B, 1, d); cache = {'state': (B,H,hd,hd) fp32,
     'x_prev': (B,1,d)}, updated **in place** and the same dict returned."""
     dt = ctx.compute_dtype
-    B, _, d = x.shape
-    r, k, v, log_w, g = _rwkv_project(p, x, cache["x_prev"].to(dt), cfg, dt)
+    r, k, v, log_w, g = _rwkv_project(p, x, cache["x_prev"].to(dt), cfg,
+                                      ctx)
     rt, kt, vt = (a[:, 0].float() for a in (r, k, v))
     w = torch.exp(log_w[:, 0])                            # (B,H,hd)
-    S0 = cache["state"]
-    o = torch.einsum("bhk,bhkv->bhv", rt, S0)
-    bonus = torch.einsum("bhk,hk,bhk->bh", rt, p["u"].float(), kt)
-    o = o + bonus[..., None] * vt
-    S1 = S0 * w[..., None] + torch.einsum("bhk,bhv->bhkv", kt, vt)
-    o = rms_norm(o.reshape(B, 1, d).to(dt), p["ln_out"], cfg.norm_eps)
-    out = (o * g) @ p["w_o"].to(dt)
+    o, S1 = _wkv_step_by_heads(ctx, rt, kt, vt, w, cache["state"], p["u"])
+    o = rms_norm(merge_heads(ctx, o)[:, None].to(dt), p["ln_out"],
+                 cfg.norm_eps)
+    out = ctx.proj(o * g, p["w_o"])
     cache["state"].copy_(S1)
     cache["x_prev"].copy_(x)
     return out, cache

@@ -34,7 +34,8 @@ from . import moe as moe_mod
 from . import recurrent as rec
 from .layers import (ParallelCtx, attention_decode, attention_layer,
                      decode_attention, full_attention, init_attention,
-                     init_attn_cache, init_mlp, init_norm, mlp, rms_norm)
+                     init_attn_cache, init_mlp, init_norm, merge_heads, mlp,
+                     own_layout, rms_norm, split_heads)
 
 ATTN_KINDS = ("global", "local", "enc")
 
@@ -56,8 +57,9 @@ def layer_meta(cfg, i: int) -> dict:
 
 
 def _index(tree, i: int):
-    """Views of superblock ``i`` of a stacked tree."""
-    return tree_map(lambda t: t[i], tree)
+    """Views of superblock ``i`` of a stacked tree (on a mesh, each with
+    its gradient in its own shards: ``layers.own_layout``)."""
+    return tree_map(lambda t: own_layout(t[i]), tree)
 
 
 # ---------------------------------------------------------------------------
@@ -126,8 +128,13 @@ def _write_attn_cache(entry: dict, k: torch.Tensor, v: torch.Tensor,
     S = k.shape[1]
     C = entry["k"].shape[1]
     if kind == "local" and S >= C:
-        entry["k"].copy_(torch.roll(k[:, -C:], S % C, dims=1))
-        entry["v"].copy_(torch.roll(v[:, -C:], S % C, dims=1))
+        r = S % C
+        for name, t in (("k", k), ("v", v)):
+            last = t[:, -C:]
+            # ``torch.roll(last, r, dims=1)`` by slices (DTensor has a
+            # sharding rule for these and none for ``roll``)
+            entry[name].copy_(torch.cat([last[:, C - r:], last[:, :C - r]],
+                                        dim=1) if r else last)
         return entry
     n = min(S, C)
     entry["k"][:, :n] = k[:, :n].to(entry["k"].dtype)
@@ -152,7 +159,7 @@ def apply_layer(p, x, cfg, ctx: ParallelCtx, meta: dict,
     when given, is filled in place."""
     kind = meta["kind"]
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    h = rms_norm(x, p["norm1"], cfg.norm_eps)
+    h = ctx.rows(rms_norm(x, p["norm1"], cfg.norm_eps))
     if kind in ATTN_KINDS:
         if cache is not None:
             o, k, v = attention_layer(p["attn"], h, cfg, ctx, kind, positions,
@@ -167,19 +174,19 @@ def apply_layer(p, x, cfg, ctx: ParallelCtx, meta: dict,
             _fill(cache["rec"], st)
         else:
             o = layer(p[kind], h, cfg, ctx)
-    x = x + o
+    x = x + ctx.rows(o)
     if has_cross(meta) and enc_out is not None:
-        hx = rms_norm(x, p["norm_x"], cfg.norm_eps)
+        hx = ctx.rows(rms_norm(x, p["norm_x"], cfg.norm_eps))
         o, ckv = _cross_attention(p["cross"], hx, enc_out, cfg, ctx)
-        x = x + o
+        x = x + ctx.rows(o)
         if cache is not None:
             _fill(cache["cross_kv"], ckv)
-    h = rms_norm(x, p["norm2"], cfg.norm_eps)
+    h = ctx.rows(rms_norm(x, p["norm2"], cfg.norm_eps))
     if meta["moe"]:
         o, aux = moe_mod.moe_layer(p["moe"], h, cfg, ctx)
     else:
         o = mlp(p["mlp"], h, cfg, ctx)
-    x = x + o
+    x = x + ctx.rows(o)
     return x, aux, cache
 
 
@@ -187,15 +194,12 @@ def _cross_attention(p, x, enc_out, cfg, ctx: ParallelCtx):
     """Decoder cross-attention over encoder output (no mask, no rope; the
     plain ``full_attention``, as in the reference: B5 takes only a query
     length equal to the key length)."""
-    dt = ctx.compute_dtype
-    B, S, _ = x.shape
     hd = cfg.hd
-    q = (x @ p["wq"].to(dt)).reshape(B, S, cfg.n_heads, hd)
-    Senc = enc_out.shape[1]
-    k = (enc_out @ p["wk"].to(dt)).reshape(B, Senc, cfg.n_kv, hd)
-    v = (enc_out @ p["wv"].to(dt)).reshape(B, Senc, cfg.n_kv, hd)
-    o = full_attention(q, k, v, causal=False)
-    o = o.reshape(B, S, cfg.n_heads * hd) @ p["wo"].to(dt)
+    q = split_heads(ctx, ctx.proj(x, p["wq"]), cfg.n_heads, hd)
+    k = split_heads(ctx, ctx.proj(enc_out, p["wk"]), cfg.n_kv, hd)
+    v = split_heads(ctx, ctx.proj(enc_out, p["wv"]), cfg.n_kv, hd)
+    o = full_attention(q, k, v, causal=False, ctx=ctx)
+    o = ctx.proj(merge_heads(ctx, o), p["wo"])
     return o, {"k": k, "v": v}
 
 
@@ -203,12 +207,12 @@ def _cross_decode(p, x, cross_kv, cfg, ctx: ParallelCtx) -> torch.Tensor:
     dt = ctx.compute_dtype
     B = x.shape[0]
     hd = cfg.hd
-    q = (x @ p["wq"].to(dt)).reshape(B, 1, cfg.n_heads, hd)
+    q = split_heads(ctx, ctx.proj(x, p["wq"]), cfg.n_heads, hd)
     k = cross_kv["k"].to(dt)
     v = cross_kv["v"].to(dt)
     mask = torch.ones((B, k.shape[1]), dtype=torch.bool, device=x.device)
     o = decode_attention(q, k, v, length_mask=mask)
-    return o.reshape(B, 1, cfg.n_heads * hd) @ p["wo"].to(dt)
+    return ctx.proj(merge_heads(ctx, o), p["wo"])
 
 
 def apply_layer_decode(p, x, cache, cfg, ctx: ParallelCtx, meta: dict,
@@ -222,16 +226,17 @@ def apply_layer_decode(p, x, cache, cfg, ctx: ParallelCtx, meta: dict,
         o, _ = rec.rglru_decode(p["rglru"], h, cache["rec"], cfg, ctx)
     else:
         o, _ = rec.rwkv_decode(p["rwkv"], h, cache["rec"], cfg, ctx)
-    x = x + o
+    x = x + ctx.rows(o)
     if has_cross(meta) and "cross_kv" in cache:
         hx = rms_norm(x, p["norm_x"], cfg.norm_eps)
-        x = x + _cross_decode(p["cross"], hx, cache["cross_kv"], cfg, ctx)
+        x = x + ctx.rows(_cross_decode(p["cross"], hx, cache["cross_kv"],
+                                       cfg, ctx))
     h = rms_norm(x, p["norm2"], cfg.norm_eps)
     if meta["moe"]:
         o, _ = moe_mod.moe_layer(p["moe"], h, cfg, ctx)
     else:
         o = mlp(p["mlp"], h, cfg, ctx)
-    return x + o, cache
+    return x + ctx.rows(o), cache
 
 
 # ---------------------------------------------------------------------------
