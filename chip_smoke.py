@@ -104,7 +104,9 @@ The phases run in the order kernels, ``model_x_smoke``, ``x8``,
 ``train_full``, ``placement``, ``train_mesh``, ``dryrun``.
 ``--compare PARENT --session
 vr|x128`` instead runs a session of the tree at PARENT and of this one in
-turns, each in a fresh process.  One JSON object per line; the last line
+turns, each in a fresh process; ``--session flash`` there times B5's rows
+(``ms``, ``body_ms``, SDPA's ``library_ms``) and the bf16 prefill of the
+families that run B5, per tree.  One JSON object per line; the last line
 is ``{"ok": true, "device": {...}}``.  Any failing phase raises, and the
 script exits non-zero without printing a result.  Without a CUDA device
 it fails at once: there is no CPU path.
@@ -175,7 +177,7 @@ T_TOL = 1e-9                # finish times: card vs CPU, fused vs reference
 # cancel) carries an error that scales with its row, not with itself:
 # allowed = 2^-7 * |plain| + 2^-6 * rms(plain over the row's hd entries),
 # ``fa_kernel.bf16_allowed``.  A tile-wise emulation of the kernel's
-# rounding on the CPU (tests/test_torch_model_kernels.py) lands at 0.55-0.61
+# rounding on the CPU (tests/test_torch_model_kernels.py) lands at 0.54-0.63
 # of that, a window off by one key two orders of magnitude above it.
 ATTN_F32_TOL = 1e-4
 ATTN_X100_TOL = 2e-3
@@ -1155,14 +1157,41 @@ def _sdpa(q, k, v, causal=True, window=None):
         scale=1.0 / hd ** 0.5).transpose(1, 2)
 
 
+def flash_edge_cases() -> list:
+    """B5's cases at the edges of the bf16 kernel's tiles at hd 64 and 96
+    (:data:`fa_kernel.BF16_TILES`): S one below, one above and one above
+    twice a kv tile, windows one key either side of a kv tile, GQA 2:1 at
+    an S no tile divides, hd 96 unmasked at such an S."""
+    bk = fa_kernel.BF16_TILES[64][1]
+    bq = fa_kernel.BF16_TILES[64][0]
+    return [
+        # (B, S, Hq, Hkv, hd, kwargs, logit scale)
+        (1, bk - 1, 4, 2, 64, {}, 1.0),
+        (1, bk + 1, 4, 2, 64, {}, 1.0),
+        (2, 2 * bk + 1, 4, 4, 64, {}, 1.0),
+        (1, 2 * bq + 1, 4, 4, 64, {"causal": False}, 1.0),
+        (1, 4 * bk + 3, 4, 2, 64, {"window": bk - 1}, 1.0),
+        (1, 4 * bk + 3, 4, 2, 64, {"window": bk + 1}, 1.0),
+        (2, 3 * bk + 5, 8, 4, 64, {}, 1.0),
+        (1, fa_kernel.BF16_TILES[96][1] * 2 + 37, 4, 4, 96,
+         {"causal": False}, 1.0),
+    ]
+
+
 def check_flash(dev, rng) -> dict:
     """B5 on the card against its plain version: MHA / GQA / MQA, hd 16 to
     256 (96 among them: three 32-column boxes), causal only, windows
     (shorter than a kv tile, S > window), softcap, x100 logits,
-    non-causal, S below one tile and S that no tile divides; float32 (the
-    CUDA-core kernel) and bfloat16 (the tensor-core kernel).
+    non-causal, S below one tile and S that no tile divides, and the
+    tile edges of :func:`flash_edge_cases`; float32 (the CUDA-core
+    kernel) and bfloat16 (the tensor-core kernel).  The library's own
+    tile table must equal the wrapper's (``BF16_TILES``).
     SDPA's own distance from the plain version is taken on the same bf16
     inputs, where it computes the same function (no softcap)."""
+    tiles = {hd: fa_kernel.kernel_tiles(hd) for hd in fa_kernel.KERNEL_HEAD_DIMS}
+    if tiles != fa_kernel.BF16_TILES:
+        raise AssertionError(f"the library's bf16 tiles {tiles} differ from "
+                             f"the wrapper's {fa_kernel.BF16_TILES}")
     cases = [
         # (B, S, Hq, Hkv, hd, kwargs, logit scale)
         (1, 256, 4, 4, 64, {}, 1.0),
@@ -1181,6 +1210,7 @@ def check_flash(dev, rng) -> dict:
         (1, 512, 4, 4, 96, {"window": 100, "softcap": 30.0}, 1.0),
         (2, 300, 4, 4, 96, {"causal": False}, 1.0),
         (1, 256, 2, 2, 96, {}, 100.0),
+        *flash_edge_cases(),
     ]
     worst = {"float32": 0.0, "bfloat16": 0.0}
     worst_ratio = {"float32": 0.0, "bfloat16": 0.0}
@@ -1218,6 +1248,7 @@ def check_flash(dev, rng) -> dict:
     row.update(max_abs_err=max(worst.values()), max_abs_err_by_dtype=worst,
                err_over_tolerance_by_dtype=worst_ratio,
                sdpa_worst_err_over_tolerance=sdpa_ratio,
+               bf16_tiles={str(hd): t for hd, t in tiles.items()},
                tolerance=(f"float32 {ATTN_F32_TOL} abs ({ATTN_X100_TOL} at "
                           f"x100 logits); bfloat16 {fa_kernel.BF16_REL}*"
                           f"|plain| + {fa_kernel.BF16_ROW}*rms(plain row)"))
@@ -3449,12 +3480,132 @@ def session_turn(kind: str, seed: int) -> dict:
                 device_ops=len(_device_events(prof)))
 
 
+FLASH_PREFILL_REPS = 5      # timed bf16 prefills of a family in a turn
+
+
+def _family_prefill(arch: str, S: int, seed: int):
+    """A family's bfloat16 prefill(PATH_B, S) at full width and depth (the
+    serving route of ``model_families``: seeded weights, kernels on), as a
+    callable, warmed once."""
+    cfg = get_config(arch)
+    mb = build_model(cfg)
+    dev = mb.device
+    params = mb.init(torch.Generator(device=dev).manual_seed(seed))
+    batch = _family_batch(cfg, PATH_B, S, dev, seed + 1, torch.bfloat16)
+
+    def prefill():
+        return mb.prefill(params, batch, mb.init_cache(PATH_B, S))[0]
+    prefill()
+    torch.cuda.synchronize()
+    return prefill
+
+
+def family_prefill_s(arch: str, S: int, seed: int) -> dict:
+    """The median of FLASH_PREFILL_REPS timed prefills of
+    :func:`_family_prefill` and the B5 launches of one."""
+    prefill = _family_prefill(arch, S, seed)
+    secs = []
+    for _ in range(FLASH_PREFILL_REPS):
+        reset_counts()
+        t0 = time.perf_counter()
+        logits = prefill()
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    if not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"{arch}: non-finite bfloat16 logits")
+    launches = fa_kernel.launches
+    del prefill, logits
+    torch.cuda.empty_cache()
+    return dict(prefill_s=statistics.median(secs), runs=secs,
+                flash_attention_launches=launches)
+
+
+def family_prefill_device_ms(arch: str, S: int, seed: int) -> dict:
+    """One prefill of :func:`_family_prefill` under torch.profiler: the
+    device's busy time (the union of its events) and B5's share of it.
+    The wall time of these prefills is the host's (the MoE and frontend
+    glue at B=2); the busy time is what a kernel moves."""
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as tprofile
+    prefill = _family_prefill(arch, S, seed)
+    with tprofile(activities=[ProfilerActivity.CUDA]) as prof:
+        prefill()
+        torch.cuda.synchronize()
+    events = _device_events(prof)
+    busy, end = 0, None
+    for start, stop, _ in events:
+        if end is None or start > end:
+            busy += stop - start
+            end = stop
+        elif stop > end:
+            busy += stop - end
+            end = stop
+    flash = sum(e - s_ for s_, e, name in events
+                if "flash_attention_tc_kernel" in name)
+    del prefill
+    torch.cuda.empty_cache()
+    return dict(device_busy_ms=busy / 1e6, flash_attention_ms=flash / 1e6)
+
+
+def flash_turn(seed: int) -> dict:
+    """One turn of ``--compare --session flash``, on the port of ``--tree``:
+    the bf16 prefill seconds of each family that runs B5, then B5's rows
+    at the path's shape and at every family shape (:func:`flash_row`: each
+    held fp32 and bf16 against the plain version, then ``ms``, ``body_ms``
+    and SDPA's ``library_ms``), then each family's prefill once more under
+    torch.profiler for its device time (the traces last: nothing is timed
+    after one)."""
+    dev = torch.device("cuda", 0)
+    rng = np.random.default_rng(seed)
+    families = dict(FAMILIES)
+    archs = sorted({f["arch"] for f in family_flash_shapes()})
+    prefill = {arch: family_prefill_s(arch, families[arch], seed)
+               for arch in archs}
+    rows = [flash_row(dev, rng, "flash_attention", PATH_B, PATH_S, 16, 1, 256,
+                      window=2048), *check_flash_families(dev, rng)]
+    measure_bodies(rows)
+    for arch in archs:
+        prefill[arch].update(family_prefill_device_ms(arch, families[arch],
+                                                      seed))
+    return dict(
+        rows={r["name"]: dict(shape=r["shape"], ms=r["ms"],
+                              body_ms=r["body_ms"], bound_ms=r["bound_ms"],
+                              library_ms=r["library_ms"]) for r in rows},
+        prefill=prefill)
+
+
+def _flash_summary(runs: dict) -> dict:
+    """Per B5 row, each tree's medians; per family, each tree's prefill
+    seconds and (device busy ms, B5 ms) of every turn."""
+    out: dict = {"rows": {}, "prefill_s": {}, "prefill_device_ms": {}}
+    first = runs["parent"][0]
+    for name in first["rows"]:
+        out["rows"][name] = {"shape": first["rows"][name]["shape"]}
+        for key in ("ms", "body_ms", "library_ms"):
+            for tree in ("parent", "change"):
+                xs = [r["rows"][name][key] for r in runs[tree]]
+                if None not in xs:
+                    out["rows"][name][f"{tree}_{key}"] = statistics.median(xs)
+    for arch in first["prefill"]:
+        out["prefill_s"][arch] = {
+            tree: [r["prefill"][arch]["prefill_s"] for r in runs[tree]]
+            for tree in ("parent", "change")}
+        out["prefill_device_ms"][arch] = {
+            tree: [(r["prefill"][arch]["device_busy_ms"],
+                    r["prefill"][arch]["flash_attention_ms"])
+                   for r in runs[tree]] for tree in ("parent", "change")}
+    return out
+
+
 def compare(parent: str, kind: str, pairs: int, seed: int) -> None:
     """Parent tree against this one on one session (``kind`` "vr" or
     "x128"), each run a :func:`session_turn` in a fresh process, in turns
     (parent, change, change, parent, ...) for ``pairs`` pairs: map and
     execute seconds per run, each tree's device-op count, and the results
-    held equal (placements identical, finish times within 1e-9)."""
+    held equal (placements identical, finish times within 1e-9).  ``kind``
+    "flash" runs :func:`flash_turn` instead: B5's times and the families'
+    prefill seconds per tree (each tree's kernel held against its plain
+    version inside the turn)."""
     trees = {"parent": os.path.abspath(parent), "change": HERE}
     order = [("parent", "change") if i % 2 == 0 else ("change", "parent")
              for i in range(pairs)]
@@ -3467,9 +3618,13 @@ def compare(parent: str, kind: str, pairs: int, seed: int) -> None:
                 capture_output=True, text=True, check=True).stdout
             r = json.loads(out.strip().splitlines()[-1])["session_turn"]
             runs[name].append(r)
-            emit("compare_turn", dict(
-                tree=name, session=kind, map_pending_s=r["map_pending_s"],
-                execute_s=r["execute_s"], device_ops=r["device_ops"]))
+            emit("compare_turn", dict(tree=name, session=kind, **(
+                r if kind == "flash" else dict(
+                    map_pending_s=r["map_pending_s"],
+                    execute_s=r["execute_s"], device_ops=r["device_ops"]))))
+    if kind == "flash":
+        emit("compare_flash", dict(pairs=pairs, **_flash_summary(runs)))
+        return
     ref = runs["parent"][0]
     for r in runs["parent"] + runs["change"]:
         dt = max(abs(a - b) for a, b in zip(r["finish"], ref["finish"]))
@@ -3506,11 +3661,14 @@ def main() -> None:
                     help="instead of the checks: a session of the tree at "
                          "PARENT against this one's, in turns, each run in "
                          "a fresh process; prints no ok line")
-    ap.add_argument("--session", default="vr", choices=("vr", "x128"),
-                    help="the session --compare runs")
+    ap.add_argument("--session", default="vr",
+                    choices=("vr", "x128", "flash"),
+                    help="the session --compare runs (flash: B5's rows and "
+                         "the bf16 prefills of the families that run it)")
     ap.add_argument("--pairs", type=int, default=4,
                     help="parent/change pairs of --compare")
-    ap.add_argument("--session-turn", default=None, choices=("vr", "x128"),
+    ap.add_argument("--session-turn", default=None,
+                    choices=("vr", "x128", "flash"),
                     help="one turn of --compare: the session's line, on the "
                          "port of --tree")
     ap.add_argument("--tree", default=HERE,
@@ -3532,7 +3690,9 @@ def main() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     if args.session_turn:
-        emit("session_turn", session_turn(args.session_turn, args.seed))
+        emit("session_turn", flash_turn(args.seed)
+             if args.session_turn == "flash"
+             else session_turn(args.session_turn, args.seed))
         return
     t_start = time.perf_counter()
     dev = torch.device("cuda", 0)

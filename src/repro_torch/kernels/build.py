@@ -83,6 +83,7 @@ _SIGNATURES = {
     "heye_lru_scan": [_PTR, _PTR, _PTR, _I64, _I64, _I64, _PTR],
     "heye_flash_attention": [_PTR, _PTR, _PTR, _PTR, _INT, _INT, _INT, _INT,
                              _INT, _INT, _INT, _INT, _F32, _F32, _PTR],
+    "heye_fa_tc_tiles": [_INT, _PTR, _PTR, _PTR],
 }
 _RESTYPES = {"heye_scan_reduce_big_bytes": _I64,
              "heye_slowdown_pool_wide_len": _I64,
@@ -211,6 +212,14 @@ def check_launch(err: int, name: str) -> None:
     ``cudaGetLastError()`` right after the launch)."""
     if err != 0:
         raise RuntimeError(f"CUDA launch of {name} failed: cudaError {err}")
+
+
+def raw_stream(device_index: int) -> int:
+    """The handle of PyTorch's current stream on a card, for a launch.
+    ``torch.cuda.current_stream().cuda_stream`` gives the same handle but
+    builds a Python ``Stream`` on every call, host time that a small
+    kernel's launch path pays again each call."""
+    return torch._C._cuda_getCurrentRawStream(device_index)
 
 
 def check_tensor(name: str, t: torch.Tensor, dtype, ndim: int, device) -> None:

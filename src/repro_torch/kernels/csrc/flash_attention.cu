@@ -33,19 +33,18 @@ static fa_encode_fn fa_encoder() {
 }
 
 // A bfloat16 (B, S, H, hd) tensor as a 4-D map, innermost first (hd, H, S,
-// B); boxes of (CH, 1, rows, 1), CH the widest of 64 / 32 / 16 that divides
+// B); boxes of (ch, 1, rows, 1), ch the widest of 64 / 32 / 16 that divides
 // hd (fatc::Cfg::CH), with the swizzle of their row width (128, 64 or 32
 // bytes), rows past S read as zeros.
 static bool fa_encode(CUtensorMap* map, const void* ptr, int B, int S, int H,
-                      int hd, int rows) {
+                      int hd, int rows, int ch) {
     fa_encode_fn fn = fa_encoder();
     if (fn == nullptr) return false;
-    const cuuint32_t ch = hd % 64 == 0 ? 64 : (hd % 32 == 0 ? 32 : 16);
     const cuuint64_t dims[4] = {(cuuint64_t)hd, (cuuint64_t)H, (cuuint64_t)S,
                                 (cuuint64_t)B};
     const cuuint64_t row = 2ull * hd;
     const cuuint64_t strides[3] = {row, row * H, row * H * S};
-    const cuuint32_t box[4] = {ch, 1, (cuuint32_t)rows, 1};
+    const cuuint32_t box[4] = {(cuuint32_t)ch, 1, (cuuint32_t)rows, 1};
     const cuuint32_t estr[4] = {1, 1, 1, 1};
     const CUtensorMapSwizzle sw = ch == 64 ? CU_TENSOR_MAP_SWIZZLE_128B
                                 : ch == 32 ? CU_TENSOR_MAP_SWIZZLE_64B
@@ -56,13 +55,51 @@ static bool fa_encode(CUtensorMap* map, const void* ptr, int B, int S, int H,
               CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
+// The bf16 kernel's tiles at one head dim (fatc::Cfg): query rows and keys
+// a block's tile (the tensor maps' box rows), kv stages in its ring, and
+// the columns of a box.
+struct FaTiles {
+    int bq, bk, stages, ch;
+};
+
+template <int HD>
+static FaTiles fa_tc_tiles() {
+    using C = fatc::Cfg<HD>;
+    return {C::BQ, C::BK, C::STAGES, C::CH};
+}
+
+static bool fa_tc_tiles(int hd, FaTiles* t) {
+    switch (hd) {
+        case 16: *t = fa_tc_tiles<16>(); return true;
+        case 32: *t = fa_tc_tiles<32>(); return true;
+        case 64: *t = fa_tc_tiles<64>(); return true;
+        case 96: *t = fa_tc_tiles<96>(); return true;
+        case 128: *t = fa_tc_tiles<128>(); return true;
+        case 256: *t = fa_tc_tiles<256>(); return true;
+        default: return false;
+    }
+}
+
+// The tile table of the bf16 kernel, one head dim at a time, for the
+// wrapper's grid check to hold against its own table
+// (kernels/flash_attention.py BF16_TILES).  hd outside {16, 32, 64, 96,
+// 128, 256} is cudaErrorInvalidValue.
+extern "C" int heye_fa_tc_tiles(int hd, int* bq, int* bk, int* stages) {
+    FaTiles t;
+    if (!fa_tc_tiles(hd, &t)) return (int)cudaErrorInvalidValue;
+    *bq = t.bq, *bk = t.bk, *stages = t.stages;
+    return 0;
+}
+
 static int fa_bf16(const void* q, const void* k, const void* v, void* o,
                    int B, int S, int Hq, int Hkv, int hd, int causal,
                    int window, float scale, float softcap, cudaStream_t st) {
+    FaTiles t;
+    if (!fa_tc_tiles(hd, &t)) return (int)cudaErrorInvalidValue;
     CUtensorMap tq, tk, tv;
-    if (!fa_encode(&tq, q, B, S, Hq, hd, FATC_BQ) ||
-        !fa_encode(&tk, k, B, S, Hkv, hd, FATC_BK) ||
-        !fa_encode(&tv, v, B, S, Hkv, hd, FATC_BK))
+    if (!fa_encode(&tq, q, B, S, Hq, hd, t.bq, t.ch) ||
+        !fa_encode(&tk, k, B, S, Hkv, hd, t.bk, t.ch) ||
+        !fa_encode(&tv, v, B, S, Hkv, hd, t.bk, t.ch))
         return (int)cudaErrorInvalidValue;
     switch (hd) {
         case 16:
@@ -80,11 +117,9 @@ static int fa_bf16(const void* q, const void* k, const void* v, void* o,
         case 128:
             return heye_fa_tc_hd128(&tq, &tk, &tv, o, B, S, Hq, Hkv, causal,
                                     window, scale, softcap, st);
-        case 256:
+        default:
             return heye_fa_tc_hd256(&tq, &tk, &tv, o, B, S, Hq, Hkv, causal,
                                     window, scale, softcap, st);
-        default:
-            return (int)cudaErrorInvalidValue;
     }
 }
 

@@ -7,28 +7,72 @@
 // (flash_attention_bhsd / _attn_kernel) for bfloat16 tensors; float32 goes
 // to the CUDA-core kernel of flash_attention.cuh.
 //
-// Bound: operations.  Live (q, k) pairs times 4*hd flops; at the model's
-// shape (B=2, S=4096, 16 q heads on 1 kv head, hd=256, window 2048) about
-// 2.1e11 flop, 0.21 ms at the dense bf16 tensor-core peak.  Both products
-// run on the tensor cores; the softmax between them on the CUDA cores.
+// Bound: operations.  Live (q, k) pairs times 4*hd flops, at the dense bf16
+// tensor-core peak; at the model shapes 0.07 ms (granite-moe, B=2 S=4096
+// Hq=16 Hkv=8 hd=64 causal) to 0.21 ms (phi-3-vision at hd 96, and the
+// gemma3 / recurrentgemma path at hd 256 with a 2048 window).  Both
+// products run on the tensor cores; the softmax between them runs on the
+// CUDA cores and the SFU (one exp2 per score, 16 a cycle an SM), which at
+// hd 64 takes as long as the two products of its tile.  The design keeps
+// the tensor cores busy while the softmax runs:
 //
-// Block: 384 threads, three warpgroups.  Warpgroups 0 and 1 are consumers,
-// each owning 64 of the block's BQ = 128 query rows of one (b, h); one
-// thread of warpgroup 2 is the producer.  setmaxnreg gives the consumers
-// 240 registers a thread and the producer 24.  Grid: (B*Hq, ceil(S/128)),
-// the query tiles of every (b, h) walked from the last (with a causal mask
-// the heaviest) to the first, so that the heavy blocks start first.
+// * Intra-warpgroup pipeline (FlashAttention-3's two-stage softmax / GEMM
+//   pipeline).  Iteration n issues S_n = Q.K_n^T, then O += P_{n-1}.V_{n-1}
+//   as a second wgmma group, waits with wait_group 1 (S_n is ready, P.V
+//   still in flight) and runs the softmax of tile n under P.V.  The
+//   wait_group 0 that ends P.V opens the next iteration, before O is
+//   rescaled and P_n rounded: ptxas moves a wait up to the top of its
+//   basic block, so placed after the softmax it would lift the wait above
+//   it and the softmax would leave P.V's shadow.
+// * Ping-pong between the consumer warpgroups.  Named barriers (ids 1 ..
+//   NWG, bar.sync / bar.arrive over 256 threads) pass the right to issue
+//   products from one warpgroup to the next, so one warpgroup's products
+//   run while the others' softmax does.  All loop over the same kv tiles,
+//   so their turns pair up.
+// * Tiles per head dim (Tiles<HD>, below; exported by heye_fa_tc_tiles in
+//   flash_attention.cu and mirrored by BF16_TILES in
+//   kernels/flash_attention.py).  BK = 128 keys a tile at hd <= 128, which
+//   halves the per-tile fixed cost (barrier waits, row-max shuffles, the
+//   rescale of O) against 64; at hd 64 three consumer warpgroups (BQ =
+//   192 rows, 160 registers a thread), whose third warp on every SM
+//   sub-partition hides the softmax's latencies; a ring of 4 stages at hd
+//   <= 64, 3 at hd 96, 2 at 128; hd 256 keeps BK = 64 and 2 stages (O 128
+//   floats a thread).
+// * Row sums on the tensor cores.  P.V runs hd + 8 wide: every V stage
+//   holds a box of ones after V's boxes, so accumulator columns hd .. hd+7
+//   sum each row's rounded weights, and the online rescale of O rescales
+//   them too.  No unpacking and adding on the CUDA cores; at hd 256 (N
+//   would pass wgmma's 256) the sums stay there.
+// * P.V as one wgmma m64n(hd+8)k16 per 16 keys (hd 96: one m64n104k16, not
+//   three of 32 columns); the V descriptor's leading byte offset steps from
+//   one column box to the next, the box of ones last.
+// * The scale folded into exp2: without a soft cap the scores stay raw
+//   (the dot product), their row max is taken raw, and each weight is
+//   exp2(fma(s, c, -m*c)) with c = scale*log2(e): one FFMA and one
+//   ex2.approx a score.  O is rescaled only where a row max of the warp
+//   moved.
 //
-// Shared memory: the block's Q tile, loaded once by TMA, and a ring of two
-// stages of K and V tiles of BK = 64 keys, each filled by TMA and completed
-// on its own mbarrier (K and V apart, so that Q.K^T starts before V has
-// landed); an "empty" mbarrier per stage, on which all 256 consumer threads
-// arrive, hands the stage back to the producer.  Every tile is stored as
-// boxes of CH columns, the widest of 64 / 32 / 16 that divides hd (128, 64
-// or 32 bytes a row), with the TMA swizzle of that row width, which is the
-// layout wgmma reads; at hd = 256 Q takes 64 KB and each stage 2 x 32 KB:
-// 192 KB; at hd = 96 three boxes of 32 columns, 24 KB of Q and 2 x 12 KB a
-// stage: 72 KB.
+// Block: 128 * (NWG + 1) threads.  Warpgroups 0 .. NWG-1 are consumers,
+// each owning 64 of the block's BQ = 64 * NWG query rows of one (b, h);
+// one thread of warpgroup NWG is the producer.  setmaxnreg gives the
+// consumers 240 registers a thread (160 with three) and the producer 24.
+// Grid: (B*Hq, ceil(S/BQ)), the query tiles of every (b, h) walked from
+// the last (with a causal mask the heaviest) to the first, so that the
+// heavy blocks start first.
+//
+// Shared memory: the block's Q tile, loaded once by TMA, and a ring of
+// STAGES kv tiles of BK keys, K and V each filled by TMA and completed on
+// its own mbarrier (so that Q.K^T starts before V has landed).  Two
+// "empty" mbarriers per stage hand its K and its V back to the producer
+// apart, every consumer thread arriving on the one once Q.K^T of the tile
+// has completed and on the other once P.V has: the pipeline holds V of a
+// tile one iteration longer than K, and with one barrier for both a ring
+// of two stages would leave the producer nothing to prefetch.  Every tile
+// is stored as boxes of CH columns, the widest of 64 / 32 / 16 that
+// divides hd (128, 64 or 32 bytes a row), with the TMA swizzle of that row
+// width, which is the layout wgmma reads: at hd 64 24 KB of Q and 4 x (16
+// KB of K + 32 KB of V and ones); at hd 96 three boxes of 32 columns, 24
+// KB of Q and 3 x (24 + 32) KB; at hd 256 64 KB of Q and 2 x 64 KB.
 //
 // TMA: Q, K and V are described as 4-D tensor maps over the model's
 // (B, S, H, hd) layout, innermost first (hd, H, S, B), with boxes of
@@ -38,26 +82,31 @@
 // not -inf).  The maps are encoded on the host (flash_attention.cu) and
 // passed as __grid_constant__ parameters.
 //
-// S = Q.K^T: wgmma m64n64k16, both operands K-major in shared memory, fp32
-// accumulators (32 a thread).  The scores are scaled, soft-capped and
-// masked in registers.  Online softmax: each row lives on the four threads
-// of a quad, which reduce the row max with two xor shuffles; the row sums
-// stay per thread until the end.  P is rounded to bf16 in registers (the
-// row sum adds the rounded values, so numerator and denominator weigh the
-// same numbers) and O += P.V runs as wgmma m64nNk16 with A = P from
-// registers (the accumulator layout of S is the A-fragment layout) and
-// B = V from shared memory, MN-major (transposed), N = CH per box.
-// O stays in fp32 registers: hd / 2 a thread, 128 at hd = 256.
+// S = Q.K^T: wgmma m64nBKk16, both operands K-major in shared memory, fp32
+// accumulators (BK / 2 a thread), the first slice of the head dim
+// overwriting them.  Online softmax: each row lives on the four threads of
+// a quad, which reduce the row max with two xor shuffles.  P is rounded to
+// bf16 in registers (the row sums add the rounded values, so numerator and
+// denominator weigh the same numbers) and O += P.V runs with A = P from
+// registers (the accumulator layout of S is the A-fragment layout) and B =
+// V from shared memory, MN-major (transposed).  O stays in fp32 registers:
+// (hd + 8) / 2 a thread.
 //
-// Masking follows the reference and the CUDA-core kernel exactly: scores
-// are scaled after the dot, soft-capped, then masked with the finite
-// NEG_INF = -2^30 while the running max starts at -inf.  A row whose keys
-// in a live tile all fall outside its window sums exp(0) = 1 terms (exact
-// in bf16), which the first real score wipes (exp(-2^30 - m) = 0); the
+// Masking follows the reference and the CUDA-core kernel: scores are
+// scaled after the dot, soft-capped, then masked with a finite value while
+// the running max starts at -inf.  With a soft cap the masked value is the
+// reference's NEG_INF = -2^30 itself; without one the scores are raw and
+// the masked value is M = -2^30 / scale rounded to a power of two (-2^30
+// exactly once scaled where 1/scale is a power of two, as at hd 16, 64 and
+// 256; within a factor sqrt(2) of it elsewhere), so that M*c is exact.
+// Either way a row whose keys in a live tile all fall outside its window
+// weighs each of them exp2(0) = 1 (exact in bf16), as the reference does,
+// which the first real score wipes (its correction exp2(M*c - m*c) is 0),
+// and once a real score is seen a masked one weighs exp2(< -1e9) = 0; the
 // causal diagonal guarantees that score.  Keys past S get -inf and weigh
 // nothing, so any S is taken.  Only kv tiles masked for every row of the
-// 128-row query tile are skipped; tiles that no mask touches skip the
-// per-element mask.
+// query tile are skipped; tiles that no mask touches skip the per-element
+// mask.
 //
 // Each head dim is compiled in its own source (flash_attention_tc_hd*.cu)
 // so that the build's parallel nvcc processes share the work.
@@ -69,29 +118,55 @@
 #include <stdint.h>
 #include <utility>
 
-#define FATC_BQ 128
-#define FATC_BK 64
-#define FATC_STAGES 2
-#define FATC_THREADS 384
 #define FATC_NEG_INF (-1073741824.0f)
 #define FATC_LOG2E 1.4426950408889634f
+#define FATC_MAX_DEVICES 64
 
 namespace fatc {
 
+// The tiles of each head dim: BK keys a kv tile, STAGES kv tiles in the
+// ring, NWG consumer warpgroups of 64 query rows.
+template <int HD> struct Tiles;
+template <> struct Tiles<16> { static constexpr int BK = 128, STAGES = 4, NWG = 2; };
+template <> struct Tiles<32> { static constexpr int BK = 128, STAGES = 4, NWG = 2; };
+template <> struct Tiles<64> { static constexpr int BK = 128, STAGES = 4, NWG = 3; };
+template <> struct Tiles<96> { static constexpr int BK = 128, STAGES = 3, NWG = 2; };
+template <> struct Tiles<128> { static constexpr int BK = 128, STAGES = 2, NWG = 2; };
+template <> struct Tiles<256> { static constexpr int BK = 64, STAGES = 2, NWG = 2; };
+
 template <int HD> struct Cfg {
+    static constexpr int BK = Tiles<HD>::BK;
+    static constexpr int STAGES = Tiles<HD>::STAGES;
+    static constexpr int NWG = Tiles<HD>::NWG;
+    static constexpr int BQ = 64 * NWG;               // query rows a block
+    static constexpr int THREADS = 128 * (NWG + 1);
+    // registers a thread after setmaxnreg, within the SM's 65536
+    static constexpr int PRODUCER_REGS = 24;
+    static constexpr int CONSUMER_REGS = NWG == 2 ? 240 : 160;
+    static_assert(128 * (PRODUCER_REGS + NWG * CONSUMER_REGS) <= 65536,
+                  "the warpgroups' registers exceed the SM's");
     // columns per box: the widest of 64 / 32 / 16 that divides HD (64 at
     // hd 64-256, 32 at hd 32 and 96, 16 at hd 16)
     static constexpr int CH = HD % 64 == 0 ? 64 : (HD % 32 == 0 ? 32 : 16);
     static constexpr int NB = HD / CH;                // boxes per row
-    static_assert(HD % CH == 0 && HD % 16 == 0,
+    static_assert(HD % CH == 0 && HD % 16 == 0 && HD <= 256,
                   "the head dim must be a multiple of its box width");
     static constexpr int SW = 2 * CH;                 // bytes per smem row
     static constexpr int LAYOUT = SW == 128 ? 1 : (SW == 64 ? 2 : 3);
-    static constexpr int Q_BOX = FATC_BQ * SW;
-    static constexpr int KV_BOX = FATC_BK * SW;
+    static constexpr int Q_BOX = BQ * SW;
+    static constexpr int KV_BOX = BK * SW;
     static constexpr int Q_BYTES = NB * Q_BOX;
-    static constexpr int KV_BYTES = NB * KV_BOX;
-    static constexpr int SMEM = Q_BYTES + 2 * FATC_STAGES * KV_BYTES;
+    static constexpr int KV_BYTES = NB * KV_BOX;      // what TMA brings a stage
+    // Row sums on the tensor cores: P.V runs N = HD + 8 wide over V and a
+    // box of ones stored after V's boxes in every stage, so accumulator
+    // columns HD .. HD+7 hold each row's sum of the rounded weights.  N is
+    // at most 256: at hd 256 the sums stay on the CUDA cores.
+    static constexpr bool SUM_ON_TC = HD + 8 <= 256;
+    static constexpr int ON = HD + (SUM_ON_TC ? 8 : 0);   // P.V's width
+    static constexpr int V_BYTES = KV_BYTES + (SUM_ON_TC ? KV_BOX : 0);
+    static constexpr int SMEM = Q_BYTES + STAGES * (KV_BYTES + V_BYTES);
+    static_assert(SMEM + 1024 + 8 * (1 + 4 * STAGES) <= 232448,
+                  "the tiles exceed the shared memory of a block");
     static constexpr int KPB = CH / 16;               // k16 slices per box
 };
 
@@ -125,6 +200,16 @@ __device__ __forceinline__ void bar_wait(uint32_t bar, uint32_t parity) {
     }
 }
 
+// the ping-pong of the consumer warpgroups: warpgroup w waits on named
+// barrier 1 + w for its turn to issue products (its own 128 threads and
+// the 128 of the warpgroup before it, which arrive there)
+__device__ __forceinline__ void turn_wait(int wg) {
+    asm volatile("bar.sync %0, 256;\n" :: "r"(1 + wg) : "memory");
+}
+__device__ __forceinline__ void turn_pass(int wg) {
+    asm volatile("bar.arrive %0, 256;\n" :: "r"(1 + wg) : "memory");
+}
+
 // one (columns, head, positions, batch) box of a tensor map into shared memory
 __device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map,
                                             uint32_t bar, int c0, int c1,
@@ -152,22 +237,39 @@ __device__ __forceinline__ void wg_fence() {
 __device__ __forceinline__ void wg_commit() {
     asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
 }
-__device__ __forceinline__ void wg_wait0() {
-    asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+// wait until at most N wgmma groups of this warpgroup are in flight
+template <int N> __device__ __forceinline__ void wg_wait() {
+    asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
 }
 
-// pins accumulator registers in place around the asynchronous products, so
-// that the compiler moves no read or write of them across a fence or wait
+// pins registers in place around the asynchronous products, so that the
+// compiler moves no read or write of them across a fence or wait (and
+// reuses no register that an issued product still reads)
 template <int N> __device__ __forceinline__ void keep(float* r) {
 #pragma unroll
     for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i]) :: "memory");
 }
+template <int N> __device__ __forceinline__ void keep(uint32_t* r) {
+#pragma unroll
+    for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i]) :: "memory");
+}
 
-// D[64 x 64] += A[64 x 16] * B[16 x 64], A and B K-major in shared
-// memory at descriptors da + OA and db + OB (16-byte units)
-template <int OA, int OB>
-__device__ __forceinline__ void wgmma_ss_n64(float* d, uint64_t da,
-                                             uint64_t db) {
+__device__ __forceinline__ float ex2(float x) {
+    float y;
+    asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+    return y;
+}
+
+// The products.  wgmma_ss_nN: D[64 x N] (+)= A[64 x 16] * B[16 x N], A and
+// B K-major in shared memory at descriptors da + OA and db + OB (16-byte
+// units), SCALE_D 0 overwriting D.  wgmma_rs_nN: D[64 x N] += A[64 x 16] *
+// B[16 x N], A in registers, B MN-major (transposed) in shared memory at
+// descriptor db + OB.
+#define FATC_D4(i) "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3])
+#define FATC_D8(i) FATC_D4(i), FATC_D4(i + 4)
+
+template <int OA, int OB, int SCALE_D>
+__device__ __forceinline__ void wgmma_ss_n64(float* d, uint64_t da, uint64_t db) {
     asm volatile(
         "{\n.reg .pred p;\n.reg .b64 dsa, dsb;\n"
         "setp.ne.b32 p, %36, 0;\n"
@@ -176,119 +278,285 @@ __device__ __forceinline__ void wgmma_ss_n64(float* d, uint64_t da,
         "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
         "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13,"
         " %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25,"
-        " %26, %27, %28, %29, %30, %31},"
-        " dsa, dsb, p, 1, 1, 0, 0;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-          "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-          "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-          "+f"(d[30]), "+f"(d[31])
-        : "l"(da), "l"(db), "n"(OA), "n"(OB), "r"(1));
+        " %26, %27, %28, %29, %30, %31}"
+        ", dsa, dsb, p, 1, 1, 0, 0;\n}\n"
+        : FATC_D8(0), FATC_D8(8), FATC_D8(16), FATC_D8(24)
+        : "l"(da), "l"(db), "n"(OA), "n"(OB), "r"(SCALE_D));
 }
 
-// D[64 x 16] += A[64 x 16] * B[16 x 16], A in registers, B MN-major
-// (transposed) in shared memory at descriptor db + OB (16-byte units)
-template <int OB>
-__device__ __forceinline__ void wgmma_rs_n16(float* d, const uint32_t* a,
-                                             uint64_t db) {
+template <int OA, int OB, int SCALE_D>
+__device__ __forceinline__ void wgmma_ss_n128(float* d, uint64_t da, uint64_t db) {
     asm volatile(
-        "{\n.reg .pred p;\n.reg .b64 dsb;\n"
-        "setp.ne.b32 p, %14, 0;\n"
-        "add.s64 dsb, %12, %13;\n"
-        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7},"
-        " {%8, %9, %10, %11}, dsb, p, 1, 1, 1;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-          "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "n"(OB),
-          "r"(1));
-}
-
-// D[64 x 32] += A[64 x 16] * B[16 x 32], A in registers, B MN-major
-// (transposed) in shared memory at descriptor db + OB (16-byte units)
-template <int OB>
-__device__ __forceinline__ void wgmma_rs_n32(float* d, const uint32_t* a,
-                                             uint64_t db) {
-    asm volatile(
-        "{\n.reg .pred p;\n.reg .b64 dsb;\n"
-        "setp.ne.b32 p, %22, 0;\n"
-        "add.s64 dsb, %20, %21;\n"
-        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13,"
-        " %14, %15},"
-        " {%16, %17, %18, %19}, dsb, p, 1, 1, 1;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-          "+f"(d[15])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "n"(OB),
-          "r"(1));
-}
-
-// D[64 x 64] += A[64 x 16] * B[16 x 64], A in registers, B MN-major
-// (transposed) in shared memory at descriptor db + OB (16-byte units)
-template <int OB>
-__device__ __forceinline__ void wgmma_rs_n64(float* d, const uint32_t* a,
-                                             uint64_t db) {
-    asm volatile(
-        "{\n.reg .pred p;\n.reg .b64 dsb;\n"
-        "setp.ne.b32 p, %38, 0;\n"
-        "add.s64 dsb, %36, %37;\n"
-        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{\n.reg .pred p;\n.reg .b64 dsa, dsb;\n"
+        "setp.ne.b32 p, %68, 0;\n"
+        "add.s64 dsa, %64, %66;\n"
+        "add.s64 dsb, %65, %67;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
         "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13,"
         " %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25,"
-        " %26, %27, %28, %29, %30, %31},"
-        " {%32, %33, %34, %35}, dsb, p, 1, 1, 1;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-          "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-          "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-          "+f"(d[30]), "+f"(d[31])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "n"(OB),
-          "r"(1));
+        " %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37,"
+        " %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49,"
+        " %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61,"
+        " %62, %63}"
+        ", dsa, dsb, p, 1, 1, 0, 0;\n}\n"
+        : FATC_D8(0), FATC_D8(8), FATC_D8(16), FATC_D8(24),
+          FATC_D8(32), FATC_D8(40), FATC_D8(48), FATC_D8(56)
+        : "l"(da), "l"(db), "n"(OA), "n"(OB), "r"(SCALE_D));
+}
+
+template <int OB>
+__device__ __forceinline__ void wgmma_rs_n24(float* d, const uint32_t* a, uint64_t db) {
+    asm volatile(
+        "{\n.reg .pred p;\n.reg .b64 dsb;\n"
+        "setp.ne.b32 p, %18, 0;\n"
+        "add.s64 dsb, %16, %17;\n"
+        "wgmma.mma_async.sync.aligned.m64n24k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11}"
+        ", {%12, %13, %14, %15}, dsb, p, 1, 1, 1;\n}\n"
+        : FATC_D8(0), FATC_D4(8)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "n"(OB), "r"(1));
+}
+
+template <int OB>
+__device__ __forceinline__ void wgmma_rs_n40(float* d, const uint32_t* a, uint64_t db) {
+    asm volatile(
+        "{\n.reg .pred p;\n.reg .b64 dsb;\n"
+        "setp.ne.b32 p, %26, 0;\n"
+        "add.s64 dsb, %24, %25;\n"
+        "wgmma.mma_async.sync.aligned.m64n40k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13,"
+        " %14, %15, %16, %17, %18, %19}"
+        ", {%20, %21, %22, %23}, dsb, p, 1, 1, 1;\n}\n"
+        : FATC_D8(0), FATC_D8(8), FATC_D4(16)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "n"(OB), "r"(1));
+}
+
+template <int OB>
+__device__ __forceinline__ void wgmma_rs_n72(float* d, const uint32_t* a, uint64_t db) {
+    asm volatile(
+        "{\n.reg .pred p;\n.reg .b64 dsb;\n"
+        "setp.ne.b32 p, %42, 0;\n"
+        "add.s64 dsb, %40, %41;\n"
+        "wgmma.mma_async.sync.aligned.m64n72k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13,"
+        " %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25,"
+        " %26, %27, %28, %29, %30, %31, %32, %33, %34, %35}"
+        ", {%36, %37, %38, %39}, dsb, p, 1, 1, 1;\n}\n"
+        : FATC_D8(0), FATC_D8(8), FATC_D8(16), FATC_D8(24),
+          FATC_D4(32)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "n"(OB), "r"(1));
+}
+
+template <int OB>
+__device__ __forceinline__ void wgmma_rs_n104(float* d, const uint32_t* a, uint64_t db) {
+    asm volatile(
+        "{\n.reg .pred p;\n.reg .b64 dsb;\n"
+        "setp.ne.b32 p, %58, 0;\n"
+        "add.s64 dsb, %56, %57;\n"
+        "wgmma.mma_async.sync.aligned.m64n104k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13,"
+        " %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25,"
+        " %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37,"
+        " %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49,"
+        " %50, %51}"
+        ", {%52, %53, %54, %55}, dsb, p, 1, 1, 1;\n}\n"
+        : FATC_D8(0), FATC_D8(8), FATC_D8(16), FATC_D8(24),
+          FATC_D8(32), FATC_D8(40), FATC_D4(48)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "n"(OB), "r"(1));
+}
+
+template <int OB>
+__device__ __forceinline__ void wgmma_rs_n136(float* d, const uint32_t* a, uint64_t db) {
+    asm volatile(
+        "{\n.reg .pred p;\n.reg .b64 dsb;\n"
+        "setp.ne.b32 p, %74, 0;\n"
+        "add.s64 dsb, %72, %73;\n"
+        "wgmma.mma_async.sync.aligned.m64n136k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13,"
+        " %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25,"
+        " %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37,"
+        " %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49,"
+        " %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61,"
+        " %62, %63, %64, %65, %66, %67}"
+        ", {%68, %69, %70, %71}, dsb, p, 1, 1, 1;\n}\n"
+        : FATC_D8(0), FATC_D8(8), FATC_D8(16), FATC_D8(24),
+          FATC_D8(32), FATC_D8(40), FATC_D8(48), FATC_D8(56),
+          FATC_D4(64)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "n"(OB), "r"(1));
+}
+
+template <int OB>
+__device__ __forceinline__ void wgmma_rs_n256(float* d, const uint32_t* a, uint64_t db) {
+    asm volatile(
+        "{\n.reg .pred p;\n.reg .b64 dsb;\n"
+        "setp.ne.b32 p, %134, 0;\n"
+        "add.s64 dsb, %132, %133;\n"
+        "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13,"
+        " %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25,"
+        " %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37,"
+        " %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49,"
+        " %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61,"
+        " %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73,"
+        " %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85,"
+        " %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97,"
+        " %98, %99, %100, %101, %102, %103, %104, %105, %106, %107,"
+        " %108, %109, %110, %111, %112, %113, %114, %115, %116, %117,"
+        " %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}"
+        ", {%128, %129, %130, %131}, dsb, p, 1, 1, 1;\n}\n"
+        : FATC_D8(0), FATC_D8(8), FATC_D8(16), FATC_D8(24),
+          FATC_D8(32), FATC_D8(40), FATC_D8(48), FATC_D8(56),
+          FATC_D8(64), FATC_D8(72), FATC_D8(80), FATC_D8(88),
+          FATC_D8(96), FATC_D8(104), FATC_D8(112), FATC_D8(120)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "n"(OB), "r"(1));
+}
+
+#undef FATC_D8
+#undef FATC_D4
+
+template <int N, int OA, int OB, int SCALE_D>
+__device__ __forceinline__ void wgmma_ss(float* d, uint64_t da, uint64_t db) {
+    static_assert(N == 64 || N == 128, "no Q.K^T product of this width");
+    if constexpr (N == 64) wgmma_ss_n64<OA, OB, SCALE_D>(d, da, db);
+    else wgmma_ss_n128<OA, OB, SCALE_D>(d, da, db);
 }
 
 template <int N, int OB>
 __device__ __forceinline__ void wgmma_rs(float* d, const uint32_t* a, uint64_t db) {
-    if constexpr (N == 16) wgmma_rs_n16<OB>(d, a, db);
-    else if constexpr (N == 32) wgmma_rs_n32<OB>(d, a, db);
-    else wgmma_rs_n64<OB>(d, a, db);
+    static_assert(N == 24 || N == 40 || N == 72 || N == 104 || N == 136 ||
+                  N == 256, "no P.V product of this width");
+    if constexpr (N == 24) wgmma_rs_n24<OB>(d, a, db);
+    else if constexpr (N == 40) wgmma_rs_n40<OB>(d, a, db);
+    else if constexpr (N == 72) wgmma_rs_n72<OB>(d, a, db);
+    else if constexpr (N == 104) wgmma_rs_n104<OB>(d, a, db);
+    else if constexpr (N == 136) wgmma_rs_n136<OB>(d, a, db);
+    else wgmma_rs_n256<OB>(d, a, db);
 }
 
-// S = Q . K^T: one m64n64k16 per 16 columns of the head dim.  Slice kk
-// lies in box kk / KPB at byte 32 * (kk % KPB) of each swizzled row; the
-// descriptor offsets (16-byte units) are immediates, so that only the two
-// base descriptors are live.
+// S = Q . K^T: one m64nBKk16 per 16 columns of the head dim, the first
+// overwriting S.  Slice kk lies in box kk / KPB at byte 32 * (kk % KPB) of
+// each swizzled row; the descriptor offsets (16-byte units) are
+// immediates, so that only the two base descriptors are live.
 template <int HD, int... KK>
 __device__ __forceinline__ void qk_tile(float* sc, uint64_t dq, uint64_t dk,
                                         std::integer_sequence<int, KK...>) {
     using C = Cfg<HD>;
-    (wgmma_ss_n64<(((KK / C::KPB) * C::Q_BOX + (KK % C::KPB) * 32) >> 4),
-                  (((KK / C::KPB) * C::KV_BOX + (KK % C::KPB) * 32) >> 4)>(
-         sc, dq, dk),
+    (wgmma_ss<C::BK, (((KK / C::KPB) * C::Q_BOX + (KK % C::KPB) * 32) >> 4),
+              (((KK / C::KPB) * C::KV_BOX + (KK % C::KPB) * 32) >> 4),
+              (KK > 0)>(sc, dq, dk),
      ...);
 }
 
-// O += P . V: for each 16 keys kk and each box c of the head dim, one
-// m64nCHk16 into accumulator columns [CH c, CH c + CH)
+// O += P . V: one m64nONk16 per 16 keys j (rows 16 j of every box, the
+// box of ones among them; the descriptor's leading byte offset steps
+// across the boxes)
 template <int HD, int... J>
 __device__ __forceinline__ void pv_tile(float* oacc, uint32_t (*pa)[4],
                                         uint64_t dv,
                                         std::integer_sequence<int, J...>) {
     using C = Cfg<HD>;
-    (wgmma_rs<C::CH, (((J % C::NB) * C::KV_BOX + (J / C::NB) * 16 * C::SW) >> 4)>(
-         oacc + (J % C::NB) * (C::CH / 2), pa[J / C::NB], dv),
-     ...);
+    (wgmma_rs<C::ON, ((J * 16 * C::SW) >> 4)>(oacc, pa[J], dv), ...);
+}
+
+// The softmax of one S tile, in place: soft cap (scaled scores) or raw
+// scores, mask, the row max over this tile and the running max m, the
+// correction exp2(m*c - m'*c) of what came before, then each weight
+// exp2(fma(s, c, -m'*c)).  Accumulator i holds row qa + 8*((i>>1)&1), key
+// k0 + 8*(i>>2) + cq + (i&1).  Returns whether a row max of the warp moved.
+template <int BK>
+__device__ __forceinline__ bool softmax_tile(
+        float* sc, float* mrow, float* mc, float* corr, int k0, int qa, int cq,
+        int q_lo, int q_hi, int S, int causal, int window, float scale,
+        float softcap, float cm, float masked) {
+    if (softcap > 0.0f) {
+#pragma unroll
+        for (int i = 0; i < BK / 2; ++i) {
+            const float x = sc[i] * scale;
+            sc[i] = softcap * tanhf(x / softcap);
+        }
+    }
+    const bool edge = (k0 + BK > S) || (causal && k0 + BK - 1 > q_lo) ||
+                      (window > 0 && k0 <= q_hi - window);
+    if (edge) {
+#pragma unroll
+        for (int i = 0; i < BK / 2; ++i) {
+            const int qi = qa + 8 * ((i >> 1) & 1);
+            const int kp = k0 + 8 * (i >> 2) + cq + (i & 1);
+            bool live = true;
+            if (causal) live = kp <= qi;
+            if (window > 0) live = live && (kp > qi - window);
+            float x = live ? sc[i] : masked;
+            if (kp >= S) x = -INFINITY;
+            sc[i] = x;
+        }
+    }
+    // the row max in four independent chains a row, then combined
+    float m4[2][4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) m4[0][j] = m4[1][j] = -INFINITY;
+#pragma unroll
+    for (int i = 0; i < BK / 2; ++i)
+        m4[(i >> 1) & 1][(i >> 2) & 3] =
+            fmaxf(m4[(i >> 1) & 1][(i >> 2) & 3], sc[i]);
+    float mx[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+        mx[r] = fmaxf(fmaxf(mrow[r], fmaxf(m4[r][0], m4[r][1])),
+                      fmaxf(m4[r][2], m4[r][3]));
+    bool moved = false;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+        moved = moved || mx[r] != mrow[r];
+        const float m_c = mx[r] * cm;
+        corr[r] = ex2(mc[r] - m_c);
+        mrow[r] = mx[r];
+        mc[r] = m_c;
+    }
+#pragma unroll
+    for (int i = 0; i < BK / 2; ++i)
+        sc[i] = ex2(fmaf(sc[i], cm, -mc[(i >> 1) & 1]));
+    return __any_sync(0xffffffffu, moved);
+}
+
+// The weights rounded to bf16 into P (the A fragments of a P.V).  Where
+// the row sums are not the tensor cores' (SUM true), their rounded values
+// are added to the row sums, which take the tile's correction first.
+template <int BK, bool SUM>
+__device__ __forceinline__ void to_p(const float* sc, uint32_t (*pa)[4],
+                                     float* lrow, const float* corr) {
+    // the row sums in four independent chains a row, then combined
+    float ps[2][4] = {};
+#pragma unroll
+    for (int i = 0; i < BK / 4; ++i) {          // register pairs
+        __nv_bfloat162 pb = __floats2bfloat162_rn(sc[2 * i], sc[2 * i + 1]);
+        if constexpr (SUM)
+            ps[i & 1][(i >> 1) & 3] += __low2float(pb) + __high2float(pb);
+        pa[i / 4][i % 4] = *reinterpret_cast<uint32_t*>(&pb);
+    }
+    if constexpr (SUM) {
+#pragma unroll
+        for (int r = 0; r < 2; ++r)
+            lrow[r] = lrow[r] * corr[r] +
+                      ((ps[r][0] + ps[r][1]) + (ps[r][2] + ps[r][3]));
+    }
+}
+
+// O times a tile's correction, where a row max of the warp moved
+template <int N>
+__device__ __forceinline__ void rescale(float* oacc, const float* corr,
+                                        bool moved) {
+    if (moved) {
+#pragma unroll
+        for (int i = 0; i < N / 2; ++i) oacc[i] *= corr[(i >> 1) & 1];
+    }
 }
 
 }  // namespace fatc
 
 template <int HD>
-__global__ void __launch_bounds__(FATC_THREADS, 1)
+__global__ void __launch_bounds__(fatc::Cfg<HD>::THREADS, 1)
 flash_attention_tc_kernel(const __grid_constant__ CUtensorMap tq,
                           const __grid_constant__ CUtensorMap tk,
                           const __grid_constant__ CUtensorMap tv,
@@ -296,27 +564,30 @@ flash_attention_tc_kernel(const __grid_constant__ CUtensorMap tq,
                           int causal, int window, float scale, float softcap) {
     using C = fatc::Cfg<HD>;
     using namespace fatc;
-    constexpr int BK = FATC_BK;
+    constexpr int BK = C::BK;
+    constexpr int ST = C::STAGES;
+    constexpr int NWG = C::NWG;
     extern __shared__ __align__(128) uint8_t fatc_smem[];
-    __shared__ __align__(8) uint64_t bars[1 + 3 * FATC_STAGES];
+    __shared__ __align__(8) uint64_t bars[1 + 4 * ST];
     const uint32_t base = (smem_u32(fatc_smem) + 1023u) & ~1023u;
     const uint32_t sQ = base;
     const uint32_t sK = base + C::Q_BYTES;
-    const uint32_t sV = sK + FATC_STAGES * C::KV_BYTES;
+    const uint32_t sV = sK + ST * C::KV_BYTES;     // stage s at s * V_BYTES
     const uint32_t bar_q = smem_u32(&bars[0]);
     const uint32_t bar_k = smem_u32(&bars[1]);                    // + 8 * stage
-    const uint32_t bar_v = smem_u32(&bars[1 + FATC_STAGES]);
-    const uint32_t bar_e = smem_u32(&bars[1 + 2 * FATC_STAGES]);
+    const uint32_t bar_v = smem_u32(&bars[1 + ST]);
+    const uint32_t bar_ek = smem_u32(&bars[1 + 2 * ST]);   // K handed back
+    const uint32_t bar_ev = smem_u32(&bars[1 + 3 * ST]);   // V handed back
 
     const int bh = blockIdx.x;
     const int b = bh / Hq;
     const int h = bh - b * Hq;
     const int hk = h / (Hq / Hkv);
-    const int q0 = (gridDim.y - 1 - blockIdx.y) * FATC_BQ;
+    const int q0 = (gridDim.y - 1 - blockIdx.y) * C::BQ;
 
     // the kv tiles live for at least one row of this query tile
     int k_begin = 0, k_end = S;
-    if (causal) k_end = min(S, q0 + FATC_BQ);
+    if (causal) k_end = min(S, q0 + C::BQ);
     if (window > 0) k_begin = max(0, q0 - window + 1);
     const int t_begin = k_begin / BK;
     const int n_tiles = (k_end + BK - 1) / BK - t_begin;
@@ -325,151 +596,171 @@ flash_attention_tc_kernel(const __grid_constant__ CUtensorMap tq,
     if (tid == 0) {
         bar_init(bar_q, 1);
 #pragma unroll
-        for (int s = 0; s < FATC_STAGES; ++s) {
+        for (int s = 0; s < ST; ++s) {
             bar_init(bar_k + 8 * s, 1);
             bar_init(bar_v + 8 * s, 1);
-            bar_init(bar_e + 8 * s, 256);
+            bar_init(bar_ek + 8 * s, 128 * NWG);
+            bar_init(bar_ev + 8 * s, 128 * NWG);
         }
         asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    }
+    if constexpr (C::SUM_ON_TC) {
+        // the box of ones after every stage's V, written once, made visible
+        // to the tensor cores' (async proxy) reads
+        uint8_t* gen = fatc_smem + (base - smem_u32(fatc_smem));
+        for (int i = threadIdx.x; i < ST * C::KV_BOX / 16; i += C::THREADS) {
+            const int st = i / (C::KV_BOX / 16);
+            const int off = i - st * (C::KV_BOX / 16);
+            *reinterpret_cast<uint4*>(gen + (sV - base) + st * C::V_BYTES +
+                                      C::KV_BYTES + 16 * off) =
+                make_uint4(0x3F803F80u, 0x3F803F80u, 0x3F803F80u, 0x3F803F80u);
+        }
+        asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
     }
     __syncthreads();
     const int wg = tid >> 7;
 
-    if (wg == 2) {
+    if (wg == NWG) {
         // ---------------- producer: one thread issues every TMA load
-        asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
-        if (tid == 256) {
+        asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n"
+                     :: "n"(C::PRODUCER_REGS) : "memory");
+        if (tid == 128 * NWG) {
             bar_expect_tx(bar_q, C::Q_BYTES);
 #pragma unroll
             for (int c = 0; c < C::NB; ++c)
                 tma_load_4d(sQ + c * C::Q_BOX, &tq, bar_q, c * C::CH, h, q0, b);
             for (int it = 0; it < n_tiles; ++it) {
-                const int s = it % FATC_STAGES;
-                const uint32_t par = (it / FATC_STAGES) & 1;
+                const int s = it % ST;
+                const uint32_t par = (it / ST) & 1;
                 const int k0 = (t_begin + it) * BK;
-                bar_wait(bar_e + 8 * s, par ^ 1);
+                bar_wait(bar_ek + 8 * s, par ^ 1);
                 bar_expect_tx(bar_k + 8 * s, C::KV_BYTES);
 #pragma unroll
                 for (int c = 0; c < C::NB; ++c)
                     tma_load_4d(sK + s * C::KV_BYTES + c * C::KV_BOX, &tk,
                                 bar_k + 8 * s, c * C::CH, hk, k0, b);
+                bar_wait(bar_ev + 8 * s, par ^ 1);
                 bar_expect_tx(bar_v + 8 * s, C::KV_BYTES);
 #pragma unroll
                 for (int c = 0; c < C::NB; ++c)
-                    tma_load_4d(sV + s * C::KV_BYTES + c * C::KV_BOX, &tv,
+                    tma_load_4d(sV + s * C::V_BYTES + c * C::KV_BOX, &tv,
                                 bar_v + 8 * s, c * C::CH, hk, k0, b);
             }
         }
     } else {
         // ---------------- consumers: 64 query rows each
-        asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
+        asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n"
+                     :: "n"(C::CONSUMER_REGS) : "memory");
         const int t = tid & 127;
         const int lane = t & 31;
         const int qa = q0 + 64 * wg + 16 * (t >> 5) + (lane >> 2);  // +8: half 1
         const int cq = 2 * (lane & 3);        // column in each 8-column block
         const int q_lo = q0 + 64 * wg;        // this warpgroup's rows
         const int q_hi = q_lo + 63;
+        const int next = wg + 1 == NWG ? 0 : wg + 1;
         // base descriptors: this warpgroup's Q rows (K-major), stage 0's K
         // (K-major) and V (MN-major; LBO = the stride between boxes); stage
-        // s lies s * KV_BYTES further on
+        // s lies s * KV_BYTES (K) or s * V_BYTES (V) further on
         const uint64_t dq = make_desc(sQ + 64 * wg * C::SW, 16, 8 * C::SW,
                                       C::LAYOUT);
         const uint64_t dk0 = make_desc(sK, 16, 8 * C::SW, C::LAYOUT);
         const uint64_t dv0 = make_desc(sV, C::KV_BOX, 8 * C::SW, C::LAYOUT);
+        constexpr uint64_t K_STAGE = C::KV_BYTES >> 4;
+        constexpr uint64_t V_STAGE = C::V_BYTES >> 4;
+        // the exponent's factor and the masked value (see the header)
+        const float cm = softcap > 0.0f ? FATC_LOG2E : scale * FATC_LOG2E;
+        const float masked = softcap > 0.0f
+            ? FATC_NEG_INF : ldexpf(-1.0f, 30 + __float2int_rn(-log2f(scale)));
 
-        float oacc[HD / 2];
+        float oacc[C::ON / 2];
 #pragma unroll
-        for (int i = 0; i < HD / 2; ++i) oacc[i] = 0.0f;
+        for (int i = 0; i < C::ON / 2; ++i) oacc[i] = 0.0f;
+        float sc[BK / 2];
+        uint32_t pa[BK / 16][4];
         float mrow[2] = {-INFINITY, -INFINITY};
+        float mc[2] = {-INFINITY, -INFINITY};
         float lrow[2] = {0.0f, 0.0f};
+        float corr[2];
 
         bar_wait(bar_q, 0);
-        for (int it = 0; it < n_tiles; ++it) {
-            const int s = it % FATC_STAGES;
-            const uint32_t par = (it / FATC_STAGES) & 1;
-            const int k0 = (t_begin + it) * BK;
+        if (wg == NWG - 1) turn_pass(0);      // warpgroup 0 issues first
 
-            // S = Q . K^T (64 x 64 per warpgroup)
-            float sc[BK / 2];
-#pragma unroll
-            for (int i = 0; i < BK / 2; ++i) sc[i] = 0.0f;
-            bar_wait(bar_k + 8 * s, par);
-            keep<BK / 2>(sc);
+        // tile 0: S_0 = Q . K_0^T alone, then its softmax
+        bar_wait(bar_k, 0);
+        turn_wait(wg);
+        wg_fence();
+        qk_tile<HD>(sc, dq, dk0, std::make_integer_sequence<int, HD / 16>{});
+        wg_commit();
+        turn_pass(next);
+        wg_wait<0>();
+        keep<BK / 2>(sc);
+        bar_arrive(bar_ek);
+        bool moved = softmax_tile<BK>(sc, mrow, mc, corr, t_begin * BK, qa, cq,
+                                      q_lo, q_hi, S, causal, window, scale,
+                                      softcap, cm, masked);
+
+        for (int it = 1; it < n_tiles; ++it) {
+            const int s = it % ST;
+            const int sp = (it - 1) % ST;
+            // P.V of tile it - 2 has completed (its V goes back): O takes
+            // the correction of tile it - 1, whose weights become P.  The
+            // wait opens the loop's body, so that the compiler, which
+            // moves a wait up to the top of its block, cannot lift it
+            // above the softmax that closes the body before it.
+            wg_wait<0>();
+            keep<C::ON / 2>(oacc);
+            keep<BK / 4>(&pa[0][0]);
+            if (it >= 2) bar_arrive(bar_ev + 8 * ((it - 2) % ST));
+            rescale<C::ON>(oacc, corr, moved);
+            to_p<BK, !C::SUM_ON_TC>(sc, pa, lrow, corr);
+            // S_it = Q . K_it^T, then O += P_{it-1} . V_{it-1}
+            bar_wait(bar_k + 8 * s, (it / ST) & 1);
+            turn_wait(wg);
             wg_fence();
-            const uint64_t stage_off = (uint64_t)(s * (C::KV_BYTES >> 4));
-            qk_tile<HD>(sc, dq, dk0 + stage_off,
+            qk_tile<HD>(sc, dq, dk0 + s * K_STAGE,
                         std::make_integer_sequence<int, HD / 16>{});
             wg_commit();
-            wg_wait0();
-            keep<BK / 2>(sc);
-
-            // scale, soft cap, mask; accumulator i holds row qa + 8*((i>>1)&1),
-            // key k0 + 8*(i>>2) + cq + (i&1)
-            const bool edge = (k0 + BK > S) || (causal && k0 + BK - 1 > q_lo) ||
-                              (window > 0 && k0 <= q_hi - window);
-#pragma unroll
-            for (int i = 0; i < BK / 2; ++i) {
-                float x = sc[i] * scale;
-                if (softcap > 0.0f) x = softcap * tanhf(x / softcap);
-                if (edge) {
-                    const int qi = qa + 8 * ((i >> 1) & 1);
-                    const int kp = k0 + 8 * (i >> 2) + cq + (i & 1);
-                    bool live = true;
-                    if (causal) live = kp <= qi;
-                    if (window > 0) live = live && (kp > qi - window);
-                    x = live ? x : FATC_NEG_INF;
-                    if (kp >= S) x = -INFINITY;
-                }
-                sc[i] = x;
-            }
-            // online softmax
-            float mx[2] = {mrow[0], mrow[1]};
-#pragma unroll
-            for (int i = 0; i < BK / 2; ++i)
-                mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], sc[i]);
-            float corr[2];
-#pragma unroll
-            for (int r = 0; r < 2; ++r) {
-                mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-                mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-                corr[r] = exp2f((mrow[r] - mx[r]) * FATC_LOG2E);
-                mrow[r] = mx[r];
-            }
-            uint32_t pa[BK / 16][4];
-            float ps[2] = {0.0f, 0.0f};
-#pragma unroll
-            for (int i = 0; i < BK / 4; ++i) {          // register pairs
-                const int r = i & 1;
-                const float p0 = exp2f((sc[2 * i] - mx[r]) * FATC_LOG2E);
-                const float p1 = exp2f((sc[2 * i + 1] - mx[r]) * FATC_LOG2E);
-                __nv_bfloat162 pb = __floats2bfloat162_rn(p0, p1);
-                ps[r] += __low2float(pb) + __high2float(pb);
-                pa[i / 4][i % 4] = *reinterpret_cast<uint32_t*>(&pb);
-            }
-#pragma unroll
-            for (int r = 0; r < 2; ++r) lrow[r] = lrow[r] * corr[r] + ps[r];
-#pragma unroll
-            for (int i = 0; i < HD / 2; ++i) oacc[i] *= corr[(i >> 1) & 1];
-
-            // O += P . V
-            bar_wait(bar_v + 8 * s, par);
-            keep<HD / 2>(oacc);
-            wg_fence();
-            pv_tile<HD>(oacc, pa, dv0 + stage_off,
-                        std::make_integer_sequence<int, BK / 16 * C::NB>{});
+            bar_wait(bar_v + 8 * sp, ((it - 1) / ST) & 1);
+            pv_tile<HD>(oacc, pa, dv0 + sp * V_STAGE,
+                        std::make_integer_sequence<int, BK / 16>{});
             wg_commit();
-            wg_wait0();
-            keep<HD / 2>(oacc);
-            bar_arrive(bar_e + 8 * s);
+            turn_pass(next);
+            // S_it is ready: the softmax of tile it under P.V of tile it - 1
+            wg_wait<1>();
+            keep<BK / 2>(sc);
+            bar_arrive(bar_ek + 8 * s);
+            moved = softmax_tile<BK>(sc, mrow, mc, corr, (t_begin + it) * BK,
+                                     qa, cq, q_lo, q_hi, S, causal, window,
+                                     scale, softcap, cm, masked);
         }
+
+        // the last P.V, once the one before it has completed
+        wg_wait<0>();
+        keep<C::ON / 2>(oacc);
+        keep<BK / 4>(&pa[0][0]);
+        rescale<C::ON>(oacc, corr, moved);
+        to_p<BK, !C::SUM_ON_TC>(sc, pa, lrow, corr);
+        const int sl = (n_tiles - 1) % ST;
+        bar_wait(bar_v + 8 * sl, ((n_tiles - 1) / ST) & 1);
+        wg_fence();
+        pv_tile<HD>(oacc, pa, dv0 + sl * V_STAGE,
+                    std::make_integer_sequence<int, BK / 16>{});
+        wg_commit();
+        wg_wait<0>();
+        keep<C::ON / 2>(oacc);
 
         // O / l, rounded to bf16, rows < S
         float inv[2];
 #pragma unroll
         for (int r = 0; r < 2; ++r) {
-            float l = lrow[r];
-            l += __shfl_xor_sync(0xffffffffu, l, 1);
-            l += __shfl_xor_sync(0xffffffffu, l, 2);
+            float l;
+            if constexpr (C::SUM_ON_TC) {
+                l = oacc[HD / 2 + 2 * r];     // column HD: the whole row's sum
+            } else {
+                l = lrow[r];
+                l += __shfl_xor_sync(0xffffffffu, l, 1);
+                l += __shfl_xor_sync(0xffffffffu, l, 2);
+            }
             inv[r] = 1.0f / fmaxf(l, 1e-30f);
         }
 #pragma unroll
@@ -488,25 +779,36 @@ flash_attention_tc_kernel(const __grid_constant__ CUtensorMap tq,
     }
 }
 
+// The shared-memory attribute is set once per instantiation and device,
+// at its first launch there.
 template <int HD>
 static int fa_tc_launch(const CUtensorMap* tq, const CUtensorMap* tk,
                         const CUtensorMap* tv, void* o, int B, int S, int Hq,
                         int Hkv, int causal, int window, float scale,
                         float softcap, cudaStream_t stream) {
-    const int smem = fatc::Cfg<HD>::SMEM + 1024;    // + slack for alignment
-    cudaError_t err = cudaFuncSetAttribute(
-        flash_attention_tc_kernel<HD>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    using C = fatc::Cfg<HD>;
+    constexpr int smem = C::SMEM + 1024;            // + slack for alignment
+    static bool ready[FATC_MAX_DEVICES] = {};
+    int dev = 0;
+    cudaError_t err = cudaGetDevice(&dev);
     if (err != cudaSuccess) return (int)err;
-    dim3 grid(B * Hq, (S + FATC_BQ - 1) / FATC_BQ);
-    flash_attention_tc_kernel<HD><<<grid, FATC_THREADS, smem, stream>>>(
+    if (dev >= FATC_MAX_DEVICES || !ready[dev]) {
+        err = cudaFuncSetAttribute(flash_attention_tc_kernel<HD>,
+                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                   smem);
+        if (err != cudaSuccess) return (int)err;
+        if (dev < FATC_MAX_DEVICES) ready[dev] = true;
+    }
+    dim3 grid(B * Hq, (S + C::BQ - 1) / C::BQ);
+    flash_attention_tc_kernel<HD><<<grid, C::THREADS, smem, stream>>>(
         *tq, *tk, *tv, (__nv_bfloat16*)o, S, Hq, Hkv, causal, window, scale,
         softcap);
     return (int)cudaGetLastError();
 }
 
 // One launcher per head dim, each defined in its own source.  tq, tk, tv
-// point to host copies of the tensor maps (see flash_attention.cu).
+// point to host copies of the tensor maps (see flash_attention.cu), encoded
+// with boxes of Cfg<hd>::BQ query rows and Cfg<hd>::BK keys.
 #define FATC_LAUNCHER_ARGS                                                   \
     const CUtensorMap *tq, const CUtensorMap *tk, const CUtensorMap *tv,     \
         void *o, int B, int S, int Hq, int Hkv, int causal, int window,      \

@@ -8,12 +8,23 @@ CUDA C++, one kernel per dtype, each compiled once per head dim:
 
 * **bfloat16** (the serving dtype): ``csrc/flash_attention_tc.cuh``
   (``flash_attention_tc_hd*.cu``), Hopper's tensor cores.  A producer
-  thread feeds Q and a two-stage ring of 64-key K / V tiles through TMA
-  (4-D tensor maps over the model's layout, in boxes of the widest of 64,
-  32 or 16 columns that divides hd), two consumer warpgroups of
-  64 query rows run ``wgmma`` for Q.K^T and P.V with the online softmax
-  in registers between them.  P is rounded to bfloat16 before P.V, where
-  the reference keeps it in float32 (see :data:`BF16_REL`).
+  thread feeds Q and a ring of K / V tiles through TMA (4-D tensor maps
+  over the model's layout, in boxes of the widest of 64, 32 or 16 columns
+  that divides hd); consumer warpgroups of 64 query rows run ``wgmma``
+  for Q.K^T and P.V with the online softmax in registers between them.
+  The softmax is overlapped with the products twice over: each warpgroup
+  issues Q.K^T of tile n and P.V of tile n-1 together and runs the
+  softmax of tile n while P.V is in flight (FlashAttention-3's
+  intra-warpgroup pipeline), and named barriers pass the turn to issue
+  products from one warpgroup to the next (ping-pong), so one
+  warpgroup's products run under another's softmax.  Tiles are per head
+  dim, :data:`BF16_TILES`: 128-key tiles at hd <= 128 (three warpgroups,
+  192 query rows, at hd 64; two elsewhere), 64-key tiles at hd 256.  The
+  row sums come from the tensor cores (P.V runs over V and a box of
+  ones, hd + 8 wide; at hd 256 they stay on the CUDA cores), and without
+  a soft cap the scale is folded into the exponent (one FFMA and one
+  ``exp2`` a score).  P is rounded to bfloat16 before P.V, where the
+  reference keeps it in float32 (see :data:`BF16_REL`).
 * **float32**: ``csrc/flash_attention.cuh`` (``flash_attention_hd*.cu``),
   CUDA cores, float32 math throughout: one thread block per (b, h) and
   64-row query tile, a loop over 32-key kv tiles.
@@ -48,7 +59,19 @@ from . import build
 
 NEG_INF = -2.0 ** 30            # the reference's finite mask value
 KERNEL_HEAD_DIMS = (16, 32, 64, 96, 128, 256)
-BF16_BLOCK_Q = 128              # query rows per block of the bf16 kernel
+# The bf16 kernel's tiles per head dim, as its source sets them
+# (``fatc::Tiles`` in csrc/flash_attention_tc.cuh; the library exports them
+# through ``heye_fa_tc_tiles``, see :func:`kernel_tiles`): query rows a
+# block (the grid's second dimension is ceil(S / rows)), keys a kv tile,
+# kv tiles in the ring.
+BF16_TILES = {
+    16: (128, 128, 4),
+    32: (128, 128, 4),
+    64: (192, 128, 4),
+    96: (128, 128, 3),
+    128: (128, 128, 2),
+    256: (128, 64, 2),
+}
 
 launches = 0          # kernel launches made by the wrapper (not the plain path)
 # the same launches by (B, S, Hq, Hkv, hd, causal, window, softcap)
@@ -111,6 +134,17 @@ def launch_key(B: int, S: int, Hq: int, Hkv: int, hd: int, causal: bool,
             None if softcap is None else float(softcap))
 
 
+def kernel_tiles(hd: int) -> tuple:
+    """The bf16 kernel's (query rows, keys, stages) at head dim ``hd``, as
+    the built library reports them (needs the CUDA build)."""
+    import ctypes
+    out = [ctypes.c_int() for _ in range(3)]
+    err = build.load().heye_fa_tc_tiles(hd, *(ctypes.byref(c) for c in out))
+    if err:
+        raise ValueError(f"the bf16 kernel has no tiles at hd {hd}")
+    return tuple(c.value for c in out)
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: Optional[int] = None,
                     softcap: Optional[float] = None) -> torch.Tensor:
@@ -137,12 +171,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"unsupported device {dev}")
     if hd not in KERNEL_HEAD_DIMS:
         raise ValueError(f"head dim {hd} not in the kernel's {KERNEL_HEAD_DIMS}")
-    if q.dtype == torch.bfloat16:
+    bf16 = q.dtype == torch.bfloat16
+    if bf16:
         # grid (B*Hq, q tiles); TMA reads from 16-byte aligned addresses
-        if -(-S // BF16_BLOCK_Q) > 65535 or B * Hq > 2 ** 31 - 1:
-            raise ValueError(f"S = {S}, B*Hq = {B * Hq} exceed the kernel's "
-                             "grid")
-        if any(t.data_ptr() % 16 for t in (q, k, v)):
+        check_bf16_grid(B, S, Hq, hd)
+        if q.data_ptr() % 16 or k.data_ptr() % 16 or v.data_ptr() % 16:
             raise ValueError("q, k and v must start at 16-byte aligned "
                              "addresses")
     elif B * Hq > 65535:
@@ -152,15 +185,26 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if out.numel() == 0:
         return out
     lib = build.load()
-    with torch.cuda.device(dev):
-        err = lib.heye_flash_attention(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            B, S, Hq, Hkv, hd, int(q.dtype == torch.bfloat16), int(causal),
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            B, S, Hq, Hkv, hd, int(bf16), int(causal),
             int(window) if window is not None else 0,
             1.0 / math.sqrt(hd), float(softcap) if softcap is not None else 0.0,
-            torch.cuda.current_stream().cuda_stream)
+            build.raw_stream(dev.index))
+    # the device is entered only where it is not the current one
+    if dev.index == torch.cuda.current_device():
+        err = lib.heye_flash_attention(*args)
+    else:
+        with torch.cuda.device(dev):
+            err = lib.heye_flash_attention(*args)
     build.check_launch(err, "flash_attention")
     launches += 1
     launches_by_shape[launch_key(B, S, Hq, Hkv, hd, causal, window,
                                  softcap)] += 1
     return out
+
+
+def check_bf16_grid(B: int, S: int, Hq: int, hd: int) -> None:
+    """Raise where the bf16 kernel's grid, (B*Hq, ceil(S / rows)) with the
+    query rows of :data:`BF16_TILES` at ``hd``, exceeds CUDA's limits."""
+    if -(-S // BF16_TILES[hd][0]) > 65535 or B * Hq > 2 ** 31 - 1:
+        raise ValueError(f"S = {S}, B*Hq = {B * Hq} exceed the kernel's grid")

@@ -192,20 +192,32 @@ def test_flash_wrapper_refuses_bf16_inputs_the_kernel_does_not_take():
 # B5, bfloat16: the tensor-core kernel's rounding, emulated tile by tile
 # ---------------------------------------------------------------------------
 def _emulate_tc(q, k, v, *, causal=True, window=None, softcap=None,
-                mask_window=None, block_q=128, block_k=64):
-    """The bf16 kernel's arithmetic in plain PyTorch: 128-row query tiles,
-    64-key kv tiles over the kernel's loop bounds, scores in float32 from
-    bf16 inputs, scaled, soft-capped, masked with the finite NEG_INF, an
-    online max from -inf, P rounded to bf16 (the row sums add the rounded
-    values), float32 accumulation, the output rounded to bf16.
+                mask_window=None):
+    """The bf16 kernel's arithmetic in plain PyTorch, over the tiles it runs
+    at this head dim (``fa.BF16_TILES``: query tiles of its block's rows,
+    kv tiles of its keys, over the kernel's loop bounds): scores in float32
+    from bf16 inputs; without a soft cap kept raw, masked with the power of
+    two nearest -2^30 / scale, each weight exp2(fma(s, c, -m*c)) with c =
+    scale*log2(e) and m the running raw max (from -inf); with one scaled,
+    soft-capped, masked with the finite NEG_INF, c = log2(e); the
+    correction exp2(m_old*c - m*c); P rounded to bf16 (the row sums add
+    the rounded values), float32 accumulation, the output rounded to bf16.
     ``mask_window`` replaces the window in the mask alone (the loop bounds
     keep ``window``): a model of a mask error."""
     B, S, Hq, hd = q.shape
+    block_q, block_k, _ = fa.BF16_TILES[hd]
     rep = Hq // k.shape[2]
     qf = q.float().transpose(1, 2)
     kf = k.float().repeat_interleave(rep, dim=2).transpose(1, 2)
     vf = v.float().repeat_interleave(rep, dim=2).transpose(1, 2)
     mw = window if mask_window is None else mask_window
+    scale = torch.tensor(1.0 / np.sqrt(hd), dtype=torch.float32)
+    log2e = torch.tensor(1.4426950408889634, dtype=torch.float32)
+    if softcap is None:
+        c = scale * log2e
+        masked = -2.0 ** (30 + int(torch.round(-torch.log2(scale))))
+    else:
+        c, masked = log2e, fa.NEG_INF
     out = torch.empty(B, Hq, S, hd)
     for q0 in range(0, S, block_q):
         rows = torch.arange(q0, min(q0 + block_q, S))
@@ -215,26 +227,28 @@ def _emulate_tc(q, k, v, *, causal=True, window=None, softcap=None,
         if window is not None:
             k_begin = max(0, q0 - window + 1)
         m = torch.full((B, Hq, len(rows)), -float("inf"))
+        mc = torch.full((B, Hq, len(rows)), -float("inf"))
         l = torch.zeros((B, Hq, len(rows)))
         acc = torch.zeros((B, Hq, len(rows), hd))
         for t in range(k_begin // block_k, -(-k_end // block_k)):
             keys = torch.arange(t * block_k, min(t * block_k + block_k, S))
-            s = (qf[:, :, rows] @ kf[:, :, keys].transpose(-1, -2)) \
-                * (1.0 / np.sqrt(hd))
+            s = qf[:, :, rows] @ kf[:, :, keys].transpose(-1, -2)
             if softcap is not None:
-                s = softcap * torch.tanh(s / softcap)
+                s = softcap * torch.tanh(s * scale / softcap)
             live = torch.ones((len(rows), len(keys)), dtype=torch.bool)
             if causal:
                 live &= keys[None, :] <= rows[:, None]
             if mw is not None:
                 live &= keys[None, :] > rows[:, None] - mw
-            s = torch.where(live, s, torch.full_like(s, fa.NEG_INF))
-            mx = torch.maximum(m, s.amax(-1))
-            corr = torch.exp(m - mx)
-            p = torch.exp(s - mx[..., None]).bfloat16().float()
+            s = torch.where(live, s, torch.full_like(s, masked))
+            m = torch.maximum(m, s.amax(-1))
+            mc_new = m * c
+            corr = torch.exp2(mc - mc_new)
+            arg = (s.double() * c.double() - mc_new.double()[..., None]).float()
+            p = torch.exp2(arg).bfloat16().float()
             l = l * corr + p.sum(-1)
             acc = acc * corr[..., None] + p @ vf[:, :, keys]
-            m = mx
+            mc = mc_new
         out[:, :, rows] = acc / l[..., None]
     return out.transpose(1, 2).bfloat16()
 
@@ -245,10 +259,14 @@ def _ratio(got, plain):
     return float((d / fa.bf16_allowed(plain)).max())
 
 
+_BQ, _BK, _ = fa.BF16_TILES[64]
 TC_CASES = {
     # name: (B, S, Hq, Hkv, hd, kwargs, logit scale); S below one query
     # tile, windows below one kv tile, GQA / MQA, non-causal, soft caps,
-    # x100 logits, S that no tile divides, the path's shape cut in S
+    # x100 logits, S that no tile divides, the path's shape cut in S; the
+    # edges of hd 64's tiles: S one below, one above and one above twice a
+    # kv tile, windows one key either side of one, GQA 2:1 and hd 96
+    # unmasked at S that no tile divides
     "S40_window16_hd16": (2, 40, 4, 1, 16, {"window": 16}, 1.0),
     "gqa_ragged_hd64": (1, 333, 4, 2, 64, {}, 1.0),
     "noncausal_hd32": (1, 200, 4, 2, 32, {"causal": False}, 1.0),
@@ -259,6 +277,16 @@ TC_CASES = {
     "path_mqa_hd256_window": (1, 384, 4, 1, 256, {"window": 128}, 1.0),
     "encoder_noncausal_hd64": (2, 300, 4, 4, 64, {"causal": False}, 1.0),
     "phi3_causal_hd96": (1, 333, 4, 4, 96, {}, 1.0),
+    "S_bk_minus_1_hd64": (1, _BK - 1, 4, 2, 64, {}, 1.0),
+    "S_bk_plus_1_hd64": (1, _BK + 1, 4, 2, 64, {}, 1.0),
+    "S_2bk_plus_1_hd64": (1, 2 * _BK + 1, 4, 4, 64, {}, 1.0),
+    "window_bk_minus_1_hd64": (1, 4 * _BK + 3, 4, 2, 64,
+                               {"window": _BK - 1}, 1.0),
+    "window_bk_plus_1_hd64": (1, 4 * _BK + 3, 4, 2, 64,
+                              {"window": _BK + 1}, 1.0),
+    "gqa21_ragged_hd64": (2, 3 * _BQ + 5, 8, 4, 64, {}, 1.0),
+    "unmasked_ragged_hd96": (1, 2 * fa.BF16_TILES[96][1] + 37, 4, 4, 96,
+                             {"causal": False}, 1.0),
 }
 
 
@@ -270,7 +298,7 @@ def _tc_inputs(case):
 
 @pytest.mark.parametrize("case", sorted(TC_CASES))
 def test_bf16_tolerance_holds_the_kernel_rounding(case):
-    """The emulation lands well inside the rule.  Its worst ratio, 0.55-0.61
+    """The emulation lands well inside the rule.  Its worst ratio, 0.54-0.63
     here, is set by the output's own rounding: where the two sides round
     an output of 3x its row's RMS one bf16 step apart, that step alone is
     0.6 of the rule.  0.7 leaves that margin and no more."""
@@ -287,6 +315,40 @@ def test_bf16_tolerance_catches_a_window_off_by_one(case, shift):
     plain = fa.flash_attention_plain(q, k, v, **kw)
     wrong = _emulate_tc(q, k, v, mask_window=kw["window"] + shift, **kw)
     assert _ratio(wrong, plain) >= 10.0
+
+
+def test_bf16_tiles_cover_every_head_dim():
+    """One entry of the per-hd tile table for every head dim the kernel is
+    built for: query rows a whole number of 64-row warpgroups, keys a whole
+    number of 16-key wgmma slices, a ring of at least two stages."""
+    assert sorted(fa.BF16_TILES) == sorted(fa.KERNEL_HEAD_DIMS)
+    for hd, (bq, bk, stages) in fa.BF16_TILES.items():
+        assert bq % 64 == 0 and bk % 16 == 0 and stages >= 2, hd
+
+
+def test_bf16_tiles_match_the_kernel_source():
+    """The wrapper's table is the kernel's (``fatc::Tiles``: BK, STAGES and
+    NWG warpgroups of 64 rows); on the card ``chip_smoke.py`` holds it
+    against what the built library reports."""
+    import re
+    from pathlib import Path
+    src = (Path(fa.__file__).parent / "csrc" / "flash_attention_tc.cuh"
+           ).read_text()
+    found = {int(hd): (64 * int(nwg), int(bk), int(st)) for hd, bk, st, nwg in
+             re.findall(r"struct Tiles<(\d+)> \{ static constexpr int "
+                        r"BK = (\d+), STAGES = (\d+), NWG = (\d+); \};",
+                        src)}
+    assert found == fa.BF16_TILES
+
+
+@pytest.mark.parametrize("hd", fa.KERNEL_HEAD_DIMS)
+def test_bf16_grid_refusal_follows_the_tile(hd):
+    """The grid's second dimension is ceil(S / query rows) at this hd's
+    tile: the last S it takes passes, one more raises."""
+    bq = fa.BF16_TILES[hd][0]
+    fa.check_bf16_grid(2, 65535 * bq, 8, hd)
+    with pytest.raises(ValueError):
+        fa.check_bf16_grid(2, 65535 * bq + 1, 8, hd)
 
 
 def test_flash_wrapper_refuses_what_the_kernel_does_not_take():
