@@ -1,0 +1,9 @@
+"""Share of the traced window in which no operation ran on the card:
+one minus the union of the device operations' intervals over the
+window."""
+
+
+def read(r: dict):
+    if r["window_s"] <= 0:
+        return None
+    return 100.0 * (1.0 - r["busy_s"] / r["window_s"])

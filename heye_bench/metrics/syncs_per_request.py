@@ -1,0 +1,6 @@
+"""Device-to-host reads per request (``repro_torch.device.sync_count()``)
+over the window."""
+
+
+def read(r: dict):
+    return r["syncs"] / r["work"] if r["work"] else None

@@ -1,0 +1,326 @@
+"""The port's benchmark harness on the CPU, at a tiny fleet: every traffic
+mix through the program and the reference, every per-layer metric's
+arithmetic, the control and the planted faults that the check must
+catch, the frozen kernel byte counts, the names in BENCHMARK.json, and
+the run without a card."""
+from __future__ import annotations
+
+import ast
+import copy
+import json
+import math
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parents[2]
+BENCH_DIR = ROOT / "heye_bench"
+for p in (str(ROOT / "src"), str(ROOT)):
+    if p not in sys.path:
+        sys.path.insert(0, p)
+
+from heye_bench import (check, control, harness, roofline,  # noqa: E402
+                        workload)
+from heye_bench.reference import scheduler  # noqa: E402
+
+BENCH = json.loads((ROOT / "BENCHMARK.json").read_text())
+# the configurations' tiny twins: the mining fleet at an eighth of the
+# paper's (13 devices, 12 sensors, two readings or two periods) and the VR
+# testbed at 4 frames
+TINY = {
+    "mining-paper": {"deployment": {
+        "edge_counts": {"orin_agx": 3, "xavier_agx": 3, "orin_nano": 2,
+                        "xavier_nx": 2},
+        "server_counts": {"server1": 1, "server2": 1, "server3": 1}},
+        "application": {"sensors": 12, "readings": 2}},
+    "vr-paper": {"application": {"frames": 4}},
+}
+
+
+def tiny(cell: str) -> tuple:
+    w = {c["name"]: c for c in BENCH["workloads"]}[cell]
+    conf = {c["name"]: c for c in BENCH["configs"]}[w["config"]]
+    cfg = json.loads((ROOT / conf["file"]).read_text())
+    for key, v in copy.deepcopy(TINY[w["config"]]).items():
+        if key == "application":
+            cfg[key].update(v)
+        else:
+            cfg[key] = v
+    traffic = json.loads((BENCH_DIR / "traffic"
+                          / f"{w['traffic']}.json").read_text())
+    if traffic["mode"] == "serve":
+        traffic["horizon_periods"] = 2
+    return cfg, traffic
+
+
+@pytest.fixture(autouse=True)
+def _one_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def run(cell: str, seed: int = 7, trace: bool = False, cfg=None,
+        traffic=None) -> dict:
+    c, t = tiny(cell)
+    return harness.run_cell(BENCH, cell, cfg or c, traffic or t, seed, 0.0,
+                            trace, "cpu", 0.0, log=lambda m: None)
+
+
+CELLS = [w["name"] for w in BENCH["workloads"]]
+
+
+@pytest.mark.parametrize("cell", CELLS)
+def test_cell_runs_and_checks_on_the_cpu(cell):
+    """Each traffic mix through the program, at a tiny fleet, traced:
+    every per-layer metric of the cell that has something to read on the
+    CPU, and a check the reference passes."""
+    res = run(cell, trace=True)
+    assert res["correct"], res["checks"]
+    assert res["attempted"] > 0 and res["failed"] == 0
+    assert list(res)[-1] == "checks"
+    names = {m["name"] for m in harness.cell_metrics(BENCH, cell,
+                                                     "per_layer")}
+    cpu_silent = {n for n in names if n.startswith(("kernels_roofline",
+                                                    "device_idle_pct"))}
+    assert set(res["metrics"]) == names - cpu_silent
+    for m in res["metrics"].values():
+        assert math.isfinite(m["value"]) and m["value"] >= 0
+
+
+@pytest.mark.parametrize("cell", CELLS)
+def test_end_to_end_metrics(cell):
+    res = run(cell, seed=2**31 + 5)
+    want = {m["name"] for m in harness.cell_metrics(BENCH, cell,
+                                                    "end_to_end")}
+    assert set(res["metrics"]) == want and "setup_s" in want
+    assert all(m["value"] > 0 for m in res["metrics"].values())
+
+
+def test_device_metric_arithmetic():
+    """The trace readers on a reading as the card gives it."""
+    r = {"work": 10, "spans": {"map_pending": 0.5,
+                                                  "execute": 0.25},
+         "phase_wall": {"map": 1.0, "advance": 0.5, "sync": 0.25,
+                        "admit": 0.1},
+         "launches": 40, "syncs": 20, "window_s": 2.0, "busy_s": 0.5,
+         "roofline": (1e-6, 1e-3)}
+    want = {"map_ms_per_task.batch": 50.0, "execute_ms_per_task.batch": 25.0,
+            "walk_ms_per_request.serve": 100.0,
+            "des_ms_per_request.serve": 75.0, "launches_per_task.batch": 4.0,
+            "syncs_per_request.serve": 2.0, "kernels_roofline.batch": 0.1,
+            "device_idle_pct.serve": 75.0}
+    for name, v in want.items():
+        assert harness.load_metric(name).read(r) == pytest.approx(v)
+    r["roofline"] = (1e-6, 0.0)
+    assert harness.load_metric("kernels_roofline.serve").read(r) is None
+
+
+def test_reference_alone_at_the_tiny_fleet():
+    """The reference's own session and loop: every task placed and
+    finished, the overhead charged, and its float32 twin apart from it
+    by more than the limit (the control)."""
+    cfg, traffic = tiny("mining-paper.batch")
+    seeds = workload.iteration_seeds(3, 0)
+    mode = workload.load("modes", "session")
+    rows = mode.reference_rows(cfg, traffic, seeds)
+    assert len(rows) == 72 and all(math.isfinite(r[4]) for r in rows)
+    assert all(r[3] > 0 for r in rows)
+    low = mode.reference_rows(cfg, traffic, seeds, scheduler.f32)
+    numbers = check.compare(low, rows)
+    assert not check.verdict(numbers)
+    assert numbers["finish_gap"] > check.LIMITS["finish_gap"]
+
+
+@pytest.mark.parametrize("cell", CELLS)
+def test_control_fails_the_check(cell):
+    """The reference computed in float32, put in the program's place, at
+    the tiny fleet: the check must call it wrong."""
+    cfg, traffic = tiny(cell)
+    numbers = control.control_numbers(cfg, traffic,
+                                      workload.iteration_seeds(11, 0))
+    assert not check.verdict(numbers), numbers
+
+
+def _break_commit(monkeypatch):
+    """A step that returns its state unchanged: the orchestrator's
+    commits never reach its ledger."""
+    from repro_torch.core import orchestrator
+    monkeypatch.setattr(orchestrator.ActiveLedger, "add",
+                        lambda self, *a, **k: None)
+
+
+def _drop_half(monkeypatch):
+    """Half of the batch left out: the second half of each mapping wave is
+    never walked (the session falls back to any supporting PU), and the
+    serving loop admits only every other request."""
+    from repro_torch.core import orchestrator, serving
+    orig = orchestrator.Orchestrator.map_batch
+    orig_admit = serving.ServeLoop._admit_wave
+
+    def half(self, tasks, *a, **k):
+        tasks = list(tasks)
+        keep = max(1, len(tasks) // 2)
+        out = orig(self, tasks[:keep], *a, **k)
+        return out + [None] * (len(tasks) - keep)
+
+    def every_other(self, now, wave, events):
+        orig_admit(self, now, [r for r in wave if r.rid % 2 == 0], events)
+    monkeypatch.setattr(orchestrator.Orchestrator, "map_batch", half)
+    monkeypatch.setattr(serving.ServeLoop, "_admit_wave", every_other)
+
+
+def _alter_placement(monkeypatch):
+    """An answer altered where it is produced: the first placement of each
+    mapping wave moved to another PU that can run its task."""
+    from repro_torch.core import orchestrator
+    orig = orchestrator.Orchestrator.map_batch
+
+    def moved(self, tasks, *a, **k):
+        tasks = list(tasks)
+        out = orig(self, tasks, *a, **k)
+        r = out[0] if out else None
+        if r is not None:
+            r.pu = next(p.name for p in self.graph.pus()
+                        if p.name != r.pu
+                        and p.model.supports(tasks[0], p))
+        return out
+    monkeypatch.setattr(orchestrator.Orchestrator, "map_batch", moved)
+
+
+def _alter_finish(monkeypatch):
+    """An answer altered where it is produced: the ground truth's first
+    finish time of each run off by a part in a billion."""
+    from repro_torch.core import session, timeline
+    orig = timeline.TimelineEngine.finish_of
+    orig_exec = session.SchedulerSession.execute
+
+    def off(self, uid):
+        v = orig(self, uid)
+        return v * (1 + 1e-9) if uid == min(self.slot_of) else v
+
+    def off_exec(self):
+        stats = orig_exec(self)
+        stats.timeline.finish[min(stats.timeline.finish)] *= 1 + 1e-9
+        return stats
+    monkeypatch.setattr(timeline.TimelineEngine, "finish_of", off)
+    monkeypatch.setattr(session.SchedulerSession, "execute", off_exec)
+
+
+FAULTS = {"state_unchanged": _break_commit, "half_left_out": _drop_half,
+          "placement_altered": _alter_placement,
+          "finish_altered": _alter_finish}
+
+
+@pytest.mark.parametrize("fault", sorted(FAULTS))
+@pytest.mark.parametrize("cell", CELLS)
+def test_planted_fault_fails_the_check(cell, fault, monkeypatch):
+    """The harness with its look for a card skipped, the timed path
+    broken underneath: ``correct`` comes out false."""
+    FAULTS[fault](monkeypatch)
+    res = run(cell, seed=13)
+    assert not res["correct"], res["checks"]
+
+
+def test_frozen_byte_counts():
+    """The kernel table's bound_ms for B1's row form at N=4223 R=6 and for
+    B4 at P=8448 (1408 plan nodes, one feasible scan)."""
+    nb, ops = roofline.row_cost(torch.zeros(4223, 6))
+    assert roofline.least_seconds(nb, ops) * 1e3 == pytest.approx(
+        0.0000908, rel=5e-3)
+    rows = torch.tensor([[0.0, 6, 1, 3e-5, 0.01, 1.0, 0.0]])
+    nb, ops = roofline.scan_cost(8448, 1408, rows, False)
+    assert roofline.least_seconds(nb, ops) * 1e3 == pytest.approx(
+        0.0000429, rel=5e-3)
+
+
+NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
+UNIT = re.compile(r"^[A-Za-z0-9_/%.-]{1,16}$")
+
+
+def test_benchmark_names_units_and_files():
+    names = [c["name"] for c in BENCH["configs"]] + \
+        [w["name"] for w in BENCH["workloads"]] + \
+        [m["name"] for m in BENCH["end_to_end"] + BENCH["per_layer"]]
+    names += [w["config"] for w in BENCH["workloads"]]
+    names += [w["traffic"] for w in BENCH["workloads"]]
+    names += [k for c in BENCH["configs"] for k in c["reduced"]]
+    assert all(NAME.match(n) for n in names), names
+    assert len(set(names[:len(BENCH["configs"]) + len(BENCH["workloads"])
+                     + len(BENCH["end_to_end"]) + len(BENCH["per_layer"])]))\
+        == len(BENCH["configs"]) + len(BENCH["workloads"]) \
+        + len(BENCH["end_to_end"]) + len(BENCH["per_layer"])
+    for m in BENCH["end_to_end"] + BENCH["per_layer"]:
+        assert UNIT.match(m["unit"]) and m["better"] in ("lower", "higher")
+    for m in BENCH["per_layer"]:
+        assert callable(harness.load_metric(m["name"]).read)
+    for c in BENCH["configs"]:
+        cfg = json.loads((ROOT / c["file"]).read_text())
+        assert cfg["name"] == c["name"] and cfg["source"] == c["source"]
+        assert callable(workload.application(cfg).program_session)
+    for w in BENCH["workloads"]:
+        traffic = json.loads((BENCH_DIR / "traffic"
+                              / f"{w['traffic']}.json").read_text())
+        assert callable(workload.load("modes", traffic["mode"]).Program)
+        if "arrivals" in traffic:
+            assert callable(workload.load("arrivals",
+                                          traffic["arrivals"]).times)
+        assert w["name"] == f"{w['config']}.{w['traffic']}"
+
+
+def _imports(path: Path) -> set:
+    tree = ast.parse(path.read_text())
+    out = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            out.update(a.name.split(".")[0] for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            out.add(node.module.split(".")[0])
+    return out
+
+
+def test_nothing_imports_jax_or_the_jax_package():
+    """Top-level module names compared whole: ``repro_torch`` is the
+    program, ``repro`` the JAX package."""
+    for path in BENCH_DIR.rglob("*.py"):
+        assert not _imports(path) & set(harness.BANNED), path
+    for path in (BENCH_DIR / "reference").rglob("*.py"):
+        assert "repro_torch" not in _imports(path), path
+
+
+def test_run_without_a_card_fails():
+    """Without a CUDA device the command exits non-zero and prints no
+    result (on a machine with a card there is nothing to show)."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    proc = subprocess.run(
+        [sys.executable, str(BENCH_DIR / "run.py"), "--workload",
+         CELLS[0], "--seed", "1", "--seconds", "1", "--trace", "0"],
+        capture_output=True, text=True, timeout=120, cwd=ROOT)
+    assert proc.returncode != 0 and proc.stdout.strip() == ""
+
+
+def test_every_seed_offers_the_same_work():
+    """The serving mix moves its arrivals with the seed, never their
+    number: each sensor sends once per period of the horizon."""
+    cfg, traffic = tiny("mining-paper.serve")
+    serve = workload.load("modes", "serve")
+    span = serve.horizon(cfg, traffic)
+    draws = [serve.arrival_times(cfg, traffic,
+                                 workload.iteration_seeds(s, 0), span)
+             for s in (1, 2**40 + 9)]
+    for a, b in zip(*draws):
+        assert a[0] == b[0] and len(a[1]) == len(b[1]) == 2
+        assert not (a[1] == b[1]).all()
+        assert (0 <= a[1]).all() and (a[1] < span).all()
+
+
+def test_iteration_seeds_take_large_seeds():
+    a = workload.iteration_seeds(2**40 + 3, 0)
+    assert a != workload.iteration_seeds(2**40 + 3, 1)
+    assert all(0 <= s < 2**32 for s in a)
