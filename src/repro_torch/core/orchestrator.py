@@ -66,8 +66,10 @@ from typing import Iterable, Optional
 import numpy as np
 import torch
 
+from .. import spans
 from ..device import (BOOL, FLOAT, INT, DeviceLike, bytes_key, f64, host_item,
                       host_list, host_numpy, i64, resolve_device)
+from ..spans import OPEN as _SPANS
 from ..kernels.walk_kernel import (ScanPlanArrays, scan_reduce,
                                    scan_reduce_batch)
 from .hwgraph import HWGraph
@@ -1054,6 +1056,7 @@ class Orchestrator:
         tasks = list(tasks)
         if not tasks:
             return []
+        sp = spans.enter("walk.map_batch") if _SPANS else None
         self.ledger.prune(now)
         # release_time of resident tasks may have been charged with overhead
         # since the last batch (a mutation the ledger version cannot see):
@@ -1090,6 +1093,7 @@ class Orchestrator:
                 walks = self._walk_wave_sharded(tasks, now, ctx, route)
             else:
                 walks = self._walk_wave(tasks, now, ctx, route)
+            n_walks = len(walks)
             for t in tasks:
                 orc = self._entry_orc(t) if route else self
                 w = walks[self._task_signature(orc, t)]
@@ -1098,6 +1102,7 @@ class Orchestrator:
                 tentative.append((orc, res, w.scored))
         else:
             phase1: dict = {}
+            n_walks = 0
             for t in tasks:
                 orc = self._entry_orc(t) if route else self
                 # a noisy walk draws from the rng: every task walks
@@ -1110,6 +1115,7 @@ class Orchestrator:
                 else:
                     scored = set()
                     res = orc._map_once(t, now, ctx, scored)
+                    n_walks += 1
                     if key is not None:
                         phase1[key] = (res, scored)
                 tentative.append((orc, res, scored))
@@ -1120,8 +1126,11 @@ class Orchestrator:
         dirty: set[str] = set()
         out: list[Optional[MapResult]] = []
         warmed = not fast
+        rewalks = 0
+        cp = sp and spans.enter("walk.commit")
         for i, (t, (orc, res, scored)) in enumerate(zip(tasks, tentative)):
             if dirty and not dirty.isdisjoint(scored):
+                rewalks += 1
                 if not warmed:
                     # first re-walk of the batch: warm the comm-LUT route
                     # rows of every task still to commit in one batched
@@ -1142,6 +1151,12 @@ class Orchestrator:
                 t.assigned_pu = res.pu
                 dirty.add(comp.device_name(res.pu))
             out.append(res)
+        if sp:
+            spans.leave(cp)
+            spans.leave(sp)
+            spans.add("walk.tasks", len(tasks))
+            spans.add("walk.walks", n_walks)
+            spans.add("walk.rewalks", rewalks)
         return out
 
     def _session_context(self, comp) -> _BatchContext:
@@ -1591,6 +1606,7 @@ class Orchestrator:
         triples sharing one wave depth — with a single
         ``factors_same_device_multi`` call (one factor-kernel launch for
         the whole depth)."""
+        sp = spans.enter("walk.checks") if _SPANS else None
         sd = self.traverser.slowdown
         led = self.ledger
         comp = ctx.comp
@@ -1619,9 +1635,7 @@ class Orchestrator:
                           view.upu, view.Ma, view.uid, view.Da,
                           view.astart, view.na))
             metas.append((orc, task, static, view, st))
-        if not items:
-            return
-        outs = sd.factors_same_device_multi(comp, items)
+        outs = sd.factors_same_device_multi(comp, items) if items else ()
         for (orc, task, static, view, st), fused in zip(metas, outs):
             o, s_, f_, w_, e = orc._score_fused_arrays(
                 task, static, now, with_constraints=True, ctx=ctx,
@@ -1633,6 +1647,8 @@ class Orchestrator:
             st.wait[cols] = w_
             if static.single_dev is not None:
                 st.expiry[static.single_dev] = e
+        if sp:
+            spans.leave(sp)
 
     def _dedup_walks(self, tasks: list, route: bool,
                      ) -> tuple[dict, list["_Walk"]]:
@@ -1659,6 +1675,7 @@ class Orchestrator:
         group-sharded driver escalates intra-group levels per group and
         keeps the root scan (the only cross-group one) for the serial
         boundary reconciliation."""
+        sp = spans.enter("walk.escalate") if _SPANS else None
         comp = ctx.comp
         while active:
             warm: set = set()
@@ -1681,6 +1698,8 @@ class Orchestrator:
                             stop_root and w.cur.parent.parent is None):
                         nxt.append(w)
             active = nxt
+        if sp:
+            spans.leave(sp)
 
     def _drive_wave(self, order: list["_Walk"], now: float,
                     ctx: "_BatchContext", stop_root: bool = False) -> None:
@@ -1705,6 +1724,7 @@ class Orchestrator:
         ledger, so reducing after every walk's checks equals reducing walk
         by walk.  ``min_load`` walks keep the per-walk reduce — their
         selection key reads live ledger counts."""
+        sp = spans.enter("walk.entry") if _SPANS else None
         groups: dict = {}
         for w in ws:
             cols = w.orc._entry_columns(w.task, now, ctx, w.scored)
@@ -1738,6 +1758,8 @@ class Orchestrator:
                     pu=cols[4].pus[int(wi)],
                     prediction=TaskPrediction(sa_w, f_w, cm_w),
                     overhead=ov, queries=int(q), hops=int(h))
+        if sp:
+            spans.leave(sp)
 
     def _walk_wave(self, tasks: list, now: float, ctx: "_BatchContext",
                    route: bool) -> dict:
@@ -1806,10 +1828,12 @@ class Orchestrator:
                         warm.add(cur.group)
                         cur = cur.parent
                 comp.ensure_routes(warm)
+                # each group's spans nest under this thread's open span
+                parent = spans.current() if _SPANS else None
                 with ThreadPoolExecutor(max_workers=nthreads) as ex:
                     list(ex.map(
-                        lambda ws: self._drive_wave(ws, now, ctx,
-                                                    stop_root=True),
+                        lambda ws: spans.under(parent, self._drive_wave, ws,
+                                               now, ctx, stop_root=True),
                         groups))
             if serial:
                 self._drive_wave(serial, now, ctx)

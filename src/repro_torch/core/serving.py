@@ -48,8 +48,10 @@ from typing import Any, Callable, Optional, Sequence, Union
 
 import numpy as np
 
+from .. import spans
 from ..serve.admission import (AdaptiveWindow, AdmissionController, Decision,
                                Verdict)
+from ..spans import OPEN as _SPANS
 from .hwgraph import HWGraph
 from .orchestrator import Orchestrator
 from .session import Policy, SchedulerSession, percentiles
@@ -481,6 +483,8 @@ class ServeLoop:
             if d is None:
                 live.append(req)
             else:
+                if _SPANS and d.verdict is not Verdict.DEFER:
+                    spans.decided(req.rid)
                 self._refuse(req, d, events, now)
         if not live:
             return
@@ -493,6 +497,8 @@ class ServeLoop:
         for req in live:
             rs = [results.get(t.uid) for t in req.tasks]
             d = adm.post_admit(req, rs, now)
+            if _SPANS and d.verdict is not Verdict.DEFER:
+                spans.decided(req.rid)
             if d.verdict is Verdict.ACCEPT:
                 req.verdict = "accepted"
                 req.remaining = len(req.tasks)
@@ -551,10 +557,13 @@ class ServeLoop:
                 # the advance call — which would only park the clock —
                 # is skipped entirely: the idle fast path.)
                 w0 = _time.perf_counter()
+                sp = spans.enter("serve.step", w0) if _SPANS else None
                 self.engine.advance(tn)
                 w1 = _time.perf_counter()
                 self._sync_completions()
                 w2 = _time.perf_counter()
+                if sp:
+                    spans.leave(sp, w2)
                 pw["advance"] += w1 - w0
                 pw["sync"] += w2 - w1
                 continue
@@ -592,11 +601,19 @@ class ServeLoop:
             # as of t0, slightly stale for the later arrivals it
             # coalesced)
             w0 = _time.perf_counter()
+            sp = spans.enter("serve.wave", w0) if _SPANS else None
+            sy = sp and spans.enter("serve.sync", w0)
             self._sync_completions()
             w1 = _time.perf_counter()
+            if sp:
+                spans.leave(sy, w1)
+                sy = spans.enter("serve.admit", w1)
             m0 = pw["map"]
             self._admit_wave(now, wave, events)
             w2 = _time.perf_counter()
+            if sp:
+                spans.leave(sy, w2)
+                spans.leave(sp, w2)
             pw["sync"] += w1 - w0
             pw["admit"] += (w2 - w1) - (pw["map"] - m0)
             self.wave_sizes.append(len(wave))

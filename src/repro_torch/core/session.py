@@ -43,6 +43,8 @@ from typing import Callable, Iterable, Optional, Union
 
 import numpy as np
 
+from .. import spans
+from ..spans import OPEN as _SPANS
 from .hwgraph import Churn, HWGraph
 from .orchestrator import MapResult, Orchestrator
 from .task import Task, TaskGraph
@@ -277,6 +279,7 @@ class SchedulerSession:
         degrading to any supporting PU — the admission-control path, where
         infeasibility must surface as a reject/defer signal rather than a
         desperate placement (withdraw the task afterwards)."""
+        sp = spans.enter("session.map_pending") if _SPANS else None
         out: dict[int, Optional[MapResult]] = {}
         comp = self.graph.compiled()
         for now, wave in self._waves():
@@ -312,6 +315,8 @@ class SchedulerSession:
                         touch = getattr(pol.ledger, "touch", None)
                         if touch is not None:
                             touch(comp.device_name(res.pu))
+        if sp:
+            spans.leave(sp)
         return out
 
     def withdraw(self, task: Task) -> None:
@@ -407,11 +412,15 @@ class SchedulerSession:
     def execute(self) -> RunStats:
         """Run everything mapped so far through the ground-truth engine
         (a fresh one-shot traverse — the offline path)."""
+        sp = spans.enter("session.execute") if _SPANS else None
         if self.truth is None:
             from .simulator import ground_truth_traverser
             self.truth = ground_truth_traverser(self.graph)
         tl = self.truth.traverse(self._cfg, self.mapping)
-        return self._stats(tl)
+        stats = self._stats(tl)
+        if sp:
+            spans.leave(sp)
+        return stats
 
     def run(self, work: Optional[Union[TaskGraph, Iterable[Task]]] = None,
             ) -> RunStats:

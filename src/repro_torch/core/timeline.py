@@ -86,8 +86,10 @@ from typing import Any, Callable, Optional, Sequence
 import numpy as np
 import torch
 
+from .. import spans
 from ..device import FLOAT, INT, f64, host_item, host_list, i64, nonzero
 from ..kernels import timeline_kernel as tk
+from ..spans import OPEN as _SPANS
 from .hwgraph import EdgeAttr, ProcessingUnit
 from .task import Task, TaskGraph
 
@@ -707,6 +709,7 @@ class TimelineEngine:
         """Reprice every dirty device pool (one factor call) and every
         dirty link set (one segment-min).  Returns True when any rate was
         re-projected — i.e. when same-timestamp work may now exist."""
+        sp = spans.enter("des.flush") if _SPANS else None
         t = self.time
         dev = self.device
         flushed = False
@@ -766,6 +769,8 @@ class TimelineEngine:
                                     pack[n_k + u:], t, self._stamp)
                 self._stamp += n_k
                 flushed = True
+        if sp:
+            spans.leave(sp)
         return flushed
 
     def _intervene(self, fn) -> None:
@@ -804,6 +809,7 @@ class TimelineEngine:
 
     # -- completions --------------------------------------------------------
     def _complete_compute(self, done: torch.Tensor) -> None:
+        sp = spans.enter("des.complete") if _SPANS else None
         t = self.time
         if done.shape[0] > 1:   # simultaneous: settle in reprice-stamp order
             done = done[torch.argsort(self.cstamp[done], stable=True)]
@@ -815,8 +821,11 @@ class TimelineEngine:
         for s, ok in zip(done_l, fin_l):
             if ok:
                 self._finish(s)
+        if sp:
+            spans.leave(sp)
 
     def _complete_transfers(self, done: torch.Tensor) -> None:
+        sp = spans.enter("des.complete") if _SPANS else None
         t = self.time
         if done.shape[0] > 1:   # simultaneous: settle in reprice-stamp order
             done = done[torch.argsort(self.xstamp[done], stable=True)]
@@ -840,6 +849,8 @@ class TimelineEngine:
                 self._push(t + lat, _ARRIVE, self.xconsumer[k])
             else:
                 self._arrived(self.xconsumer[k])
+        if sp:
+            spans.leave(sp)
 
     # -- lifecycle ----------------------------------------------------------
     def _start(self) -> None:
@@ -934,10 +945,13 @@ class TimelineEngine:
     def drain_finished(self) -> list[Task]:
         """Tasks that completed since the previous drain (background slots
         excluded) — the ledger-reconciliation feed for serving loops."""
+        sp = spans.enter("des.drain") if _SPANS else None
         log = self._finish_log
         out = [self.allt[s] for s in log[self._finish_cursor:]
                if not self.is_bg[s]]
         self._finish_cursor = len(log)
+        if sp:
+            spans.leave(sp)
         return out
 
     @property
@@ -950,8 +964,11 @@ class TimelineEngine:
         transfer finish, or heap entry), ``inf`` at quiescence — the same
         minimum :meth:`advance` computes before draining.  Reads the two
         eta minima back from the device: one synchronising read."""
+        sp = spans.enter("des.next") if _SPANS else None
         em, xm = self._next_times()
         t_next = self.heap[0][0] if self.heap else _INF
+        if sp:
+            spans.leave(sp)
         return min(em, xm, t_next)
 
     def _next_times(self) -> tuple[float, float]:
@@ -968,6 +985,7 @@ class TimelineEngine:
         """Drain every event with timestamp <= ``until``, then park the
         clock at ``until`` (when finite).  ``advance()`` with no bound
         drains to quiescence — the one-shot behaviour."""
+        sp = spans.enter("des.advance") if _SPANS else None
         heap = self.heap
         while True:
             em, xm = self._next_times()
@@ -1021,6 +1039,8 @@ class TimelineEngine:
                     break
         if until != _INF and until > self.time:
             self.time = until
+        if sp:
+            spans.leave(sp)
         return self
 
     def run(self) -> Timeline:

@@ -25,6 +25,9 @@ from typing import Union
 import numpy as np
 import torch
 
+from . import spans
+from .spans import OPEN as _SPANS
+
 FLOAT = torch.float64
 INT = torch.int64
 BOOL = torch.bool
@@ -37,9 +40,13 @@ _sync_lock = threading.Lock()
 
 
 def _count_sync() -> None:
+    """Count one host read, and in the innermost open span of the calling
+    thread when a span recorder is open."""
     global _syncs
     with _sync_lock:
         _syncs += 1
+        if _SPANS:
+            spans.count_read()
 
 
 def resolve_device(device: DeviceLike = None) -> torch.device:

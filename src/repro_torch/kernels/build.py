@@ -34,6 +34,9 @@ from typing import Optional
 
 import torch
 
+from .. import spans
+from ..spans import OPEN as _SPANS
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 REPO_ROOT = Path(__file__).resolve().parents[3]
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -197,9 +200,13 @@ def load() -> ctypes.CDLL:
 
 def count_launch(counts: dict, name: str) -> None:
     """Add one to ``counts[name]`` (a wrapper's launch counter) — exact
-    when wrappers launch from several threads at once."""
+    when wrappers launch from several threads at once — and to the
+    innermost open span of the calling thread when a span recorder is
+    open."""
     with _COUNT_LOCK:
         counts[name] += 1
+        if _SPANS:
+            spans.count_launch()
 
 
 def info() -> dict:

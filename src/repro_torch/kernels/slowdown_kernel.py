@@ -52,6 +52,8 @@ import numpy as np
 import torch
 
 from ..device import host_list, nonzero
+from .. import spans
+from ..spans import OPEN as _SPANS
 from . import build
 
 # launches per form: the row kernel, the pool form, the same-device form
@@ -251,32 +253,38 @@ def slowdown_same_device_plain(items: Sequence[SameDeviceItem], mt_vec,
 def slowdown_factors(x: torch.Tensor, beta: torch.Tensor, mem: torch.Tensor,
                      mt_term: torch.Tensor, kappa: float) -> torch.Tensor:
     """(N, R) pressures -> (N,) factors."""
-    dev = x.device
-    build.check_tensor("x", x, _F64, 2, dev)
-    build.check_tensor("beta", beta, _F64, 1, dev)
-    build.check_tensor("mem", mem, _F64, 1, dev)
-    build.check_tensor("mt_term", mt_term, _F64, 1, dev)
-    n, r = x.shape
-    if beta.shape[0] != r or mem.shape[0] != n or mt_term.shape[0] != n:
-        raise ValueError("shape mismatch: x %s beta %s mem %s mt_term %s" % (
-            tuple(x.shape), tuple(beta.shape), tuple(mem.shape),
-            tuple(mt_term.shape)))
-    if dev.type == "cpu":
-        return slowdown_factors_plain(x, beta, mem, mt_term, kappa)
-    if dev.type != "cuda":
-        raise ValueError(f"unsupported device {dev}")
-    out = torch.empty(n, dtype=_F64, device=dev)
-    if n == 0:
+    sp = spans.enter("launch.slowdown_factors") if _SPANS else None
+    try:
+        dev = x.device
+        build.check_tensor("x", x, _F64, 2, dev)
+        build.check_tensor("beta", beta, _F64, 1, dev)
+        build.check_tensor("mem", mem, _F64, 1, dev)
+        build.check_tensor("mt_term", mt_term, _F64, 1, dev)
+        n, r = x.shape
+        if beta.shape[0] != r or mem.shape[0] != n or mt_term.shape[0] != n:
+            raise ValueError(
+                "shape mismatch: x %s beta %s mem %s mt_term %s" % (
+                tuple(x.shape), tuple(beta.shape), tuple(mem.shape),
+                tuple(mt_term.shape)))
+        if dev.type == "cpu":
+            return slowdown_factors_plain(x, beta, mem, mt_term, kappa)
+        if dev.type != "cuda":
+            raise ValueError(f"unsupported device {dev}")
+        out = torch.empty(n, dtype=_F64, device=dev)
+        if n == 0:
+            return out
+        lib = build.load()
+        with torch.cuda.device(dev):
+            err = lib.heye_slowdown_factors(
+                x.data_ptr(), beta.data_ptr(), mem.data_ptr(),
+                mt_term.data_ptr(), out.data_ptr(), n, r, float(kappa),
+                torch.cuda.current_stream().cuda_stream)
+        build.check_launch(err, "slowdown_factors")
+        build.count_launch(launches, "slowdown_factors")
         return out
-    lib = build.load()
-    with torch.cuda.device(dev):
-        err = lib.heye_slowdown_factors(
-            x.data_ptr(), beta.data_ptr(), mem.data_ptr(),
-            mt_term.data_ptr(), out.data_ptr(), n, r, float(kappa),
-            torch.cuda.current_stream().cuda_stream)
-    build.check_launch(err, "slowdown_factors")
-    build.count_launch(launches, "slowdown_factors")
-    return out
+    finally:
+        if sp:
+            spans.leave(sp)
 
 
 def _check_tables(mem_cap, ncr_rclass, mt_vec, beta, dev) -> tuple[int, int]:
@@ -313,40 +321,46 @@ def slowdown_pool(members: torch.Tensor, pu_i: torch.Tensor, U: torch.Tensor,
     columns ``pu_i`` / ``U`` / ``memraw`` / ``uid``), each against all the
     others: ``distinct`` pools skip only the member itself, the others
     every member of equal uid.  Returns (n,) float64."""
-    dev = members.device
-    build.check_tensors(dev, ("members", members, _I64, 1),
-                        ("pu_i", pu_i, _I64, 1), ("U", U, _F64, 1),
-                        ("memraw", memraw, _F64, 1), ("uid", uid, _I64, 1))
-    _check_tables(mem_cap, ncr_rclass, mt_vec, beta, dev)
-    rows = pu_i.shape[0]
-    if U.shape[0] != rows or memraw.shape[0] != rows or uid.shape[0] != rows:
-        raise ValueError("pu_i, U, memraw and uid must have one length")
-    kappa = float(kappa)
-    if dev.type == "cpu":
-        return slowdown_pool_plain(members, pu_i, U, memraw, uid, mem_cap,
-                                   ncr_rclass, mt_vec, beta, kappa,
-                                   bool(distinct))
-    if dev.type != "cuda":
-        raise ValueError(f"unsupported device {dev}")
-    n = members.shape[0]
-    out = torch.empty(n, dtype=_F64, device=dev)
-    if n == 0:
+    sp = spans.enter("launch.slowdown_pool") if _SPANS else None
+    try:
+        dev = members.device
+        build.check_tensors(dev, ("members", members, _I64, 1),
+                            ("pu_i", pu_i, _I64, 1), ("U", U, _F64, 1),
+                            ("memraw", memraw, _F64, 1), ("uid", uid, _I64, 1))
+        _check_tables(mem_cap, ncr_rclass, mt_vec, beta, dev)
+        rows = pu_i.shape[0]
+        if (U.shape[0] != rows or memraw.shape[0] != rows
+                or uid.shape[0] != rows):
+            raise ValueError("pu_i, U, memraw and uid must have one length")
+        kappa = float(kappa)
+        if dev.type == "cpu":
+            return slowdown_pool_plain(members, pu_i, U, memraw, uid, mem_cap,
+                                       ncr_rclass, mt_vec, beta, kappa,
+                                       bool(distinct))
+        if dev.type != "cuda":
+            raise ValueError(f"unsupported device {dev}")
+        n = members.shape[0]
+        out = torch.empty(n, dtype=_F64, device=dev)
+        if n == 0:
+            return out
+        R = beta.shape[0]
+        lib = build.load()
+        wide_len = lib.heye_slowdown_pool_wide_len(n, R)
+        _keep, wide = _wide_scratch(wide_len, dev)
+        with torch.cuda.device(dev):
+            err = lib.heye_slowdown_pool(
+                members.data_ptr(), n, pu_i.data_ptr(), U.data_ptr(),
+                memraw.data_ptr(), uid.data_ptr(), mem_cap.data_ptr(),
+                ncr_rclass.data_ptr(), mem_cap.shape[0], mt_vec.data_ptr(),
+                beta.data_ptr(), R, kappa, int(bool(distinct)),
+                out.data_ptr(), wide, wide_len,
+                torch.cuda.current_stream().cuda_stream)
+        build.check_launch(err, "slowdown_pool")
+        build.count_launch(launches, "slowdown_pool")
         return out
-    R = beta.shape[0]
-    lib = build.load()
-    wide_len = lib.heye_slowdown_pool_wide_len(n, R)
-    _keep, wide = _wide_scratch(wide_len, dev)
-    with torch.cuda.device(dev):
-        err = lib.heye_slowdown_pool(
-            members.data_ptr(), n, pu_i.data_ptr(), U.data_ptr(),
-            memraw.data_ptr(), uid.data_ptr(), mem_cap.data_ptr(),
-            ncr_rclass.data_ptr(), mem_cap.shape[0], mt_vec.data_ptr(),
-            beta.data_ptr(), R, kappa, int(bool(distinct)),
-            out.data_ptr(), wide, wide_len,
-            torch.cuda.current_stream().cuda_stream)
-    build.check_launch(err, "slowdown_pool")
-    build.count_launch(launches, "slowdown_pool")
-    return out
+    finally:
+        if sp:
+            spans.leave(sp)
 
 
 # one int64 row per launched item (csrc/slowdown_factors.cu, SD_* fields)
@@ -424,63 +438,69 @@ def slowdown_same_device(items: Sequence[SameDeviceItem], mt_vec, beta,
     joins candidate ``ci[k]``.  An item with no such pair gets factors of
     1 and no pairs.  On the card, one host read for all the items whose
     candidates span devices (their pair counts) and one launch."""
-    dev = mem_cap.device
-    _, R = _check_tables(mem_cap, ncr_rclass, mt_vec, beta, dev)
-    for it in items:
-        _check_item(it, dev)
-    kappa = float(kappa)
-    if dev.type == "cpu":
-        return slowdown_same_device_plain(items, mt_vec, beta, mem_cap,
-                                          ncr_rclass, kappa)
-    if dev.type != "cuda":
-        raise ValueError(f"unsupported device {dev}")
-    out: list = [None] * len(items)
-    K = [0] * len(items)
-    cs: list = [None] * len(items)
-    multi = []
-    for i, it in enumerate(items):
-        C, A = it.Pc.shape[0], it.Pa.shape[0]
-        if C == 0 or A == 0:
-            continue
-        if it.summ[1]:
-            K[i] = C * it.summ[3]
-        else:
-            # pairs end per candidate at cs (inclusive)
-            cs[i] = torch.cumsum(it.na[it.Dc], 0)
-            multi.append(i)
-    if multi:
-        for i, k in zip(multi, host_list(
-                torch.stack([cs[i][-1] for i in multi]))):
-            K[i] = k
-    run = [i for i in range(len(items)) if K[i]]
-    for i in range(len(items)):
-        if not K[i]:
-            out[i] = _trivial(items[i].Pc.shape[0], dev)
-    if not run:
+    sp = spans.enter("launch.slowdown_same_device") if _SPANS else None
+    try:
+        dev = mem_cap.device
+        _, R = _check_tables(mem_cap, ncr_rclass, mt_vec, beta, dev)
+        for it in items:
+            _check_item(it, dev)
+        kappa = float(kappa)
+        if dev.type == "cpu":
+            return slowdown_same_device_plain(items, mt_vec, beta, mem_cap,
+                                              ncr_rclass, kappa)
+        if dev.type != "cuda":
+            raise ValueError(f"unsupported device {dev}")
+        out: list = [None] * len(items)
+        K = [0] * len(items)
+        cs: list = [None] * len(items)
+        multi = []
+        for i, it in enumerate(items):
+            C, A = it.Pc.shape[0], it.Pa.shape[0]
+            if C == 0 or A == 0:
+                continue
+            if it.summ[1]:
+                K[i] = C * it.summ[3]
+            else:
+                # pairs end per candidate at cs (inclusive)
+                cs[i] = torch.cumsum(it.na[it.Dc], 0)
+                multi.append(i)
+        if multi:
+            for i, k in zip(multi, host_list(
+                    torch.stack([cs[i][-1] for i in multi]))):
+                K[i] = k
+        run = [i for i in range(len(items)) if K[i]]
+        for i in range(len(items)):
+            if not K[i]:
+                out[i] = _trivial(items[i].Pc.shape[0], dev)
+        if not run:
+            return out
+        rows, (nf, pairs, base, flags) = same_device_layout(
+            [items[i] for i in run], [K[i] for i in run], R,
+            [cs[i] for i in run])
+        tab = torch.tensor(rows, dtype=_I64).to(dev)
+        new_f = torch.empty(nf, dtype=_F64, device=dev)
+        ci = torch.empty(pairs, dtype=_I64, device=dev)
+        ai = torch.empty(pairs, dtype=_I64, device=dev)
+        act_pf = torch.empty(pairs, dtype=_F64, device=dev)
+        scratch = torch.empty(max(base, 1), dtype=_F64, device=dev)
+        iscratch = torch.empty(max(flags, 1), dtype=torch.int32, device=dev)
+        lib = build.load()
+        wide_len = lib.heye_slowdown_same_device_wide_len(len(run), R)
+        _keep, wide = _wide_scratch(wide_len, dev)
+        with torch.cuda.device(dev):
+            err = lib.heye_slowdown_same_device(
+                tab.data_ptr(), len(run), len(SD_FIELDS),
+                ncr_rclass.data_ptr(), mem_cap.shape[0], mt_vec.data_ptr(),
+                mem_cap.data_ptr(), beta.data_ptr(), R, kappa,
+                new_f.data_ptr(), ci.data_ptr(), ai.data_ptr(),
+                act_pf.data_ptr(), scratch.data_ptr(), iscratch.data_ptr(),
+                wide, wide_len,
+                torch.cuda.current_stream().cuda_stream)
+        build.check_launch(err, "slowdown_same_device")
+        build.count_launch(launches, "slowdown_same_device")
+        for i, res in zip(run, split_stack(rows, new_f, ci, ai, act_pf)):
+            out[i] = res
         return out
-    rows, (nf, pairs, base, flags) = same_device_layout(
-        [items[i] for i in run], [K[i] for i in run], R,
-        [cs[i] for i in run])
-    tab = torch.tensor(rows, dtype=_I64).to(dev)
-    new_f = torch.empty(nf, dtype=_F64, device=dev)
-    ci = torch.empty(pairs, dtype=_I64, device=dev)
-    ai = torch.empty(pairs, dtype=_I64, device=dev)
-    act_pf = torch.empty(pairs, dtype=_F64, device=dev)
-    scratch = torch.empty(max(base, 1), dtype=_F64, device=dev)
-    iscratch = torch.empty(max(flags, 1), dtype=torch.int32, device=dev)
-    lib = build.load()
-    wide_len = lib.heye_slowdown_same_device_wide_len(len(run), R)
-    _keep, wide = _wide_scratch(wide_len, dev)
-    with torch.cuda.device(dev):
-        err = lib.heye_slowdown_same_device(
-            tab.data_ptr(), len(run), len(SD_FIELDS),
-            ncr_rclass.data_ptr(), mem_cap.shape[0], mt_vec.data_ptr(),
-            mem_cap.data_ptr(), beta.data_ptr(), R, kappa,
-            new_f.data_ptr(), ci.data_ptr(), ai.data_ptr(), act_pf.data_ptr(),
-            scratch.data_ptr(), iscratch.data_ptr(), wide, wide_len,
-            torch.cuda.current_stream().cuda_stream)
-    build.check_launch(err, "slowdown_same_device")
-    build.count_launch(launches, "slowdown_same_device")
-    for i, res in zip(run, split_stack(rows, new_f, ci, ai, act_pf)):
-        out[i] = res
-    return out
+    finally:
+        if sp:
+            spans.leave(sp)

@@ -48,6 +48,8 @@ from __future__ import annotations
 
 import torch
 
+from .. import spans
+from ..spans import OPEN as _SPANS
 from . import build
 
 # launches per kernel form: the rate-advance, the two fused settle forms,
@@ -186,29 +188,35 @@ def transfer_complete_plain(xW, xrate, xt_last, xeta, done, now: float,
 def rate_advance(W: torch.Tensor, rate: torch.Tensor, t_last: torch.Tensor,
                  now: float) -> tuple[torch.Tensor, torch.Tensor]:
     """Settle to ``now`` and project completions: ``(W', eta)``."""
-    dev = W.device
-    for name, t in (("W", W), ("rate", rate), ("t_last", t_last)):
-        build.check_tensor(name, t, _F64, 1, dev)
-    n = W.shape[0]
-    if rate.shape[0] != n or t_last.shape[0] != n:
-        raise ValueError("W, rate and t_last must have one length")
-    now = float(now)
-    if dev.type == "cpu":
-        return rate_advance_plain(W, rate, t_last, now)
-    if dev.type != "cuda":
-        raise ValueError(f"unsupported device {dev}")
-    W2 = torch.empty(n, dtype=_F64, device=dev)
-    eta = torch.empty(n, dtype=_F64, device=dev)
-    if n == 0:
+    sp = spans.enter("launch.rate_advance") if _SPANS else None
+    try:
+        dev = W.device
+        for name, t in (("W", W), ("rate", rate), ("t_last", t_last)):
+            build.check_tensor(name, t, _F64, 1, dev)
+        n = W.shape[0]
+        if rate.shape[0] != n or t_last.shape[0] != n:
+            raise ValueError("W, rate and t_last must have one length")
+        now = float(now)
+        if dev.type == "cpu":
+            return rate_advance_plain(W, rate, t_last, now)
+        if dev.type != "cuda":
+            raise ValueError(f"unsupported device {dev}")
+        W2 = torch.empty(n, dtype=_F64, device=dev)
+        eta = torch.empty(n, dtype=_F64, device=dev)
+        if n == 0:
+            return W2, eta
+        lib = build.load()
+        with torch.cuda.device(dev):
+            err = lib.heye_rate_advance(
+                W.data_ptr(), rate.data_ptr(), t_last.data_ptr(),
+                W2.data_ptr(), eta.data_ptr(), n, now,
+                torch.cuda.current_stream().cuda_stream)
+        build.check_launch(err, "rate_advance")
+        build.count_launch(launches, "rate_advance")
         return W2, eta
-    lib = build.load()
-    with torch.cuda.device(dev):
-        err = lib.heye_rate_advance(
-            W.data_ptr(), rate.data_ptr(), t_last.data_ptr(), W2.data_ptr(),
-            eta.data_ptr(), n, now, torch.cuda.current_stream().cuda_stream)
-    build.check_launch(err, "rate_advance")
-    build.count_launch(launches, "rate_advance")
-    return W2, eta
+    finally:
+        if sp:
+            spans.leave(sp)
 
 
 def _check_job_columns(cols: tuple, idx: torch.Tensor, idx_name: str,
@@ -231,32 +239,38 @@ def settle_reprice(W: torch.Tensor, rate: torch.Tensor, t_last: torch.Tensor,
     """A flush's reprice, in place on the job columns (see
     :func:`settle_reprice_plain`).  ``members`` must hold distinct slots:
     on the card each slot is written by its own thread."""
-    dev = W.device
-    n = _check_job_columns((("W", W), ("rate", rate), ("t_last", t_last),
-                            ("eta", eta)), members, "members", dev)
-    build.check_tensor("cstamp", cstamp, _I64, 1, dev)
-    build.check_tensor("factors", factors, _F64, 1, dev)
-    if cstamp.shape[0] != W.shape[0] or factors.shape[0] != n:
-        raise ValueError("cstamp must match the job columns and factors "
-                         "the members")
-    now = float(now)
-    stamp0 = int(stamp0)
-    if dev.type == "cpu":
-        settle_reprice_plain(W, rate, t_last, eta, cstamp, members, factors,
-                             now, stamp0)
-        return
-    if dev.type != "cuda":
-        raise ValueError(f"unsupported device {dev}")
-    if n == 0:
-        return
-    lib = build.load()
-    with torch.cuda.device(dev):
-        err = lib.heye_settle_reprice(
-            W.data_ptr(), rate.data_ptr(), t_last.data_ptr(), eta.data_ptr(),
-            cstamp.data_ptr(), members.data_ptr(), factors.data_ptr(), n, now,
-            stamp0, torch.cuda.current_stream().cuda_stream)
-    build.check_launch(err, "settle_reprice")
-    build.count_launch(launches, "settle_reprice")
+    sp = spans.enter("launch.settle_reprice") if _SPANS else None
+    try:
+        dev = W.device
+        n = _check_job_columns((("W", W), ("rate", rate), ("t_last", t_last),
+                                ("eta", eta)), members, "members", dev)
+        build.check_tensor("cstamp", cstamp, _I64, 1, dev)
+        build.check_tensor("factors", factors, _F64, 1, dev)
+        if cstamp.shape[0] != W.shape[0] or factors.shape[0] != n:
+            raise ValueError("cstamp must match the job columns and factors "
+                             "the members")
+        now = float(now)
+        stamp0 = int(stamp0)
+        if dev.type == "cpu":
+            settle_reprice_plain(W, rate, t_last, eta, cstamp, members,
+                                 factors, now, stamp0)
+            return
+        if dev.type != "cuda":
+            raise ValueError(f"unsupported device {dev}")
+        if n == 0:
+            return
+        lib = build.load()
+        with torch.cuda.device(dev):
+            err = lib.heye_settle_reprice(
+                W.data_ptr(), rate.data_ptr(), t_last.data_ptr(),
+                eta.data_ptr(), cstamp.data_ptr(), members.data_ptr(),
+                factors.data_ptr(), n, now, stamp0,
+                torch.cuda.current_stream().cuda_stream)
+        build.check_launch(err, "settle_reprice")
+        build.count_launch(launches, "settle_reprice")
+    finally:
+        if sp:
+            spans.leave(sp)
 
 
 def settle_complete(W: torch.Tensor, rate: torch.Tensor, t_last: torch.Tensor,
@@ -266,54 +280,64 @@ def settle_complete(W: torch.Tensor, rate: torch.Tensor, t_last: torch.Tensor,
     :func:`settle_complete_plain`); returns the ``(2, n)`` int64 pairs
     ``[done, finished]`` for one host copy.  ``done`` must hold distinct
     slots."""
-    dev = W.device
-    n = _check_job_columns((("W", W), ("rate", rate), ("t_last", t_last),
-                            ("eta", eta)), done, "done", dev)
-    now = float(now)
-    tol = float(tol)
-    if dev.type == "cpu":
-        return settle_complete_plain(W, rate, t_last, eta, done, now, tol)
-    if dev.type != "cuda":
-        raise ValueError(f"unsupported device {dev}")
-    pairs = torch.empty((2, n), dtype=_I64, device=dev)
-    if n == 0:
+    sp = spans.enter("launch.settle_complete") if _SPANS else None
+    try:
+        dev = W.device
+        n = _check_job_columns((("W", W), ("rate", rate), ("t_last", t_last),
+                                ("eta", eta)), done, "done", dev)
+        now = float(now)
+        tol = float(tol)
+        if dev.type == "cpu":
+            return settle_complete_plain(W, rate, t_last, eta, done, now, tol)
+        if dev.type != "cuda":
+            raise ValueError(f"unsupported device {dev}")
+        pairs = torch.empty((2, n), dtype=_I64, device=dev)
+        if n == 0:
+            return pairs
+        lib = build.load()
+        with torch.cuda.device(dev):
+            err = lib.heye_settle_complete(
+                W.data_ptr(), rate.data_ptr(), t_last.data_ptr(),
+                eta.data_ptr(), done.data_ptr(), pairs.data_ptr(), n, now, tol,
+                torch.cuda.current_stream().cuda_stream)
+        build.check_launch(err, "settle_complete")
+        build.count_launch(launches, "settle_complete")
         return pairs
-    lib = build.load()
-    with torch.cuda.device(dev):
-        err = lib.heye_settle_complete(
-            W.data_ptr(), rate.data_ptr(), t_last.data_ptr(), eta.data_ptr(),
-            done.data_ptr(), pairs.data_ptr(), n, now, tol,
-            torch.cuda.current_stream().cuda_stream)
-    build.check_launch(err, "settle_complete")
-    build.count_launch(launches, "settle_complete")
-    return pairs
+    finally:
+        if sp:
+            spans.leave(sp)
 
 
 def segment_min(values: torch.Tensor, starts: torch.Tensor,
                 counts: torch.Tensor) -> torch.Tensor:
     """Min over each CSR segment ``values[starts[s] : starts[s]+counts[s]]``."""
-    dev = values.device
-    build.check_tensor("values", values, torch.float64, 1, dev)
-    build.check_tensor("starts", starts, torch.int64, 1, dev)
-    build.check_tensor("counts", counts, torch.int64, 1, dev)
-    S = counts.shape[0]
-    if starts.shape[0] != S:
-        raise ValueError("starts and counts must have one length")
-    if dev.type == "cpu":
-        return segment_min_plain(values, starts, counts)
-    if dev.type != "cuda":
-        raise ValueError(f"unsupported device {dev}")
-    out = torch.empty(S, dtype=_F64, device=dev)
-    if S == 0:
+    sp = spans.enter("launch.segment_min") if _SPANS else None
+    try:
+        dev = values.device
+        build.check_tensor("values", values, torch.float64, 1, dev)
+        build.check_tensor("starts", starts, torch.int64, 1, dev)
+        build.check_tensor("counts", counts, torch.int64, 1, dev)
+        S = counts.shape[0]
+        if starts.shape[0] != S:
+            raise ValueError("starts and counts must have one length")
+        if dev.type == "cpu":
+            return segment_min_plain(values, starts, counts)
+        if dev.type != "cuda":
+            raise ValueError(f"unsupported device {dev}")
+        out = torch.empty(S, dtype=_F64, device=dev)
+        if S == 0:
+            return out
+        lib = build.load()
+        with torch.cuda.device(dev):
+            err = lib.heye_segment_min(
+                values.data_ptr(), starts.data_ptr(), counts.data_ptr(),
+                out.data_ptr(), S, torch.cuda.current_stream().cuda_stream)
+        build.check_launch(err, "segment_min")
+        build.count_launch(launches, "segment_min")
         return out
-    lib = build.load()
-    with torch.cuda.device(dev):
-        err = lib.heye_segment_min(
-            values.data_ptr(), starts.data_ptr(), counts.data_ptr(),
-            out.data_ptr(), S, torch.cuda.current_stream().cuda_stream)
-    build.check_launch(err, "segment_min")
-    build.count_launch(launches, "segment_min")
-    return out
+    finally:
+        if sp:
+            spans.leave(sp)
 
 
 def transfer_reprice(xW: torch.Tensor, xrate: torch.Tensor,
@@ -328,49 +352,55 @@ def transfer_reprice(xW: torch.Tensor, xrate: torch.Tensor,
     must hold distinct slots and ``upd_e`` distinct edges in ascending
     order: on the card each slot is written by its own thread, and a
     thread finds an edge's new count in ``upd_e`` by binary search."""
-    dev = xW.device
-    n = _check_job_columns((("xW", xW), ("xrate", xrate),
-                            ("xt_last", xt_last), ("xeta", xeta)), ks, "ks",
-                           dev)
-    build.check_tensors(dev, ("xstamp", xstamp, _I64, 1),
-                        ("xe_flat", xe_flat, _I64, 1),
-                        ("xe_start", xe_start, _I64, 1),
-                        ("xe_cnt", xe_cnt, _I64, 1),
-                        ("edge_bw", edge_bw, _F64, 1),
-                        ("edge_mem", edge_mem, _I64, 1),
-                        ("upd_e", upd_e, _I64, 1), ("upd_c", upd_c, _I64, 1))
-    cap = xW.shape[0]
-    if (xstamp.shape[0] != cap or xe_start.shape[0] != cap
-            or xe_cnt.shape[0] != cap):
-        raise ValueError("xstamp, xe_start and xe_cnt must match the "
-                         "transfer columns")
-    if edge_mem.shape[0] != edge_bw.shape[0]:
-        raise ValueError("edge_bw and edge_mem must have one length")
-    if upd_c.shape[0] != upd_e.shape[0]:
-        raise ValueError("upd_e and upd_c must have one length")
-    now = float(now)
-    stamp0 = int(stamp0)
-    if dev.type == "cpu":
-        transfer_reprice_plain(xW, xrate, xt_last, xeta, xstamp, xe_flat,
-                               xe_start, xe_cnt, edge_bw, edge_mem, ks,
-                               upd_e, upd_c, now, stamp0)
-        return
-    if dev.type != "cuda":
-        raise ValueError(f"unsupported device {dev}")
-    u = upd_e.shape[0]
-    if n == 0 and u == 0:
-        return
-    lib = build.load()
-    with torch.cuda.device(dev):
-        err = lib.heye_transfer_reprice(
-            xW.data_ptr(), xrate.data_ptr(), xt_last.data_ptr(),
-            xeta.data_ptr(), xstamp.data_ptr(), xe_flat.data_ptr(),
-            xe_start.data_ptr(), xe_cnt.data_ptr(), edge_bw.data_ptr(),
-            edge_mem.data_ptr(), ks.data_ptr(), n, upd_e.data_ptr(),
-            upd_c.data_ptr(), u, now, stamp0,
-            torch.cuda.current_stream().cuda_stream)
-    build.check_launch(err, "transfer_reprice")
-    build.count_launch(launches, "transfer_reprice")
+    sp = spans.enter("launch.transfer_reprice") if _SPANS else None
+    try:
+        dev = xW.device
+        n = _check_job_columns((("xW", xW), ("xrate", xrate),
+                                ("xt_last", xt_last), ("xeta", xeta)),
+                               ks, "ks", dev)
+        build.check_tensors(dev, ("xstamp", xstamp, _I64, 1),
+                            ("xe_flat", xe_flat, _I64, 1),
+                            ("xe_start", xe_start, _I64, 1),
+                            ("xe_cnt", xe_cnt, _I64, 1),
+                            ("edge_bw", edge_bw, _F64, 1),
+                            ("edge_mem", edge_mem, _I64, 1),
+                            ("upd_e", upd_e, _I64, 1),
+                            ("upd_c", upd_c, _I64, 1))
+        cap = xW.shape[0]
+        if (xstamp.shape[0] != cap or xe_start.shape[0] != cap
+                or xe_cnt.shape[0] != cap):
+            raise ValueError("xstamp, xe_start and xe_cnt must match the "
+                             "transfer columns")
+        if edge_mem.shape[0] != edge_bw.shape[0]:
+            raise ValueError("edge_bw and edge_mem must have one length")
+        if upd_c.shape[0] != upd_e.shape[0]:
+            raise ValueError("upd_e and upd_c must have one length")
+        now = float(now)
+        stamp0 = int(stamp0)
+        if dev.type == "cpu":
+            transfer_reprice_plain(xW, xrate, xt_last, xeta, xstamp, xe_flat,
+                                   xe_start, xe_cnt, edge_bw, edge_mem, ks,
+                                   upd_e, upd_c, now, stamp0)
+            return
+        if dev.type != "cuda":
+            raise ValueError(f"unsupported device {dev}")
+        u = upd_e.shape[0]
+        if n == 0 and u == 0:
+            return
+        lib = build.load()
+        with torch.cuda.device(dev):
+            err = lib.heye_transfer_reprice(
+                xW.data_ptr(), xrate.data_ptr(), xt_last.data_ptr(),
+                xeta.data_ptr(), xstamp.data_ptr(), xe_flat.data_ptr(),
+                xe_start.data_ptr(), xe_cnt.data_ptr(), edge_bw.data_ptr(),
+                edge_mem.data_ptr(), ks.data_ptr(), n, upd_e.data_ptr(),
+                upd_c.data_ptr(), u, now, stamp0,
+                torch.cuda.current_stream().cuda_stream)
+        build.check_launch(err, "transfer_reprice")
+        build.count_launch(launches, "transfer_reprice")
+    finally:
+        if sp:
+            spans.leave(sp)
 
 
 def transfer_complete(xW: torch.Tensor, xrate: torch.Tensor,
@@ -381,26 +411,31 @@ def transfer_complete(xW: torch.Tensor, xrate: torch.Tensor,
     columns (see :func:`transfer_complete_plain`); returns the ``(2, n)``
     int64 pairs ``[done, finished]`` for one host copy.  ``done`` must
     hold distinct slots."""
-    dev = xW.device
-    n = _check_job_columns((("xW", xW), ("xrate", xrate),
-                            ("xt_last", xt_last), ("xeta", xeta)), done,
-                           "done", dev)
-    now = float(now)
-    tol = float(tol)
-    if dev.type == "cpu":
-        return transfer_complete_plain(xW, xrate, xt_last, xeta, done, now,
-                                       tol)
-    if dev.type != "cuda":
-        raise ValueError(f"unsupported device {dev}")
-    pairs = torch.empty((2, n), dtype=_I64, device=dev)
-    if n == 0:
+    sp = spans.enter("launch.transfer_complete") if _SPANS else None
+    try:
+        dev = xW.device
+        n = _check_job_columns((("xW", xW), ("xrate", xrate),
+                                ("xt_last", xt_last), ("xeta", xeta)), done,
+                               "done", dev)
+        now = float(now)
+        tol = float(tol)
+        if dev.type == "cpu":
+            return transfer_complete_plain(xW, xrate, xt_last, xeta, done, now,
+                                           tol)
+        if dev.type != "cuda":
+            raise ValueError(f"unsupported device {dev}")
+        pairs = torch.empty((2, n), dtype=_I64, device=dev)
+        if n == 0:
+            return pairs
+        lib = build.load()
+        with torch.cuda.device(dev):
+            err = lib.heye_transfer_complete(
+                xW.data_ptr(), xrate.data_ptr(), xt_last.data_ptr(),
+                xeta.data_ptr(), done.data_ptr(), pairs.data_ptr(), n, now,
+                tol, torch.cuda.current_stream().cuda_stream)
+        build.check_launch(err, "transfer_complete")
+        build.count_launch(launches, "transfer_complete")
         return pairs
-    lib = build.load()
-    with torch.cuda.device(dev):
-        err = lib.heye_transfer_complete(
-            xW.data_ptr(), xrate.data_ptr(), xt_last.data_ptr(),
-            xeta.data_ptr(), done.data_ptr(), pairs.data_ptr(), n, now, tol,
-            torch.cuda.current_stream().cuda_stream)
-    build.check_launch(err, "transfer_complete")
-    build.count_launch(launches, "transfer_complete")
-    return pairs
+    finally:
+        if sp:
+            spans.leave(sp)

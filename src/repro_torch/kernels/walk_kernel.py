@@ -49,6 +49,8 @@ from typing import Sequence
 import numpy as np
 import torch
 
+from .. import spans
+from ..spans import OPEN as _SPANS
 from . import build
 
 # launches per entry point: a single scan, a stack of scans
@@ -238,26 +240,32 @@ def scan_reduce(ok: torch.Tensor, key: torch.Tensor, sa: torch.Tensor,
                 lqc: float) -> torch.Tensor:
     """One scan over all of ``plan``'s nodes: its seven values (float64,
     on the inputs' device; integers are exact below 2**53)."""
-    dev = plan.device
-    P = _check_columns(ok, key, sa, f, cm, dev)
-    if P < plan.span:
-        raise ValueError("the plan's node ranges reach past the scan")
-    lqc = float(lqc)
-    if dev.type == "cpu":
-        meta = torch.tensor([[0, P, 0, plan.n]], dtype=_I64)
-        return scan_reduce_batch_plain(ok, key, sa, f, cm, *plan.tensors(),
-                                       meta, lqc)[0]
-    if dev.type != "cuda":
-        raise ValueError(f"unsupported device {dev}")
-    out = torch.empty(7, dtype=_F64, device=dev)
-    if P > BLOCK_MAX_P:
-        _launch_grid(ok, key, sa, f, cm, plan, 0, P, 0, plan.n, lqc, out, 0)
-    else:
-        small = int(P <= WARP_MAX_P)
-        _launch(ok, key, sa, f, cm, plan, None, 1, small, 1 - small, P, lqc,
-                out)
-    build.count_launch(launches, "scan_reduce")
-    return out
+    sp = spans.enter("launch.scan_reduce") if _SPANS else None
+    try:
+        dev = plan.device
+        P = _check_columns(ok, key, sa, f, cm, dev)
+        if P < plan.span:
+            raise ValueError("the plan's node ranges reach past the scan")
+        lqc = float(lqc)
+        if dev.type == "cpu":
+            meta = torch.tensor([[0, P, 0, plan.n]], dtype=_I64)
+            return scan_reduce_batch_plain(ok, key, sa, f, cm, *plan.tensors(),
+                                           meta, lqc)[0]
+        if dev.type != "cuda":
+            raise ValueError(f"unsupported device {dev}")
+        out = torch.empty(7, dtype=_F64, device=dev)
+        if P > BLOCK_MAX_P:
+            _launch_grid(ok, key, sa, f, cm, plan, 0, P, 0, plan.n, lqc,
+                         out, 0)
+        else:
+            small = int(P <= WARP_MAX_P)
+            _launch(ok, key, sa, f, cm, plan, None, 1, small, 1 - small,
+                    P, lqc, out)
+        build.count_launch(launches, "scan_reduce")
+        return out
+    finally:
+        if sp:
+            spans.leave(sp)
 
 
 def scan_reduce_batch(ok: torch.Tensor, key: torch.Tensor, sa: torch.Tensor,
@@ -269,41 +277,47 @@ def scan_reduce_batch(ok: torch.Tensor, key: torch.Tensor, sa: torch.Tensor,
     nodes at ``[node_off, node_off + Nn)`` of ``plan``, whose ranges must
     lie in ``[0, P]`` (checked on the host, from ``plan.hi``); ``lqc`` is
     shared.  Returns ``(S, 7)`` float64 rows."""
-    dev = plan.device
-    n_ok = _check_columns(ok, key, sa, f, cm, dev)
-    m = np.asarray(scans, dtype=np.int64).reshape(-1, 4)
-    S = m.shape[0]
-    o, p, no, nn = m.T
-    bad = (o < 0) | (p < 0) | (o + p > n_ok) | (no < 0) | (nn < 1) \
-        | (no + nn > plan.n)
-    if S and not bad.any():
-        # each scan's largest node end, over its own nodes
-        first = np.cumsum(nn) - nn
-        nodes = np.repeat(no - first, nn) + np.arange(int(nn.sum()))
-        bad = np.maximum.reduceat(plan.hi[nodes], first) > p
-    if bad.any():
-        raise ValueError(f"scan {np.flatnonzero(bad)[0]} lies outside its "
-                         f"columns or plan, or its nodes reach past its PUs")
-    lqc = float(lqc)
-    if dev.type == "cpu":
-        return scan_reduce_batch_plain(ok, key, sa, f, cm, *plan.tensors(),
-                                       torch.from_numpy(m), lqc)
-    if dev.type != "cuda":
-        raise ValueError(f"unsupported device {dev}")
-    out = torch.empty((S, 7), dtype=_F64, device=dev)
-    if S == 0:
+    sp = spans.enter("launch.scan_reduce_batch") if _SPANS else None
+    try:
+        dev = plan.device
+        n_ok = _check_columns(ok, key, sa, f, cm, dev)
+        m = np.asarray(scans, dtype=np.int64).reshape(-1, 4)
+        S = m.shape[0]
+        o, p, no, nn = m.T
+        bad = (o < 0) | (p < 0) | (o + p > n_ok) | (no < 0) | (nn < 1) \
+            | (no + nn > plan.n)
+        if S and not bad.any():
+            # each scan's largest node end, over its own nodes
+            first = np.cumsum(nn) - nn
+            nodes = np.repeat(no - first, nn) + np.arange(int(nn.sum()))
+            bad = np.maximum.reduceat(plan.hi[nodes], first) > p
+        if bad.any():
+            raise ValueError(f"scan {np.flatnonzero(bad)[0]} lies outside its "
+                             f"columns or plan, or its nodes reach past its "
+                             f"PUs")
+        lqc = float(lqc)
+        if dev.type == "cpu":
+            return scan_reduce_batch_plain(ok, key, sa, f, cm, *plan.tensors(),
+                                           torch.from_numpy(m), lqc)
+        if dev.type != "cuda":
+            raise ValueError(f"unsupported device {dev}")
+        out = torch.empty((S, 7), dtype=_F64, device=dev)
+        if S == 0:
+            return out
+        # the rows, then the scans in launch order: warp-sized ones first, then
+        # the block-sized ones; the rest take the grid form one by one
+        small = p <= WARP_MAX_P
+        grid = p > BLOCK_MAX_P
+        large = ~small & ~grid
+        meta = torch.from_numpy(np.concatenate(
+            [m.ravel(), np.flatnonzero(small), np.flatnonzero(large)])).to(dev)
+        _launch(ok, key, sa, f, cm, plan, meta, S, int(small.sum()),
+                int(large.sum()), 0, lqc, out)
+        for i in np.flatnonzero(grid):
+            _launch_grid(ok, key, sa, f, cm, plan, int(o[i]), int(p[i]),
+                         int(no[i]), int(nn[i]), lqc, out, int(i))
+        build.count_launch(launches, "scan_reduce_batch")
         return out
-    # the rows, then the scans in launch order: warp-sized ones first, then
-    # the block-sized ones; the rest take the grid form one by one
-    small = p <= WARP_MAX_P
-    grid = p > BLOCK_MAX_P
-    large = ~small & ~grid
-    meta = torch.from_numpy(np.concatenate(
-        [m.ravel(), np.flatnonzero(small), np.flatnonzero(large)])).to(dev)
-    _launch(ok, key, sa, f, cm, plan, meta, S, int(small.sum()),
-            int(large.sum()), 0, lqc, out)
-    for i in np.flatnonzero(grid):
-        _launch_grid(ok, key, sa, f, cm, plan, int(o[i]), int(p[i]),
-                     int(no[i]), int(nn[i]), lqc, out, int(i))
-    build.count_launch(launches, "scan_reduce_batch")
-    return out
+    finally:
+        if sp:
+            spans.leave(sp)
