@@ -1120,6 +1120,95 @@ def check_scan_reduce(dev, rng) -> list[dict]:
     return rows
 
 
+# a fused re-walk's segment on the main path (mining-paper.batch's
+# re-walks: 3 candidates on a device of 6 PUs against 6 actives at the
+# median and 11 at the most, 6 classes)
+REWALK_N, REWALK_C, REWALK_A = 6, 3, (6, 11)
+
+
+def _rewalk_bytes(seg, R: int) -> int:
+    """Bytes one fused re-walk must move: each input read once (the
+    candidates' five columns, the signature's two, the device's eight
+    ledger columns and its segment's start and length, the class table
+    over every (candidate or active, active) pair, mt-beta and the memory
+    cap of each candidate's and active's PU, beta, the plan's six node
+    columns, ``ok`` and ``key`` off the segment, the winner's three
+    columns) and each output written once (the scan state's four columns
+    and the effective three over the segment, the nine values)."""
+    C, C2, A = seg.Pc.shape[0], seg.eff_cols.shape[0], seg.Pa.shape[0]
+    n, P = seg.nseg, seg.ok.shape[0]
+    rd = (40 * C + 16 * C2 + 64 * A + 16 + 2 * (C * A + A * A)
+          + 16 * (C + A) + 8 * R + 48 * seg.plan.n + 9 * (P - n) + 24)
+    return rd + 42 * n + 72
+
+
+def check_rewalk_entry(dev) -> dict:
+    """The fused re-walk (``rewalk_entry``: B1's same-device check, the
+    constraint terms, the splice, the effective layer and B4's reduce in
+    one launch) against its plain version on the card, which is the
+    two-step path it replaces (B1's and B4's kernels with PyTorch between
+    them): its nine values and every column it rewrites, as bit patterns.
+    Every case of ``tests/rewalk_cases.py`` on four seeds, then the main
+    path's segment (``REWALK_*``) in the cases a re-walk meets, at 44
+    classes (the strided scratch) and on a device of 40 PUs (the block
+    scan).  Timed at the main path's median segment, each call with its
+    read."""
+    sys.path.insert(1, os.path.join(HERE, "tests"))
+    import rewalk_cases as rc
+    segs = [rc.segment(dev, case, seed) for case in rc.CASES
+            for seed in range(4)]
+    path = dict(n=REWALK_N, C=REWALK_C)
+    for A in REWALK_A:
+        segs += [rc.segment(dev, case, seed, A=A, **path)
+                 for case in ("plain", "capped", "inf_deadlines",
+                              "infeasible", "self", "offset", "wide")
+                 for seed in range(4)]
+    segs += [rc.segment(dev, "block", seed, n=40, C=REWALK_C,
+                        A=REWALK_A[1]) for seed in range(4)]
+    for i, (seg, tables) in enumerate(segs):
+        ref = rc.copy_of(seg)
+        got = walk_kernel.rewalk_entry(seg, *tables)
+        want = rt_device.host_list(walk_kernel.rewalk_entry_plain(ref,
+                                                                  *tables))
+        what = (f"rewalk_entry segment {i} (C={seg.Pc.shape[0]} "
+                f"A={seg.Pa.shape[0]} P={seg.ok.shape[0]} "
+                f"R={tables[1].shape[0]})")
+        if not (rc.bits(got) == rc.bits(want)).all():
+            raise AssertionError(f"{what}: {got} vs its plain version's "
+                                 f"{want} (bit-equal expected)")
+        for name in rc.MUTABLE:
+            a, b = getattr(seg, name), getattr(ref, name)
+            same = (torch.equal(a, b) if a.dtype == torch.bool
+                    else bool((rc.bits(a) == rc.bits(b)).all()))
+            if not same:
+                raise AssertionError(f"{what}: column {name} differs from "
+                                     "its plain version's")
+    seg, tables = rc.segment(dev, "plain", 0, A=REWALK_A[0], **path)
+    R = tables[1].shape[0]
+    C, A = seg.Pc.shape[0], seg.Pa.shape[0]
+
+    def fn():
+        return walk_kernel.rewalk_entry(seg, *tables)
+
+    def plain_fn():
+        return rt_device.host_list(walk_kernel.rewalk_entry_plain(seg,
+                                                                  *tables))
+    return dict(
+        name="rewalk_entry", route="cuda",
+        source="src/repro_torch/kernels/csrc/rewalk.cu",
+        replaces="none: the reference re-walks through B1's same-device "
+                 "form and B4 (src/repro/core/orchestrator.py:1421 "
+                 "_tracked_checks, :1483 _effective, :1543 _scan_reduce)",
+        shape=f"C={C} A={A} P={seg.ok.shape[0]} R={R}, a mining re-walk's "
+              "median segment, each call with its read",
+        segments_compared=len(segs), max_abs_err=0.0, max_rel_err=0.0,
+        tolerance="bit-equal: the nine values and the rewritten columns",
+        ms=time_ms(fn), body_ms=body_ms(fn, "rewalk_entry_kernel"),
+        plain_ms=time_ms(plain_fn, 50, 5),
+        **bound(_rewalk_bytes(seg, R), (C + C * A) * (5 * R + 4)),
+        library_ms=None)
+
+
 # the model path's shapes: recurrentgemma-9b's local attention layers and
 # RG-LRU blocks at prefill(B=2, S=4096)
 PATH_B, PATH_S = 2, 4096
@@ -1460,7 +1549,7 @@ def bound(nbytes: int, flops: int, peak: float = FP64_FLOPS) -> dict:
 # ---------------------------------------------------------------------------
 SCHED_KERNELS = ("slowdown_pool", "slowdown_same_device", "settle_reprice",
                  "settle_complete", "transfer_reprice", "transfer_complete",
-                 "scan_reduce", "scan_reduce_batch")
+                 "scan_reduce", "scan_reduce_batch", "rewalk_entry")
 # kernels held against their plain versions that no path runs any more:
 # the engine's transfer sites run the fused transfer_reprice and
 # transfer_complete in their place
@@ -2095,7 +2184,10 @@ def walk_oracle(seed: int) -> tuple[dict, dict]:
                 exact=False)
         out[f"mining_{policy}"] = line
     counts = read_counts()
-    for name in ("slowdown_factors", "slowdown_same_device", "scan_reduce"):
+    # the mining walks' re-walks take the fused entry scan; VR's escalate
+    # and every escalation reduces through B4
+    for name in ("slowdown_factors", "slowdown_same_device", "scan_reduce",
+                 "rewalk_entry"):
         if counts[name] <= 0:
             raise AssertionError(f"walk_oracle: kernel {name} was never "
                                  "launched on the phase's path")
@@ -2226,12 +2318,11 @@ def _check_serve_launches(what: str, st, counts: dict) -> None:
     if st.engine_opens != 1:
         raise AssertionError(f"{what}: {st.engine_opens} TimelineEngine "
                              "builds (the resident timeline opens once)")
-    for name in SERVE_KERNELS:
+    # every wave's entry scans reduce in one B4b launch and its later
+    # scans through B4 (its waves re-walk nothing in a fused entry)
+    for name in SERVE_KERNELS + ("scan_reduce", "scan_reduce_batch"):
         if counts[name] <= 0:
             raise AssertionError(f"{what}: kernel {name} was never launched")
-    if counts["scan_reduce"] + counts["scan_reduce_batch"] <= 0:
-        raise AssertionError(f"{what}: the walk's scan-reduce was never "
-                             "launched")
 
 
 def serve_x64() -> tuple[dict, dict, dict]:
@@ -2471,9 +2562,12 @@ def bwchurn_x128() -> tuple[dict, dict]:
     n_tasks = len(gp)
     if n_tasks != 12 * BWCHURN_MULT * 3:
         raise AssertionError(f"bwchurn_x{BWCHURN_MULT}: {n_tasks} tasks")
-    if counts["scan_reduce"] + counts["scan_reduce_batch"] <= 0:
-        raise AssertionError(f"bwchurn_x{BWCHURN_MULT}: the walk's "
-                             "scan-reduce was never launched")
+    # each wave's entry scans (B4b), the fused re-walks (rewalk_entry) and
+    # the walk's other single scans (B4)
+    for name in ("scan_reduce", "scan_reduce_batch", "rewalk_entry"):
+        if counts[name] <= 0:
+            raise AssertionError(f"bwchurn_x{BWCHURN_MULT}: kernel {name} "
+                                 "was never launched")
     out = dict(mult=BWCHURN_MULT, waves=n_waves, tasks=n_tasks,
                map_s_per_wave=gsecs, map_s=sum(gsecs),
                tasks_per_s=n_tasks / sum(gsecs),
@@ -2806,9 +2900,12 @@ def serve_full(seed: int) -> dict:
             len(r.out) != args.max_new for r in report.done):
         raise AssertionError(f"serve_full: {len(report.done)} of "
                              f"{args.requests} requests answered in full")
-    for name in ("scan_reduce", "slowdown_same_device"):
-        if counts[name] <= 0:
-            raise AssertionError(f"serve_full: {name} never launched")
+    # the placement's second tenant re-walks its origin chip in a fused
+    # entry scan: the path's one check against actives, so B1's
+    # same-device form runs inside that launch; nothing escalates, so B4
+    # does not launch
+    if counts["rewalk_entry"] <= 0:
+        raise AssertionError("serve_full: rewalk_entry never launched")
     pct = core.percentiles(report.latencies, (50.0, 99.0))
     torch.cuda.empty_cache()
     return dict(config=FULL_ARCH, requests=len(report.done),
@@ -3744,7 +3841,8 @@ def main() -> None:
                check_slowdown_same_device(dev, rng, tables, wide_tables),
                check_rate_advance(dev, rng),
                *check_settle(dev, rng), check_segment_min(dev, rng),
-               *check_transfer(dev, rng), *check_scan_reduce(dev, rng)]
+               *check_transfer(dev, rng), *check_scan_reduce(dev, rng),
+               check_rewalk_entry(dev)]
     del tables, wide_tables
     for k in kernels:
         if not (k["max_rel_err"] <= REL_TOL):

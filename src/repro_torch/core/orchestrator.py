@@ -24,7 +24,11 @@ defaults) as the reference package:
   depth's constraint checks batch into one factor-kernel call, a wave's
   entry scans are reduced together in one launch of the batched
   scan-reduce kernel, and every later scan (re-walks, escalations) is
-  one launch of it at a stack of one;
+  one launch of it at a stack of one — but the ordered commit's re-walk
+  of a task whose entry plan covers one device, stale for that device
+  alone, which re-checks the device, patches the scan and reduces it in
+  one launch of the fused re-walk kernel and one host read
+  (``_entry_fused``);
 * its **group-sharded** driver (``REPRO_SHARDED_WALK``, default on, at a
   root ORC with two or more children): the snapshot is sliced into
   block-diagonal per-group views (``CompiledHWGraph.sharded``), the
@@ -70,8 +74,10 @@ from .. import spans
 from ..device import (BOOL, FLOAT, INT, DeviceLike, bytes_key, f64, host_item,
                       host_list, host_numpy, i64, resolve_device)
 from ..spans import OPEN as _SPANS
-from ..kernels.walk_kernel import (ScanPlanArrays, scan_reduce,
-                                   scan_reduce_batch)
+from ..kernels.walk_kernel import (BLOCK_MAX_P, RewalkSegment,
+                                   ScanPlanArrays, constraint_terms,
+                                   effective_segment, scan_reduce,
+                                   scan_reduce_batch, segment_columns)
 from .hwgraph import HWGraph
 from .task import Task
 from .traverser import TaskPrediction, Traverser
@@ -79,6 +85,23 @@ from .traverser import TaskPrediction, Traverser
 QUERY_BYTES = 1024.0          # size of a MapTask query/response message
 
 _INF = float("inf")
+
+
+def _expiry(now: float, waiting: float, flip: float) -> float:
+    """The instant until which a single-device check made at ``now``
+    stays exact, from its two expiry values: whether a positive queueing
+    wait exists (it decays with every clock tick, so the check is stale
+    the instant ``now`` moves) and the earliest instant an l.15 verdict
+    can flip."""
+    expiry = _INF
+    if waiting:
+        expiry = now
+    if flip < expiry:
+        # pull a hair early: the analytic root and the float-evaluated
+        # predicate may disagree by ulps, and an early re-splice is merely
+        # redundant
+        expiry = flip - max(abs(flip), 1.0) * 1e-9
+    return expiry
 
 
 @dataclass
@@ -679,6 +702,36 @@ class _ScanState:
         self.now = None
         self.refresh_log: list[str] = []
 
+    def spliced(self, dev: str, version: int, expiry: float) -> None:
+        """Record a re-check of ``dev``'s segment: the device version it
+        saw, the instant it stays exact until, and its place in the
+        refresh journal that effective layers over this state follow."""
+        self.stamps[dev] = version
+        self.expiry[dev] = expiry
+        self.refresh_log.append(dev)
+
+
+class _Effective:
+    """One task signature's effective columns over a plan (``ok`` /
+    ``cm`` / ``key``), layered over the scan state ``st`` and current up
+    to ``pos`` of the commit journal and ``rpos`` of ``st``'s refresh
+    journal."""
+
+    __slots__ = ("st", "pos", "rpos", "ok", "cm", "key")
+
+    def __init__(self, st: _ScanState, ok: torch.Tensor, cm: torch.Tensor,
+                 key: torch.Tensor, log: list) -> None:
+        self.st = st
+        self.ok = ok
+        self.cm = cm
+        self.key = key
+        self.caught_up(log)
+
+    def caught_up(self, log: list) -> None:
+        """Mark the columns current with the journals as they stand."""
+        self.pos = len(log)
+        self.rpos = len(self.st.refresh_log)
+
 
 class _Walk:
     """One deduplicated phase-1 walk being wave-stepped through Alg. 1."""
@@ -730,8 +783,8 @@ class _BatchContext:
         self._static_core: dict = {}
         # fused-walk scan states: (task core, candidate-list id) -> _ScanState
         self.scan_states: dict = {}
-        # per-(task sig, plan) effective columns (ok/cm/key), patched per
-        # committed device on reuse — small FIFO
+        # per-(task sig, plan) effective columns (_Effective), patched
+        # per committed device on reuse — small FIFO
         self.eff_cache: OrderedDict = OrderedDict()
         # canonical-pattern cache of single-device core checks (splices)
         self.splice_cache: OrderedDict = OrderedDict()
@@ -1127,6 +1180,7 @@ class Orchestrator:
         out: list[Optional[MapResult]] = []
         warmed = not fast
         rewalks = 0
+        rewalks_fused = 0
         cp = sp and spans.enter("walk.commit")
         for i, (t, (orc, res, scored)) in enumerate(zip(tasks, tentative)):
             if dirty and not dirty.isdisjoint(scored):
@@ -1142,8 +1196,12 @@ class Orchestrator:
                         warm.update(t2.attrs.get("src_devices") or ())
                     comp.ensure_routes(warm)
                     warmed = True
-                res = (orc._map_once_fast(t, now, ctx, None) if fast
-                       else orc._map_once(t, now, ctx, set()))
+                if fast:
+                    entry = orc._entry_fused(t, now, ctx)
+                    rewalks_fused += entry[0]
+                    res = orc._map_once_fast(t, now, ctx, None, entry)
+                else:
+                    res = orc._map_once(t, now, ctx, set())
             if res is not None and commit:
                 # ledger.add journals the commit's device into mut_log —
                 # the log every batch context aliases as its commit_log
@@ -1157,6 +1215,7 @@ class Orchestrator:
             spans.add("walk.tasks", len(tasks))
             spans.add("walk.walks", n_walks)
             spans.add("walk.rewalks", rewalks)
+            spans.add("walk.rewalks_fused", rewalks_fused)
         return out
 
     def _session_context(self, comp) -> _BatchContext:
@@ -1346,10 +1405,7 @@ class Orchestrator:
                         if hit is not None:
                             return (hit[0].clone(), hit[1].clone(),
                                     hit[2].clone(), hit[3].clone(), hit[4])
-        ok = torch.zeros(n, dtype=BOOL, device=dev)
-        sa = torch.full((n,), _INF, dtype=FLOAT, device=dev)
-        f = torch.ones(n, dtype=FLOAT, device=dev)
-        wait = torch.zeros(n, dtype=FLOAT, device=dev)
+        terms = None
         expiry = _INF
         if len(static.cols_l):
             if fused is None and fkey is not None:
@@ -1360,13 +1416,10 @@ class Orchestrator:
                     view.astart, view.na)
                 _fifo_put(ctx.factor_cache, fkey, (view, static, fac), 4096)
                 fused = (fac, view)
-            o, s_, f_, w_, expiry = self._score_fused_arrays(
+            *terms, expiry = self._score_fused_arrays(
                 task, static, now, with_constraints=True, ctx=ctx,
                 split_comm=True, fused=fused)
-            ok[cols] = o
-            sa[cols] = s_
-            f[cols] = f_
-            wait[cols] = w_
+        ok, sa, f, wait = segment_columns(n, cols, terms, dev)
         if ck is not None:
             # keys embed the check instant, so a resident serving context
             # would otherwise accrete one generation of entries per wave
@@ -1375,8 +1428,21 @@ class Orchestrator:
                        expiry), 512)
         return ok, sa, f, wait, expiry
 
+    def _scan_state(self, task: Task, plan, ctx: "_BatchContext") -> tuple:
+        """``(key, st)``: the key of the task core's tracked scan state
+        over ``plan`` in ``ctx.scan_states``, and that state where it is
+        still valid — the ledger's epoch unchanged and its refresh journal
+        within its bound — else None."""
+        key = (ctx.core_sig(task), id(plan.pus))
+        st = ctx.scan_states.get(key)
+        if st is not None and (st.epoch != self.ledger.dev_epoch
+                               or len(st.refresh_log) > 65536):
+            st = None
+        return key, st
+
     def _tracked_checks(self, task: Task, plan, now: float,
-                        ctx: "_BatchContext") -> _ScanState:
+                        ctx: "_BatchContext",
+                        looked: Optional[tuple] = None) -> _ScanState:
         """Core constraint checks over ``plan.pus`` with commit-aware
         reuse.
 
@@ -1384,13 +1450,13 @@ class Orchestrator:
         fused check; every later walk — same task or any task sharing its
         core — splices fresh single-device checks over exactly the devices
         committed since.  The block-diagonal check scores devices
-        independently, so the untouched segments equal a full rescan."""
+        independently, so the untouched segments equal a full rescan.
+        ``looked`` is what :meth:`_entry_fused` found of this plan before
+        it declined: :meth:`_scan_state`'s pair and, where the state is
+        valid, its stale devices."""
         led = self.ledger
-        key = (ctx.core_sig(task), id(plan.pus))
-        st = ctx.scan_states.get(key)
-        if st is not None and (st.epoch != led.dev_epoch
-                               or len(st.refresh_log) > 65536):
-            st = None
+        key, st, refresh = (looked if looked is not None
+                            else (*self._scan_state(task, plan, ctx), None))
         if st is None:
             st = _ScanState(len(plan.pus), ctx.device)
             st.ok, st.sa, st.f, st.wait, _ = self._check_arrays(
@@ -1401,23 +1467,10 @@ class Orchestrator:
             st.now = now
             ctx.scan_states[key] = st
             return st
-        log = ctx.commit_log
-        refresh: set = set()
-        if st.log_pos < len(log):
-            for dev in set(log[st.log_pos:]):
-                if dev in plan.dev_ranges \
-                        and st.stamps.get(dev) != led.dev_version.get(dev, 0):
-                    refresh.add(dev)
-            st.log_pos = len(log)
-        if st.now != now:
-            # the clock moved since the columns were checked: occupied
-            # devices' tenancy-wait and l.15 terms read ``now``
-            for dev in led.occupied_devices(ctx.comp):
-                if dev in plan.dev_ranges and dev not in refresh:
-                    e = st.expiry.get(dev)
-                    if e is None or e <= now:
-                        refresh.add(dev)
-            st.now = now
+        if refresh is None:
+            refresh = self._stale_devices(st, plan, now, ctx)
+        st.log_pos = len(ctx.commit_log)
+        st.now = now
         # deterministic splice order (the columns are disjoint per device)
         for dev in sorted(refresh):
             lo, hi = plan.dev_ranges[dev]
@@ -1427,11 +1480,50 @@ class Orchestrator:
             st.sa[lo:hi] = s_
             st.f[lo:hi] = f_
             st.wait[lo:hi] = w_
-            st.stamps[dev] = led.dev_version.get(dev, 0)
-            st.expiry[dev] = e
-        if refresh:
-            st.refresh_log.extend(sorted(refresh))
+            st.spliced(dev, led.dev_version.get(dev, 0), e)
         return st
+
+    def _stale_devices(self, st: _ScanState, plan, now: float,
+                       ctx: "_BatchContext") -> set:
+        """The devices of ``plan`` whose segment of ``st`` a check at
+        ``now`` re-checks: those committed to since the state last looked
+        (by the journal and the devices' versions) and, when the clock
+        moved, the occupied ones whose last check has expired.  Reads
+        only: the caller advances ``st.log_pos`` and ``st.now``."""
+        led = self.ledger
+        log = ctx.commit_log
+        refresh: set = set()
+        if st.log_pos < len(log):
+            for dev in set(log[st.log_pos:]):
+                if dev in plan.dev_ranges \
+                        and st.stamps.get(dev) != led.dev_version.get(dev, 0):
+                    refresh.add(dev)
+        if st.now != now:
+            # the clock moved since the columns were checked: occupied
+            # devices' tenancy-wait and l.15 terms read ``now``
+            for dev in led.occupied_devices(ctx.comp):
+                if dev in plan.dev_ranges and dev not in refresh:
+                    e = st.expiry.get(dev)
+                    if e is None or e <= now:
+                        refresh.add(dev)
+        return refresh
+
+    @staticmethod
+    def _eff_entry(task: Task, st: _ScanState, plan,
+                   ctx: "_BatchContext") -> tuple:
+        """``(key, entry)``: the key of the signature's effective columns
+        over ``plan`` in ``ctx.eff_cache``, and the cached
+        :class:`_Effective` where it was layered over ``st`` (else
+        None)."""
+        ck = (ctx.task_sig(task), id(plan.pus))
+        ent = ctx.eff_cache.get(ck)
+        return ck, (ent if ent is not None and ent.st is st else None)
+
+    @staticmethod
+    def _eff_put(ctx: "_BatchContext", ck, st: _ScanState, ok: torch.Tensor,
+                 cm: torch.Tensor, key: torch.Tensor) -> None:
+        _fifo_put(ctx.eff_cache, ck,
+                  _Effective(st, ok, cm, key, ctx.commit_log), 24)
 
     def _effective(self, task: Task, st: _ScanState, plan, now: float,
                    ctx: "_BatchContext") -> tuple:
@@ -1447,28 +1539,21 @@ class Orchestrator:
         dl = task.deadline
         log = ctx.commit_log
         rlog = st.refresh_log
-        ck = (ctx.task_sig(task), id(plan.pus))
-        ent = ctx.eff_cache.get(ck)
-        if ent is not None and ent[0] is st:
-            pos, rpos, ok, cm, key = ent[1], ent[2], ent[3], ent[4], ent[5]
-            if pos < len(log) or rpos < len(rlog):
-                for dev in sorted(set(log[pos:]).union(rlog[rpos:])):
+        ck, ent = self._eff_entry(task, st, plan, ctx)
+        if ent is not None:
+            ok, cm, key = ent.ok, ent.cm, ent.key
+            if ent.pos < len(log) or ent.rpos < len(rlog):
+                for dev in sorted(set(log[ent.pos:]).union(rlog[ent.rpos:])):
                     rng = plan.dev_ranges.get(dev)
                     if rng is None:
                         continue
                     lo, hi = rng
                     jlo = bisect.bisect_left(cols_l, lo)
                     jhi = bisect.bisect_left(cols_l, hi)
-                    cm[lo:hi] = 0.0
-                    cseg = cols[jlo:jhi]
-                    cm[cseg] = static.comm[jlo:jhi] + st.wait[cseg]
-                    key[lo:hi] = cm[lo:hi] + st.sa[lo:hi] * st.f[lo:hi]
-                    o = st.ok[lo:hi]
-                    if dl is not None:
-                        o = o & ~(key[lo:hi] > dl)
-                    ok[lo:hi] = o
-                ent[1] = len(log)
-                ent[2] = len(rlog)
+                    effective_segment(ok, cm, key, st.ok, st.sa, st.f,
+                                      st.wait, lo, hi, cols[jlo:jhi],
+                                      static.comm[jlo:jhi], dl)
+                ent.caught_up(log)
             return ok, cm, key
         cm = torch.zeros(len(plan.pus), dtype=FLOAT, device=ctx.device)
         if len(cols_l):
@@ -1478,8 +1563,7 @@ class Orchestrator:
             ok = st.ok & ~(key > dl)
         else:
             ok = st.ok.clone()         # the cache owns a mutable copy
-        _fifo_put(ctx.eff_cache, ck,
-                  [st, len(log), len(rlog), ok, cm, key], 24)
+        self._eff_put(ctx, ck, st, ok, cm, key)
         return ok, cm, key
 
     def _scan_reduce(self, ok_d: torch.Tensor, cm_d: torch.Tensor,
@@ -1500,8 +1584,15 @@ class Orchestrator:
         if self.config.objective == "min_load":
             cnt = self.ledger.count
             key = f64([cnt(p) for p in plan.pus], ok.device)
-        w, queries, hops, overhead, sa_w, f_w, cm_w = host_list(scan_reduce(
-            ok, key, sa, f, cm, plan.arrays, self.config.local_query_cost))
+        return self._scan_result(host_list(scan_reduce(
+            ok, key, sa, f, cm, plan.arrays, self.config.local_query_cost)),
+            plan)
+
+    @staticmethod
+    def _scan_result(row: list, plan) -> Optional[MapResult]:
+        """The winner of a scan from its seven values (``row`` may hold
+        more after them), or None where its root is infeasible."""
+        w, queries, hops, overhead, sa_w, f_w, cm_w = row[:7]
         if w < 0:
             return None
         pred = TaskPrediction(sa_w, f_w, cm_w)
@@ -1510,23 +1601,26 @@ class Orchestrator:
                          hops=int(hops))
 
     def _entry_columns(self, task: Task, now: float, ctx: "_BatchContext",
-                       scored: Optional[set]) -> Optional[tuple]:
+                       scored: Optional[set],
+                       looked: Optional[tuple] = None) -> Optional[tuple]:
         """The entry TraverseChildren scan over this ORC's subtree, up to
         its reduce: ``(ok, cm, key, st, plan)`` as :meth:`_scan_reduce`
-        takes them, or None when the subtree holds no PU."""
+        takes them, or None when the subtree holds no PU.  ``looked``:
+        as :meth:`_tracked_checks` takes it."""
         plan = self._scan_plan(ctx.comp)
         if scored is not None:
             scored.update(plan.leaf_groups)
         if not plan.pus:
             return None
-        st = self._tracked_checks(task, plan, now, ctx)
+        st = self._tracked_checks(task, plan, now, ctx, looked)
         ok, cm, key = self._effective(task, st, plan, now, ctx)
         return ok, cm, key, st, plan
 
     def _traverse_fast(self, task: Task, now: float, ctx: "_BatchContext",
-                       scored: Optional[set]) -> Optional[MapResult]:
+                       scored: Optional[set],
+                       looked: Optional[tuple] = None) -> Optional[MapResult]:
         """TraverseChildren over this ORC's subtree as one tracked scan."""
-        cols = self._entry_columns(task, now, ctx, scored)
+        cols = self._entry_columns(task, now, ctx, scored, looked)
         return None if cols is None else self._scan_reduce(*cols)
 
     def _ask_level_fast(self, task: Task, now: float, ctx: "_BatchContext",
@@ -1588,10 +1682,89 @@ class Orchestrator:
         sub.overhead += self._hop_cost(parent) + ov
         return sub
 
+    def _entry_fused(self, task: Task, now: float,
+                     ctx: "_BatchContext") -> tuple:
+        """A phase-2 re-walk's entry scan in ONE launch and ONE host read,
+        where the re-walk's shape allows it: an entry plan over one device
+        (a device ORC's), whose task core's scan state is current at
+        ``now`` but for exactly that device's segment, under an objective
+        that reads no ledger counts and a slowdown model that offers the
+        route (``rewalk_entry``, which runs
+        :func:`~repro_torch.kernels.walk_kernel.rewalk_entry`).  The launch
+        re-checks the segment, splices it into the scan state and rewrites
+        the signature's effective columns over it as
+        :meth:`_tracked_checks` and :meth:`_effective` do, then reduces the
+        plan as :meth:`_scan_reduce` does; the bookkeeping below is theirs,
+        so every later walk finds the state the two-step path leaves (the
+        splice and factor caches, being caches, are left as they are).
+
+        Returns ``(True, winner)`` where it ran the entry scan (``winner``
+        None where no PU of the plan is feasible), else ``(False,
+        looked)``: the caller walks the two-step path, handing
+        :meth:`_tracked_checks` what was looked up here (None where
+        nothing was)."""
+        sd = self.traverser.slowdown
+        fused = getattr(sd, "rewalk_entry", None)
+        if self.config.objective == "min_load" or fused is None:
+            return False, None
+        comp = ctx.comp
+        plan = self._scan_plan(comp)
+        if len(plan.devs) != 1 or len(plan.pus) > BLOCK_MAX_P:
+            return False, None
+        key, st = self._scan_state(task, plan, ctx)
+        if st is None:
+            return False, (key, None, None)
+        refresh = self._stale_devices(st, plan, now, ctx)
+        looked = (key, st, refresh)
+        dev = plan.devs[0]
+        if st.now != now or refresh != {dev}:
+            return False, looked
+        core = ctx.static_core(self, task, plan.dev_sublists[dev])
+        if core.cols_l and core.single_dev != dev:
+            return False, looked
+        # the plan holds this one device: every eligible column of the
+        # signature lies in its segment
+        static = ctx.static_score(self, task, plan.pus)
+        lo, hi = plan.dev_ranges[dev]
+        ck, ent = self._eff_entry(task, st, plan, ctx)
+        if ent is None:
+            n = len(plan.pus)
+            ok = torch.empty(n, dtype=BOOL, device=ctx.device)
+            cm = torch.empty(n, dtype=FLOAT, device=ctx.device)
+            key = torch.empty(n, dtype=FLOAT, device=ctx.device)
+        else:
+            ok, cm, key = ent.ok, ent.cm, ent.key
+        view = ctx.view(dev)
+        row = fused(comp, RewalkSegment(
+            task.usage.get("pu", 1.0), task.usage.get("mem", 1.0), task.uid,
+            task.deadline, now, core.cand_idx, core.cand_dev, core.cols,
+            core.sa, core.maxten, static.cols, static.comm, view.P,
+            view.upu, view.Ma, view.uid, view.est, view.fac, view.dl,
+            view.rel, view.Da, view.astart, view.na, st.ok, st.sa, st.f,
+            st.wait, lo, hi - lo, ok, cm, key, plan.arrays,
+            self.config.local_query_cost))
+        # _tracked_checks' bookkeeping of the splice (``st.now`` is ``now``)
+        st.log_pos = len(ctx.commit_log)
+        st.spliced(dev, self.ledger.dev_version.get(dev, 0),
+                   _expiry(now, row[7], row[8]))
+        # _effective's of the patched entry
+        if ent is None:
+            self._eff_put(ctx, ck, st, ok, cm, key)
+        else:
+            ent.caught_up(ctx.commit_log)
+        return True, self._scan_result(row, plan)
+
     def _map_once_fast(self, task: Task, now: float, ctx: "_BatchContext",
-                       scored: Optional[set]) -> Optional[MapResult]:
-        """One full Alg. 1 walk on the fused path (phase-2 re-walks)."""
-        res = self._traverse_fast(task, now, ctx, scored)
+                       scored: Optional[set],
+                       entry: Optional[tuple] = None) -> Optional[MapResult]:
+        """One full Alg. 1 walk on the fused path (phase-2 re-walks);
+        ``entry`` is :meth:`_entry_fused`'s result where it was asked
+        first."""
+        if entry is not None and entry[0]:
+            res = entry[1]
+        else:
+            res = self._traverse_fast(task, now, ctx, scored,
+                                      None if entry is None else entry[1])
         cur = self
         while res is None and cur.parent is not None:
             res = cur._ask_level_fast(task, now, ctx, scored)
@@ -2028,8 +2201,8 @@ class Orchestrator:
         s.cols = i64(s.cols_l, dev)
         s.single_dev = None
         if not len(s.cols_l):
-            s.cand_idx = s.cand_dev = s.cols
-            s.sa = s.comm = s.maxten = torch.zeros(0, dtype=FLOAT, device=dev)
+            s.cand_idx = s.cand_dev = s.maxten = s.cols
+            s.sa = s.comm = torch.zeros(0, dtype=FLOAT, device=dev)
             return s
         s.cand_idx = idx[s.cols]
         s.cand_dev = comp.pu_dev_ord[s.cand_idx]
@@ -2322,75 +2495,16 @@ class Orchestrator:
             new_f, ci, ai, act_pf = sd.factors_same_device(
                 comp, task, cand_idx, static.cand_dev, view.P, view.upu,
                 view.Ma, view.uid, view.Da, view.astart, view.na)
-        A = len(view)
         C = len(static.cols_l)
-        wait = None
-        ok = torch.ones(C, dtype=BOOL, device=dev)
+        if with_constraints:
+            ok, wait, flags = constraint_terms(
+                cand_idx, static.maxten, now, view.P, view.est, view.fac,
+                view.dl, view.rel, ci, ai, act_pf, flips=split_comm)
+        else:
+            ok, wait, flags = torch.ones(C, dtype=BOOL, device=dev), None, None
         expiry = _INF
-        if with_constraints and A and C:
-            # tenancy cap: queueing wait behind the earliest finisher,
-            # counted per *candidate position* (the candidate sets are
-            # device- or subtree-local)
-            sci, order = torch.sort(cand_idx, stable=True)
-            pp = torch.clamp_max(torch.searchsorted(sci, view.P), C - 1)
-            on_cand = sci[pp] == view.P
-            # actives off every candidate PU scatter a neutral element
-            # (count 0, finish +inf) instead of being masked out
-            cpos = order[pp]
-            cnt = torch.zeros(C, dtype=INT, device=dev).scatter_add_(
-                0, cpos, on_cand.to(INT))
-            waits = cnt >= static.maxten
-            minest = torch.full((C,), _INF, dtype=FLOAT, device=dev)
-            minest.scatter_reduce_(
-                0, cpos, torch.where(on_cand, view.est,
-                                     torch.full_like(view.est, _INF)),
-                reduce="amin", include_self=True)
-            wait = torch.where(waits, torch.clamp_min(minest - now, 0.0),
-                               torch.zeros_like(minest))
-            flags = [(waits & (minest > now)).any().to(FLOAT)]
-            # Alg. 1 l.15 over the same-device (candidate, active) pairs
-            n_pairs = ci.shape[0]
-            if n_pairs:
-                est_a = view.est[ai]
-                fac_a = torch.clamp_min(view.fac[ai], 1e-12)
-                rem = torch.clamp_min(est_a - now, 0.0) / fac_a
-                fin = now + rem * act_pf
-                dlp = view.dl[ai] * (1 + 1e-9)
-                fine = torch.isfinite(dlp)
-                viol = fine & (fin - view.rel[ai] > dlp)
-                bad = torch.zeros(C, dtype=INT, device=dev).scatter_add_(
-                    0, ci, viol.to(INT))
-                ok = ok & (bad == 0)
-                if split_comm:
-                    # earliest future instant any pair's verdict can flip.
-                    # fin(t) is piecewise linear and continuous in t
-                    # (slope 1-r before est, slope 1 after, r = pf/fac),
-                    # so each pair's violation state changes only at a
-                    # root of fin(t) - rel - dl': t1 inside [now, est) or
-                    # t2 = rel + dl' inside [max(now, est), inf)
-                    r = act_pf / fac_a
-                    rel_a = view.rel[ai]
-                    t1 = (rel_a + dlp - est_a * r) / (1.0 - r)
-                    inf_k = torch.full_like(t1, _INF)
-                    flips = torch.where(
-                        fine & (r != 1.0) & (t1 >= now) & (t1 < est_a),
-                        t1, inf_k)
-                    t2 = rel_a + dlp
-                    flips = torch.minimum(flips, torch.where(
-                        fine & (t2 >= now) & (t2 >= est_a), t2, inf_k))
-                    flags.append(flips.min())
-            if split_comm:
-                got = host_list(torch.stack(flags))
-                if got[0]:
-                    # a positive queueing wait decays with every clock
-                    # tick: this check is stale the instant ``now`` moves
-                    expiry = now
-                if len(got) > 1 and got[1] < expiry:
-                    # pull a hair early: the analytic root and the
-                    # float-evaluated predicate may disagree by ulps,
-                    # and an early re-splice is merely redundant
-                    tmin = got[1]
-                    expiry = tmin - max(abs(tmin), 1.0) * 1e-9
+        if flags is not None:
+            expiry = _expiry(now, *host_list(flags))
         if split_comm:
             return ok, static.sa, new_f, (wait if wait is not None
                                           else torch.zeros(
@@ -2400,8 +2514,6 @@ class Orchestrator:
         if with_constraints and task.deadline is not None:
             totals = comm + static.sa * new_f
             ok = ok & ~(totals > task.deadline)
-        elif not with_constraints:
-            ok = torch.ones(C, dtype=BOOL, device=dev)
         return ok, static.sa, new_f, comm
 
     def _hop_cost(self, other: "Orchestrator") -> float:

@@ -55,9 +55,10 @@ import numpy as np
 import torch
 
 from ..device import FLOAT, INT, bytes_key, f64, host_list, i64
-from ..kernels.slowdown_kernel import (SameDeviceItem, pressure_term,
-                                       slowdown_factors, slowdown_pool,
-                                       slowdown_same_device)
+from ..kernels.slowdown_kernel import (SameDeviceItem, device_summary,
+                                       pressure_term, slowdown_factors,
+                                       slowdown_pool, slowdown_same_device)
+from ..kernels.walk_kernel import RewalkSegment, rewalk_entry
 from .hwgraph import HWGraph
 from .task import Task
 
@@ -458,15 +459,7 @@ class DecoupledSlowdown:
         return new_f, act_f
 
     # -- block-diagonal constraint checks -----------------------------------
-    @staticmethod
-    def _dev_summary(Dc, astart, na) -> tuple[int, bool, int, int]:
-        """(first candidate device ordinal, whether every candidate sits
-        on it, that device's ledger segment start, its length) — the host
-        facts the single-device paths branch on, in one copy."""
-        d0 = Dc[0]
-        d0v, single, s, n_dev = host_list(torch.stack(
-            [d0, (Dc == d0).all().to(INT), astart[d0], na[d0]]))
-        return d0v, bool(single), s, n_dev
+    _dev_summary = staticmethod(device_summary)
 
     def factors_same_device(
             self, comp, task: Task, Pc, Dc, Pa, Ua, Ma, uid_a, Da, astart, na,
@@ -494,7 +487,6 @@ class DecoupledSlowdown:
         :meth:`factors_same_device`; the result list holds that method's
         return tuple per item, identical to calling it per item (each item
         is a block of its own in the kernel)."""
-        beta_vec, mt_vec = self._tables(comp)
         out: list = [None] * len(items)
         todo: list = []
         stores: list = []
@@ -513,14 +505,32 @@ class DecoupledSlowdown:
             todo.append((i, SameDeviceItem(
                 Pc, Dc, task.usage.get("pu", 1.0), task.usage.get("mem", 1.0),
                 task.uid, Pa, Ua, Ma, uid_a, Da, astart, na, summ)))
-        res = slowdown_same_device([it for _, it in todo], mt_vec, beta_vec,
-                                   comp.mem_cap, comp.ncr_rclass,
-                                   self.params.superlinear)
+        res = slowdown_same_device([it for _, it in todo],
+                                   *self.same_device_tables(comp))
         for (i, _), r in zip(todo, res):
             out[i] = r
         for i, key, base in stores:
             self._canon_store(key, base, out[i])
         return out
+
+    def same_device_tables(self, comp) -> tuple:
+        """The snapshot tables and the constant that the same-device form
+        of the factor kernel reads, in its arguments' order: the mt-beta
+        per compiled PU, beta per compiled rclass, the memory cap per PU,
+        the nearest-common-resource class table and kappa."""
+        beta_vec, mt_vec = self._tables(comp)
+        return (mt_vec, beta_vec, comp.mem_cap, comp.ncr_rclass,
+                self.params.superlinear)
+
+    def rewalk_entry(self, comp, seg: RewalkSegment) -> list:
+        """A phase-2 re-walk's entry scan over a plan on one device, its
+        single-device check computed by this model's same-device form, in
+        one launch of the fused re-walk kernel and one host read
+        (:func:`~repro_torch.kernels.walk_kernel.rewalk_entry`: the scan's
+        seven values and the check's two expiry values).  The walk takes
+        this route only from a model that has it.  Noise-free path only,
+        as :meth:`factors_same_device`."""
+        return rewalk_entry(seg, *self.same_device_tables(comp))
 
     # -- canonical-pattern cache (single-device constraint checks) ---------
     def _canon_key(self, comp, task: Task, Pc, Dc, Pa, Ua, Ma, uid_a,

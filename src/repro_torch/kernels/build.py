@@ -83,6 +83,8 @@ _SIGNATURES = {
     "heye_scan_reduce_big": [_PTR] * 11 + [_I64, _I64, _I64, _I64, _F64,
                                            _PTR, _PTR, _I64, _PTR],
     "heye_scan_reduce_big_bytes": [_I64, _I64],
+    "heye_rewalk_entry": [_PTR, _I64, _PTR],
+    "heye_rewalk_entry_wide_len": [_INT],
     "heye_lru_scan": [_PTR, _PTR, _PTR, _I64, _I64, _I64, _PTR],
     "heye_flash_attention": [_PTR, _PTR, _PTR, _PTR, _INT, _INT, _INT, _INT,
                              _INT, _INT, _INT, _INT, _F32, _F32, _PTR],
@@ -90,7 +92,8 @@ _SIGNATURES = {
 }
 _RESTYPES = {"heye_scan_reduce_big_bytes": _I64,
              "heye_slowdown_pool_wide_len": _I64,
-             "heye_slowdown_same_device_wide_len": _I64}
+             "heye_slowdown_same_device_wide_len": _I64,
+             "heye_rewalk_entry_wide_len": _I64}
 
 
 def sources() -> list[Path]:

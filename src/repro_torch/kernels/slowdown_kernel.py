@@ -136,13 +136,22 @@ def slowdown_pool_plain(members, pu_i, U, memraw, uid, mem_cap, ncr_rclass,
     return slowdown_factors_plain(acc[:, :R], beta, M, mt_term, kappa)
 
 
+def device_summary(Dc: torch.Tensor, astart: torch.Tensor,
+                   na: torch.Tensor) -> tuple[int, bool, int, int]:
+    """(first candidate device ordinal, whether every candidate sits on
+    it, that device's ledger segment start, its length) — the host facts
+    the single-device paths branch on, in one copy."""
+    d0 = Dc[0]
+    d0v, single, s, n_dev = host_list(torch.stack(
+        [d0, (Dc == d0).all().to(_I64), astart[d0], na[d0]]))
+    return d0v, bool(single), s, n_dev
+
+
 class SameDeviceItem(NamedTuple):
     """One newcomer of a same-device check: its candidates' PU indices
     and device ordinals, its usages and uid, the device-sorted ledger
     view (``Da`` ascending, ``astart`` / ``na`` the per-device-ordinal
-    segments) and ``summ`` = (first candidate device, whether every
-    candidate sits on it, that device's segment start, its length), the
-    host facts of ``DecoupledSlowdown._dev_summary``."""
+    segments) and ``summ``, :func:`device_summary` of them."""
     Pc: torch.Tensor
     Dc: torch.Tensor
     u_new: float

@@ -39,22 +39,37 @@ and, at the walk's sizes, by launch latency.  ``winner``/``queries``/``hops`` an
 the gathered columns are exact; ``overhead`` may differ from a
 sequential sum by float-associativity ulps (the decisions never read it).
 
+A third entry point, :func:`rewalk_entry`, is the whole entry scan of a
+phase-2 re-walk whose plan covers one device, in one launch
+(``csrc/rewalk.cu``): B1's same-device check of the device's segment and
+the constraint terms around it, the splice into the task core's scan
+state, the signature's effective columns and this reduce, read back with
+one copy.  Its plain version, :func:`rewalk_entry_plain`, is the
+two-step path it replaces, op for op: :func:`constraint_terms`,
+:func:`segment_columns` and :func:`effective_segment` are the pieces the
+orchestrator's two-step path runs too.
+
 The wrappers take the plain versions for CPU tensors and launch the
 kernel for CUDA tensors (or raise).
 """
 from __future__ import annotations
 
-from typing import Sequence
+import struct
+from typing import NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
 
+from ..device import host_list
 from .. import spans
 from ..spans import OPEN as _SPANS
 from . import build
+from .slowdown_kernel import (SameDeviceItem, _check_tables,
+                              device_summary, slowdown_same_device)
 
-# launches per entry point: a single scan, a stack of scans
-launches = {"scan_reduce": 0, "scan_reduce_batch": 0}
+# launches per entry point: a single scan, a stack of scans, a re-walk's
+# fused entry scan
+launches = {"scan_reduce": 0, "scan_reduce_batch": 0, "rewalk_entry": 0}
 
 # scans of at most this many PUs take one warp (a lane per PU), larger
 # ones a block of their own, whose bit words of `ok` fill 32 KB of shared
@@ -321,3 +336,352 @@ def scan_reduce_batch(ok: torch.Tensor, key: torch.Tensor, sa: torch.Tensor,
     finally:
         if sp:
             spans.leave(sp)
+
+
+# ---------------------------------------------------------------------------
+# a phase-2 re-walk's entry scan, fused
+# ---------------------------------------------------------------------------
+def constraint_terms(cand_idx: torch.Tensor, maxten: torch.Tensor, now: float,
+                     P: torch.Tensor, est: torch.Tensor, fac: torch.Tensor,
+                     dl: torch.Tensor, rel: torch.Tensor, ci: torch.Tensor,
+                     ai: torch.Tensor, act_pf: torch.Tensor,
+                     flips: bool) -> tuple:
+    """Alg. 1's constraint terms of one block-diagonal check at ``now``:
+    candidates at compiled PU indices ``cand_idx`` with tenancy caps
+    ``maxten``, ledger-view rows ``P`` / ``est`` / ``fac`` / ``dl`` /
+    ``rel``, and the check's (candidate ``ci``, active ``ai``) pairs with
+    each active's factor ``act_pf`` if the newcomer joins.
+
+    Returns ``(ok, wait, flags)``: per candidate whether l.15 holds for
+    every pair (existing tasks keep their deadlines), and the queueing wait
+    behind the earliest finisher on its PU where the tenancy cap is
+    reached (None where there is no candidate or no row: nothing waits);
+    with ``flips``, ``flags`` = [whether a positive wait exists, the
+    earliest future instant a pair's verdict can flip (+inf without a
+    pair)], from which the caller dates the check's expiry (else None)."""
+    dev = cand_idx.device
+    C = cand_idx.shape[0]
+    ok = torch.ones(C, dtype=torch.bool, device=dev)
+    if not (P.shape[0] and C):
+        return ok, None, None
+    inf = float("inf")
+    # tenancy cap: queueing wait behind the earliest finisher, counted per
+    # *candidate position* (the candidate sets are device- or
+    # subtree-local)
+    sci, order = torch.sort(cand_idx, stable=True)
+    pp = torch.clamp_max(torch.searchsorted(sci, P), C - 1)
+    on_cand = sci[pp] == P
+    # actives off every candidate PU scatter a neutral element (count 0,
+    # finish +inf) instead of being masked out
+    cpos = order[pp]
+    cnt = torch.zeros(C, dtype=_I64, device=dev).scatter_add_(
+        0, cpos, on_cand.to(_I64))
+    waits = cnt >= maxten
+    minest = torch.full((C,), inf, dtype=_F64, device=dev)
+    minest.scatter_reduce_(0, cpos, torch.where(on_cand, est,
+                                                torch.full_like(est, inf)),
+                           reduce="amin", include_self=True)
+    wait = torch.where(waits, torch.clamp_min(minest - now, 0.0),
+                       torch.zeros_like(minest))
+    flip = None
+    # Alg. 1 l.15 over the same-device (candidate, active) pairs
+    if ci.shape[0]:
+        est_a = est[ai]
+        fac_a = torch.clamp_min(fac[ai], 1e-12)
+        rem = torch.clamp_min(est_a - now, 0.0) / fac_a
+        fin = now + rem * act_pf
+        dlp = dl[ai] * (1 + 1e-9)
+        fine = torch.isfinite(dlp)
+        viol = fine & (fin - rel[ai] > dlp)
+        bad = torch.zeros(C, dtype=_I64, device=dev).scatter_add_(
+            0, ci, viol.to(_I64))
+        ok = ok & (bad == 0)
+        if flips:
+            # earliest future instant any pair's verdict can flip.  fin(t)
+            # is piecewise linear and continuous in t (slope 1-r before
+            # est, slope 1 after, r = pf/fac), so each pair's violation
+            # state changes only at a root of fin(t) - rel - dl': t1 inside
+            # [now, est) or t2 = rel + dl' inside [max(now, est), inf)
+            r = act_pf / fac_a
+            rel_a = rel[ai]
+            t1 = (rel_a + dlp - est_a * r) / (1.0 - r)
+            inf_k = torch.full_like(t1, inf)
+            flips_k = torch.where(
+                fine & (r != 1.0) & (t1 >= now) & (t1 < est_a), t1, inf_k)
+            t2 = rel_a + dlp
+            flips_k = torch.minimum(flips_k, torch.where(
+                fine & (t2 >= now) & (t2 >= est_a), t2, inf_k))
+            flip = flips_k.min()
+    if not flips:
+        return ok, wait, None
+    if flip is None:
+        flip = torch.full((), inf, dtype=_F64, device=dev)
+    return ok, wait, torch.stack([(waits & (minest > now)).any().to(_F64),
+                                  flip])
+
+
+def segment_columns(n: int, cols: torch.Tensor, terms: Optional[tuple],
+                    device) -> tuple:
+    """The dense check columns ``(ok, sa, f, wait)`` of a segment of ``n``
+    PUs: the candidates' ``terms`` = (ok, sa, f, wait) at their eligible
+    positions ``cols`` (``wait`` None: no wait; ``terms`` None: no
+    candidate), and (False, +inf, 1, 0) at every other position."""
+    ok = torch.zeros(n, dtype=torch.bool, device=device)
+    sa = torch.full((n,), float("inf"), dtype=_F64, device=device)
+    f = torch.ones(n, dtype=_F64, device=device)
+    wait = torch.zeros(n, dtype=_F64, device=device)
+    if terms is not None:
+        o, s_, f_, w_ = terms
+        ok[cols] = o
+        sa[cols] = s_
+        f[cols] = f_
+        if w_ is not None:
+            wait[cols] = w_
+    return ok, sa, f, wait
+
+
+def effective_segment(ok: torch.Tensor, cm: torch.Tensor, key: torch.Tensor,
+                      st_ok: torch.Tensor, st_sa: torch.Tensor,
+                      st_f: torch.Tensor, st_wait: torch.Tensor, lo: int,
+                      hi: int, cols: torch.Tensor, comm: torch.Tensor,
+                      deadline: Optional[float]) -> None:
+    """Rewrite the effective columns ``ok`` / ``cm`` / ``key`` of a scan
+    over its PUs ``[lo, hi)`` from the scan state's columns: ``cm`` the
+    signature's ``comm`` plus the tenancy wait at its eligible positions
+    ``cols`` (which lie in the range) and 0 elsewhere, the selection key
+    ``cm + sa*f``, and ``ok`` masked by the deadline."""
+    cm[lo:hi] = 0.0
+    cm[cols] = comm + st_wait[cols]
+    key[lo:hi] = cm[lo:hi] + st_sa[lo:hi] * st_f[lo:hi]
+    o = st_ok[lo:hi]
+    if deadline is not None:
+        o = o & ~(key[lo:hi] > deadline)
+    ok[lo:hi] = o
+
+
+class RewalkSegment(NamedTuple):
+    """A phase-2 re-walk's entry scan over a plan whose PUs all sit on one
+    device, what :func:`rewalk_entry` reads and writes.
+
+    The newcomer: ``u_new`` / ``mem_new`` its usages, ``uid_new``, its
+    ``deadline`` (None: none) and the check instant ``now``.  Its eligible
+    candidates on the device in the check's order: compiled PU index
+    ``Pc``, device ordinal ``Dc``, position in the segment ``cols``,
+    standalone ``sa`` and tenancy cap ``maxten``; the signature's
+    ``comm`` per eligible candidate at plan position ``eff_cols``.  The
+    device's ledger view (``Pa`` ... ``rel``, ``Da``, with ``astart`` /
+    ``na`` its per-device-ordinal segments).  The scan state's columns
+    ``st_*``, whose segment ``[lo, lo + nseg)`` is rewritten, and the
+    signature's effective columns ``ok`` / ``cm`` / ``key`` over the whole
+    plan, rewritten over the segment.  The ``plan`` and its local query
+    cost ``lqc``."""
+    u_new: float
+    mem_new: float
+    uid_new: int
+    deadline: Optional[float]
+    now: float
+    Pc: torch.Tensor
+    Dc: torch.Tensor
+    cols: torch.Tensor
+    sa: torch.Tensor
+    maxten: torch.Tensor
+    eff_cols: torch.Tensor
+    comm: torch.Tensor
+    Pa: torch.Tensor
+    Ua: torch.Tensor
+    Ma: torch.Tensor
+    uid_a: torch.Tensor
+    est: torch.Tensor
+    fac: torch.Tensor
+    dl: torch.Tensor
+    rel: torch.Tensor
+    Da: torch.Tensor
+    astart: torch.Tensor
+    na: torch.Tensor
+    st_ok: torch.Tensor
+    st_sa: torch.Tensor
+    st_f: torch.Tensor
+    st_wait: torch.Tensor
+    lo: int
+    nseg: int
+    ok: torch.Tensor
+    cm: torch.Tensor
+    key: torch.Tensor
+    plan: ScanPlanArrays
+    lqc: float
+
+
+def rewalk_entry_plain(seg: RewalkSegment, mt_vec: torch.Tensor,
+                       beta: torch.Tensor, mem_cap: torch.Tensor,
+                       ncr_rclass: torch.Tensor,
+                       kappa: float) -> torch.Tensor:
+    """Plain version of :func:`rewalk_entry`: the two-step path of the
+    orchestrator for this shape, op for op — B1's same-device check of the
+    segment through its wrapper (the orchestrator's
+    ``factors_same_device``), :func:`constraint_terms`, the splice of
+    :func:`segment_columns` into the scan state, :func:`effective_segment`
+    and B4's reduce through :func:`scan_reduce`.  Returns the nine values
+    as a float64 tensor."""
+    dev = seg.st_ok.device
+    lo, hi = seg.lo, seg.lo + seg.nseg
+    terms = flags = None
+    if seg.Pc.shape[0]:
+        summ = (0, True, 0, 0)              # no candidate or no active
+        if seg.Pa.shape[0]:
+            summ = device_summary(seg.Dc, seg.astart, seg.na)
+        new_f, ci, ai, act_pf = slowdown_same_device(
+            [SameDeviceItem(seg.Pc, seg.Dc, seg.u_new, seg.mem_new,
+                            seg.uid_new, seg.Pa, seg.Ua, seg.Ma, seg.uid_a,
+                            seg.Da, seg.astart, seg.na, summ)],
+            mt_vec, beta, mem_cap, ncr_rclass, kappa)[0]
+        o, w, flags = constraint_terms(seg.Pc, seg.maxten, seg.now, seg.Pa,
+                                       seg.est, seg.fac, seg.dl, seg.rel, ci,
+                                       ai, act_pf, flips=True)
+        terms = (o, seg.sa, new_f, w)
+    if flags is None:
+        flags = torch.tensor([0.0, float("inf")], dtype=_F64, device=dev)
+    (seg.st_ok[lo:hi], seg.st_sa[lo:hi], seg.st_f[lo:hi],
+     seg.st_wait[lo:hi]) = segment_columns(seg.nseg, seg.cols, terms, dev)
+    effective_segment(seg.ok, seg.cm, seg.key, seg.st_ok, seg.st_sa, seg.st_f,
+                      seg.st_wait, lo, hi, seg.eff_cols, seg.comm,
+                      seg.deadline)
+    row = scan_reduce(seg.ok, seg.key, seg.st_sa, seg.st_f, seg.cm, seg.plan,
+                      seg.lqc)
+    return torch.cat([row, flags])
+
+
+# the kernel's argument row (csrc/rewalk.cu, RwArgs), field by field:
+# "q" a pointer or an integer, "d" a double
+RW_FIELDS = (
+    ("Pc", "q"), ("Dc", "q"), ("cols", "q"), ("sa", "q"), ("maxten", "q"),
+    ("C", "q"), ("eff_cols", "q"), ("comm", "q"), ("C2", "q"),
+    ("Pa", "q"), ("Ua", "q"), ("Ma", "q"), ("uid_a", "q"), ("est", "q"),
+    ("fac", "q"), ("dl", "q"), ("rel", "q"), ("astart", "q"), ("na", "q"),
+    ("A", "q"), ("nd", "q"),
+    ("ncr", "q"), ("nP", "q"), ("mt_vec", "q"), ("mem_cap", "q"),
+    ("beta", "q"), ("R", "q"), ("kappa", "d"),
+    ("u_new", "d"), ("mem_new", "d"), ("uid_new", "q"), ("has_dl", "q"),
+    ("deadline", "d"), ("now", "d"),
+    ("st_ok", "q"), ("st_sa", "q"), ("st_f", "q"), ("st_wait", "q"),
+    ("lo", "q"), ("nseg", "q"),
+    ("ok", "q"), ("cm", "q"), ("key", "q"), ("P", "q"),
+    ("pu_lo", "q"), ("pu_hi", "q"), ("leafcnt", "q"), ("nchild", "q"),
+    ("hopsum", "q"), ("depth", "q"), ("Nn", "q"), ("lqc", "d"),
+    ("out", "q"), ("nf", "q"), ("waitc", "q"), ("bad", "q"), ("base", "q"),
+    ("wide", "q"))
+_RW_ROW = struct.Struct("<" + "".join(k for _, k in RW_FIELDS))
+_B = torch.bool
+
+
+def _check_segment(seg: RewalkSegment, dev) -> tuple:
+    """Raise on anything :func:`rewalk_entry` does not take; returns the
+    plan's PU count."""
+    build.check_tensors(
+        dev, ("Pc", seg.Pc, _I64, 1), ("Dc", seg.Dc, _I64, 1),
+        ("cols", seg.cols, _I64, 1), ("sa", seg.sa, _F64, 1),
+        ("maxten", seg.maxten, _I64, 1), ("eff_cols", seg.eff_cols, _I64, 1),
+        ("comm", seg.comm, _F64, 1), ("Pa", seg.Pa, _I64, 1),
+        ("Ua", seg.Ua, _F64, 1), ("Ma", seg.Ma, _F64, 1),
+        ("uid_a", seg.uid_a, _I64, 1), ("est", seg.est, _F64, 1),
+        ("fac", seg.fac, _F64, 1), ("dl", seg.dl, _F64, 1),
+        ("rel", seg.rel, _F64, 1), ("Da", seg.Da, _I64, 1),
+        ("astart", seg.astart, _I64, 1), ("na", seg.na, _I64, 1),
+        ("st_ok", seg.st_ok, _B, 1), ("st_sa", seg.st_sa, _F64, 1),
+        ("st_f", seg.st_f, _F64, 1), ("st_wait", seg.st_wait, _F64, 1),
+        ("ok", seg.ok, _B, 1), ("cm", seg.cm, _F64, 1),
+        ("key", seg.key, _F64, 1))
+    C, A, P = seg.Pc.shape[0], seg.Pa.shape[0], seg.ok.shape[0]
+    if any(t.shape[0] != C for t in (seg.Dc, seg.cols, seg.sa, seg.maxten)):
+        raise ValueError("the candidates' columns disagree in length")
+    if seg.comm.shape[0] != seg.eff_cols.shape[0]:
+        raise ValueError("comm and eff_cols must have one length")
+    if any(t.shape[0] != A for t in (seg.Ua, seg.Ma, seg.uid_a, seg.est,
+                                     seg.fac, seg.dl, seg.rel, seg.Da)):
+        raise ValueError("the ledger view's columns disagree in length")
+    if seg.astart.shape[0] != seg.na.shape[0] or (C and not seg.na.shape[0]):
+        raise ValueError("astart and na must have one length, one per "
+                         "device ordinal")
+    if any(t.shape[0] != P for t in (seg.cm, seg.key, seg.st_ok, seg.st_sa,
+                                     seg.st_f, seg.st_wait)):
+        raise ValueError("the scan's columns must have one length")
+    if seg.plan.device != dev or P < seg.plan.span:
+        raise ValueError("the plan is on another device or its node "
+                         "ranges reach past the scan")
+    if not (0 <= seg.lo and 0 <= seg.nseg and seg.lo + seg.nseg <= P):
+        raise ValueError("the segment lies outside the scan")
+    return P
+
+
+def rewalk_entry(seg: RewalkSegment, mt_vec: torch.Tensor,
+                 beta: torch.Tensor, mem_cap: torch.Tensor,
+                 ncr_rclass: torch.Tensor, kappa: float) -> list:
+    """A phase-2 re-walk's entry scan over a plan on one device in ONE
+    launch, and its nine values read back with ONE copy: the scan's
+    seven (as :func:`scan_reduce` gives them), whether the re-checked
+    segment holds a positive tenancy wait, and the earliest instant one
+    of its l.15 verdicts can flip.  Rewrites the scan state's segment and
+    the effective columns over it in place, as the two-step path does.
+    The snapshot tables are B1's (:func:`slowdown_same_device`).  The
+    plan takes at most ``BLOCK_MAX_P`` PUs (one block)."""
+    sp = spans.enter("launch.rewalk_entry") if _SPANS else None
+    try:
+        dev = seg.ok.device
+        nP, R = _check_tables(mem_cap, ncr_rclass, mt_vec, beta, dev)
+        P = _check_segment(seg, dev)
+        if P > BLOCK_MAX_P:
+            raise ValueError(f"a plan of {P} PUs takes more than one block "
+                             f"(at most {BLOCK_MAX_P})")
+        kappa = float(kappa)
+        if dev.type == "cpu":
+            out = rewalk_entry_plain(seg, mt_vec, beta, mem_cap, ncr_rclass,
+                                     kappa)
+        elif dev.type != "cuda":
+            raise ValueError(f"unsupported device {dev}")
+        else:
+            C, A = seg.Pc.shape[0], seg.Pa.shape[0]
+            lib = build.load()
+            wide = lib.heye_rewalk_entry_wide_len(R)
+            # the row, then the scratch: factors and waits per candidate,
+            # a 4-byte flag per candidate, R + 1 base pressures per active
+            nb = (C + 1) // 2
+            buf = torch.empty(9 + 2 * C + nb + A * (R + 1) + wide,
+                              dtype=_F64, device=dev)
+            b0 = buf.data_ptr()
+            o_nf = b0 + 8 * 9
+            o_wait = o_nf + 8 * C
+            o_bad = o_wait + 8 * C
+            o_base = o_bad + 8 * nb
+            o_wide = o_base + 8 * A * (R + 1)
+            pl = seg.plan
+            row = _RW_ROW.pack(
+                seg.Pc.data_ptr(), seg.Dc.data_ptr(), seg.cols.data_ptr(),
+                seg.sa.data_ptr(), seg.maxten.data_ptr(), C,
+                seg.eff_cols.data_ptr(), seg.comm.data_ptr(),
+                seg.eff_cols.shape[0],
+                seg.Pa.data_ptr(), seg.Ua.data_ptr(), seg.Ma.data_ptr(),
+                seg.uid_a.data_ptr(), seg.est.data_ptr(), seg.fac.data_ptr(),
+                seg.dl.data_ptr(), seg.rel.data_ptr(),
+                seg.astart.data_ptr(), seg.na.data_ptr(), A,
+                seg.na.shape[0],
+                ncr_rclass.data_ptr(), nP, mt_vec.data_ptr(),
+                mem_cap.data_ptr(), beta.data_ptr(), R, kappa,
+                float(seg.u_new), float(seg.mem_new), int(seg.uid_new),
+                int(seg.deadline is not None),
+                0.0 if seg.deadline is None else float(seg.deadline),
+                float(seg.now),
+                seg.st_ok.data_ptr(), seg.st_sa.data_ptr(),
+                seg.st_f.data_ptr(), seg.st_wait.data_ptr(), seg.lo,
+                seg.nseg,
+                seg.ok.data_ptr(), seg.cm.data_ptr(), seg.key.data_ptr(), P,
+                *(t.data_ptr() for t in pl.tensors()), pl.n, float(seg.lqc),
+                b0, o_nf, o_wait, o_bad, o_base, o_wide if wide else 0)
+            with torch.cuda.device(dev):
+                err = lib.heye_rewalk_entry(
+                    row, len(row), build.raw_stream(dev.index))
+            build.check_launch(err, "rewalk_entry")
+            build.count_launch(launches, "rewalk_entry")
+            out = buf[:9]
+    finally:
+        if sp:
+            spans.leave(sp)
+    return host_list(out)

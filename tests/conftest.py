@@ -6,6 +6,12 @@ import pytest
 import jax
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "card: needs an NVIDIA card (a CUDA kernel with no CPU "
+        "form); skips without one")
+
+
 @pytest.fixture(scope="session")
 def rng():
     return np.random.default_rng(0)

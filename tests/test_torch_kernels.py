@@ -22,6 +22,8 @@ from repro_torch.kernels import slowdown_kernel as sk
 from repro_torch.kernels import timeline_kernel as tk
 from repro_torch.kernels import walk_kernel as wk
 
+import rewalk_cases
+
 F64_RTOL = 1e-12
 
 torch.set_num_threads(1)   # tiny tensors; keep pytest workers off each other
@@ -962,3 +964,77 @@ def test_fused_settle_wrappers_raise_on_what_they_do_not_take(case):
         with pytest.raises(ValueError):
             tk.settle_reprice(W, rate, t_last, eta, cstamp,
                               torch.arange(6)[::2], fac, 0.0, 0)
+
+
+# ---------------------------------------------------------------------------
+# the fused re-walk entry scan (its kernel against this plain version on the
+# card: tests/test_torch_kernels_card.py)
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("case", rewalk_cases.CASES)
+def test_rewalk_entry_on_the_cpu_is_its_plain_version(case):
+    """The wrapper takes the plain version on the CPU and counts no
+    launch; it rewrites the scan state's segment and the effective
+    columns over it and nothing else: the eligible positions' columns
+    from the check, the infeasible defaults elsewhere, the effective
+    columns from them; an empty device checks to factors of 1 and no
+    expiry, a scan without a feasible PU to no winner."""
+    seg, tables = rewalk_cases.segment(torch.device("cpu"), case)
+    old = rewalk_cases.copy_of(seg)
+    ref = rewalk_cases.copy_of(seg)
+    before = dict(wk.launches)
+    got = wk.rewalk_entry(seg, *tables)
+    assert wk.launches == before
+    want = wk.rewalk_entry_plain(ref, *tables).tolist()
+    assert (rewalk_cases.bits(got) == rewalk_cases.bits(want)).all()
+    lo, hi = seg.lo, seg.lo + seg.nseg
+    for name in rewalk_cases.MUTABLE:
+        a, b = getattr(seg, name), getattr(old, name)
+        assert torch.equal(a[:lo], b[:lo]) and torch.equal(a[hi:], b[hi:])
+    off = torch.ones(seg.nseg, dtype=torch.bool)
+    off[seg.cols] = False
+    assert not seg.st_ok[lo:hi][off].any()
+    assert (seg.st_sa[lo:hi][off] == float("inf")).all()
+    assert (seg.st_f[lo:hi][off] == 1.0).all()
+    assert (seg.st_wait[lo:hi][off] == 0.0).all()
+    assert torch.equal(seg.st_sa[lo:hi][seg.cols], seg.sa)
+    cm = torch.zeros(seg.nseg, dtype=torch.float64)
+    cm[seg.eff_cols - lo] = seg.comm + seg.st_wait[seg.eff_cols]
+    assert torch.equal(seg.cm[lo:hi], cm)
+    assert torch.equal(seg.key[lo:hi],
+                       cm + seg.st_sa[lo:hi] * seg.st_f[lo:hi])
+    if seg.deadline is None:
+        assert torch.equal(seg.ok[lo:hi], seg.st_ok[lo:hi])
+    if case == "empty_device":
+        assert got[7:] == [0.0, float("inf")]
+        assert (seg.st_f[lo:hi] == 1.0).all()
+        assert seg.st_ok[lo:hi][seg.cols].all()
+    if case == "infeasible":
+        assert got[:7] == [-1.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0]
+    if case == "capped":
+        assert (seg.st_wait[lo:hi] > 0).any() and got[7] == 1.0
+    if case != "infeasible" and seg.ok.any():
+        assert got[0] >= 0 and seg.ok[int(got[0])]
+
+
+@pytest.mark.parametrize("case", ["dtype", "length", "segment", "plan",
+                                  "tables"])
+def test_rewalk_entry_raises_on_what_it_does_not_take(case):
+    seg, tables = rewalk_cases.segment(torch.device("cpu"), "plain")
+    if case == "dtype":
+        bad, err = seg._replace(maxten=seg.maxten.double()), TypeError
+    elif case == "length":
+        bad, err = seg._replace(comm=seg.comm[:-1].clone()), ValueError
+    elif case == "segment":
+        bad, err = seg._replace(nseg=seg.ok.shape[0] + 1), ValueError
+    elif case == "plan":
+        n = wk.BLOCK_MAX_P + 1
+        big = dict(ok=torch.zeros(n, dtype=torch.bool),
+                   **{k: torch.zeros(n, dtype=torch.float64)
+                      for k in ("cm", "key", "st_sa", "st_f", "st_wait")},
+                   st_ok=torch.zeros(n, dtype=torch.bool))
+        bad, err = seg._replace(**big), ValueError
+    else:
+        bad, err = seg, ValueError
+        tables = (tables[0][:-1].clone(),) + tables[1:]
+    with pytest.raises(err):
+        wk.rewalk_entry(bad, *tables)

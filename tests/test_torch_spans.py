@@ -316,3 +316,94 @@ def test_threaded_walk_nests_under_map_batch(monkeypatch):
     assert s["spans"]["walk.map_batch"]["launches"] == counts[
         "scan_reduce_batch"] > 0
     assert s["outside"]["launches"] == 0
+
+
+# -- the fused re-walk's counter ---------------------------------------------
+def _count_on_the_cpu(monkeypatch) -> tuple:
+    """Make the CPU count what the card counts: every host read through
+    the ``device`` helpers, and one launch for every call of a kernel
+    wrapper (counted as it returns), wherever the program calls them.
+    Returns the wrappers' counter dicts."""
+    from repro_torch.kernels import slowdown_kernel, timeline_kernel, walk_kernel
+    mods = [m for n, m in list(sys.modules.items())
+            if n.startswith("repro_torch") and m is not None]
+
+    def everywhere(fn, new):
+        for m in mods:
+            for attr, v in list(vars(m).items()):
+                if v is fn:
+                    monkeypatch.setattr(m, attr, new)
+
+    for name in ("host_list", "host_item", "host_numpy", "nonzero"):
+        fn = getattr(device, name)
+
+        def read(*a, _fn=fn, **k):
+            device._count_sync()
+            return _fn(*a, **k)
+        everywhere(fn, read)
+    counters = []
+    for mod in (slowdown_kernel, timeline_kernel, walk_kernel):
+        counters.append(mod.launches)
+        for name in mod.launches:
+            fn = getattr(mod, name)
+
+            def launch(*a, _fn=fn, _c=mod.launches, _n=name, **k):
+                out = _fn(*a, **k)
+                build.count_launch(_c, _n)
+                return out
+            everywhere(fn, launch)
+    return counters
+
+
+@pytest.mark.parametrize("case", ["mining-paper.batch", "mining-paper.serve",
+                                  "vr-paper.batch", "min_load",
+                                  "route_false"])
+def test_fused_rewalk_counter(case, monkeypatch):
+    """``walk.rewalks_fused`` counts exactly the re-walks whose entry scan
+    took the fused launch, at most ``walk.rewalks``; it is 0 where the
+    route does not engage (the ``min_load`` objective, entries at the
+    root with ``route=False``); ``launch.rewalk_entry`` opens once per
+    engaged re-walk; and the read and launch closure holds with it (span
+    sums equal the global counters' deltas)."""
+    engaged = [0]
+    real = Torc.Orchestrator._entry_fused
+
+    def entry(self, *a):
+        out = real(self, *a)
+        engaged[0] += out[0]
+        return out
+
+    monkeypatch.setattr(Torc.Orchestrator, "_entry_fused", entry)
+    if case == "min_load":
+        build_orcs = core.build_orchestrators
+        monkeypatch.setattr(core, "build_orchestrators", lambda g, tr: build_orcs(
+            g, tr, config=core.OrcConfig(objective="min_load")))
+    if case == "route_false":
+        real_map = Torc.Orchestrator.map_batch
+        monkeypatch.setattr(
+            Torc.Orchestrator, "map_batch",
+            lambda self, tasks, now=0.0, commit=True, route=False:
+            real_map(self, tasks, now, commit, False))
+    cell = ("mining-paper.batch" if case in ("min_load", "route_false")
+            else case)
+    counters = _count_on_the_cpu(monkeypatch)
+    s0 = device.sync_count()
+    l0 = sum(sum(c.values()) for c in counters)
+    with spans.record() as rec:
+        _iteration(*cell.split("."))
+    syncs = device.sync_count() - s0
+    launches = sum(sum(c.values()) for c in counters) - l0
+    s = rec.summary()
+    c = s["counters"]
+    assert c.get("walk.rewalks_fused", 0) == engaged[0] <= c["walk.rewalks"]
+    if case.startswith("mining"):
+        assert engaged[0] > 0
+    elif case in ("min_load", "route_false"):
+        assert engaged[0] == 0 and c["walk.rewalks"] > 0
+    assert s["spans"].get("launch.rewalk_entry", {}).get("count", 0) \
+        == engaged[0]
+    assert syncs > 0 and launches > 0
+    assert sum(v["self_reads"] for v in s["spans"].values()) \
+        + s["outside"]["reads"] == syncs
+    assert sum(v["self_launches"] for v in s["spans"].values()) \
+        + s["outside"]["launches"] == launches

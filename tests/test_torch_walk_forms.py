@@ -22,9 +22,13 @@ import jax  # noqa: F401
 
 import repro.core as R
 import repro.core.task as Rtask
+import repro.core.workloads as Rwl
+import repro.serve.admission as RA
 import repro_torch.core as T
 import repro_torch.core.orchestrator as Torc
 import repro_torch.core.task as Ttask
+import repro_torch.core.workloads as Twl
+import repro_torch.serve.admission as TA
 from repro_torch import device as Tdevice
 from repro_torch.kernels import build as Tbuild
 from torch_port_util import TOL, mining_counts
@@ -688,3 +692,196 @@ def test_counters_exact_under_concurrent_increments(monkeypatch):
         assert len(builds) == 1 and len({id(x) for x in got}) == 1
     finally:
         sys.setswitchinterval(old)
+
+
+# ---------------------------------------------------------------------------
+# the fused re-walk: a single-device entry scan in one launch
+# ---------------------------------------------------------------------------
+def _fused_route(monkeypatch, off: bool) -> dict:
+    """Count the port's fused re-walk entries (and those that found no
+    winner); with ``off`` the route is taken away, so every re-walk walks
+    the two-step path."""
+    seen = {"engaged": 0, "empty": 0}
+    real = Torc.Orchestrator._entry_fused
+
+    def entry(self, task, now, ctx):
+        out = (False, None) if off else real(self, task, now, ctx)
+        if out[0]:
+            seen["engaged"] += 1
+            seen["empty"] += out[1] is None
+        return out
+
+    monkeypatch.setattr(Torc.Orchestrator, "_entry_fused", entry)
+    return seen
+
+
+def _serving(pkg, monkeypatch, mode):
+    """Mining readings (svm, knn, mlp from one edge) served on arrival by
+    a ServeLoop: each request its own wave through the resident context,
+    its second and third task re-walked, the clock moving between
+    waves."""
+    _env(monkeypatch, mode)
+    wl = (Rwl if pkg is R else Twl)
+    adm = (RA if pkg is R else TA)
+    tb = _tb(pkg)
+    g = tb.graph
+    ten = []
+    for i, edge in enumerate(tb.edges[:4]):
+        def make(rid, t, edge=edge):
+            cfg = pkg.TaskGraph(f"reading#{rid}")
+            wl.mining_reading(cfg, edge, 0, 0)
+            for task in cfg.tasks:
+                task.release_time = t
+            return cfg
+        ten.append(pkg.TenantSpec(f"s{i}", _Instants(
+            [0.004 * i + 0.1 * k for k in range(3)]), make))
+    root = pkg.build_orchestrators(g, pkg.heye_traverser(g))
+    loop = pkg.ServeLoop(g, root, ten, admission=adm.admit_all(),
+                         horizon=0.4)
+    st = loop.run()
+    rows = [[(r.rid, r.verdict, t.assigned_pu) for t in r.tasks]
+            for r in sorted(st.requests, key=lambda r: r.rid)]
+    return rows, root
+
+
+class _Instants:
+    def __init__(self, t):
+        self.t = np.asarray(t, dtype=np.float64)
+
+    def times(self, horizon):
+        return self.t[self.t < horizon]
+
+
+def _crowd(n):
+    """``n`` equal mlp tasks from one orin_nano: the first commits fill
+    the nano until its entry scan finds no PU and the rest escalate."""
+    return lambda pkg, tb: [[pkg.make_task("mlp", origin=_nano(tb),
+                                           deadline=0.05)
+                             for _ in range(n)]]
+
+
+def _direct(pkg, monkeypatch, mode, at_cluster: bool):
+    """Mining readings mapped by ``map_batch`` with ``route=False``: at
+    the root, or at the first cluster ORC (its own tasks): the entry
+    plan covers several devices."""
+    _env(monkeypatch, mode)
+    tb = _tb(pkg)
+    g = tb.graph
+    root = pkg.build_orchestrators(g, pkg.heye_traverser(g))
+    orc = root.children[0] if at_cluster else root
+    edges = [o.group for o in orc.iter_tree() if o.is_device_orc()
+             and o.group in tb.edges] or list(tb.edges)
+    out = []
+    for w in range(3):
+        cfg = pkg.TaskGraph("wave")
+        for s, edge in enumerate(edges[:3]):
+            (Rwl if pkg is R else Twl).mining_reading(cfg, edge, s, w)
+        out.append(_rows(dict(zip([t.uid for t in cfg.tasks],
+                                  orc.map_batch(cfg.tasks, now=0.1 * w)))))
+    return out, orc
+
+
+def _contention_blind(pkg, monkeypatch, mode):
+    """Mining readings placed through a contention-blind traverser (no
+    slowdown model), whose model offers no fused re-walk."""
+    monkeypatch.setattr(pkg, "heye_traverser", lambda g: pkg.Traverser(
+        g, slowdown=pkg.NoSlowdown(g)))
+    return _run(pkg, monkeypatch, mode, _mining(18, readings=2))
+
+
+FUSED_CASES = {
+    # case: (how it runs in a walk form, its form, whether the fused route
+    # must engage, must one entry find no winner)
+    "mining_batch": (lambda pkg, mp, m: _run(pkg, mp, m,
+                                             _mining(18, readings=2)),
+                     "fused", True, False),
+    "mining_batch_sharded": (lambda pkg, mp, m: _run(
+        pkg, mp, m, _mining(18, readings=2)), "sharded", True, False),
+    "mining_serve": (_serving, "sharded", True, False),
+    "vr": (lambda pkg, mp, m: _run(pkg, mp, m, _vr(3)), "sharded", None,
+           False),
+    "escalate": (lambda pkg, mp, m: _run(pkg, mp, m, _crowd(12)), "fused",
+                 True, True),
+    "min_load": (lambda pkg, mp, m: _run(pkg, mp, m,
+                                         _mining(18, readings=2),
+                                         config={"objective": "min_load"}),
+                 "fused", False, False),
+    "route_false": (lambda pkg, mp, m: _direct(pkg, mp, m, False), "fused",
+                    False, False),
+    "cluster_entry": (lambda pkg, mp, m: _direct(pkg, mp, m, True), "fused",
+                      False, False),
+    "no_slowdown": (_contention_blind, "fused", False, False),
+}
+
+
+def _walk_state(owner) -> tuple:
+    """The resident walk context's scan states and effective-column
+    entries, in insertion order, plans named by their ORC."""
+    ctx = owner._resident_ctx
+    root = owner
+    while root.parent is not None:
+        root = root.parent
+    names = {}
+    for o in root.iter_tree():
+        if o._plan_cache is not None:
+            names[id(o._plan_cache[1].pus)] = ("scan", o.group)
+        if o._child_cache is not None:
+            names[id(o._child_cache[1].pus)] = ("child", o.group)
+    order = {id(st): i for i, st in enumerate(ctx.scan_states.values())}
+    states = [(core, names[pid], st.ok.tolist(), st.sa.tolist(),
+               st.f.tolist(), st.wait.tolist(), st.stamps, st.expiry,
+               st.refresh_log, st.log_pos, st.now, st.epoch)
+              for (core, pid), st in ctx.scan_states.items()]
+    effs = [(sig, names[pid], order[id(e.st)], e.pos, e.rpos, e.ok.tolist(),
+             e.cm.tolist(), e.key.tolist())
+            for (sig, pid), e in ctx.eff_cache.items()]
+    return states, effs
+
+
+@pytest.mark.parametrize("case", sorted(FUSED_CASES))
+def test_fused_rewalk_matches_the_two_step_path(monkeypatch, case):
+    """A re-walk whose entry plan covers one device, with a scan state
+    current but for that device, runs its entry scan as one launch (on
+    the CPU, its plain form): the same MapResults (pu, prediction,
+    overhead, queries, hops) as the two-step path, bit for bit, the same
+    scan-state columns, stamps, expiry, journal positions and
+    effective-column entries left behind, and decisions equal to Alg. 1
+    run task by task (the port's object walk, ``REPRO_FUSED_WALK=0``) and
+    to the reference's.  It engages on no other shape: the ``min_load``
+    objective, entry plans over several devices (``route=False``, at the
+    root or a cluster ORC), a slowdown model without the route."""
+    drive, mode, engages, empty = FUSED_CASES[case]
+    results = {}
+    for off in (False, True):
+        seen = _fused_route(monkeypatch, off)
+        recorded = []
+        real = Torc.Orchestrator.map_batch
+
+        def map_batch(self, *a, **k):
+            out = real(self, *a, **k)
+            recorded.append([None if r is None else
+                             (r.pu, r.prediction.standalone,
+                              r.prediction.factor, r.prediction.comm,
+                              r.overhead, r.queries, r.hops) for r in out])
+            return out
+
+        monkeypatch.setattr(Torc.Orchestrator, "map_batch", map_batch)
+        rows, owner = drive(T, monkeypatch, mode)
+        monkeypatch.setattr(Torc.Orchestrator, "map_batch", real)
+        results[off] = (rows, recorded, _walk_state(owner), dict(seen))
+    fused, two_step = results[False], results[True]
+    assert fused[0] == two_step[0]
+    assert fused[1] == two_step[1] and fused[1]
+    assert fused[2] == two_step[2]
+    assert two_step[3]["engaged"] == 0
+    if engages is not None:
+        assert (fused[3]["engaged"] > 0) == engages, fused[3]
+    if empty:
+        assert fused[3]["empty"] > 0
+    ref, _ = drive(R, monkeypatch, mode)
+    oracle, _ = drive(T, monkeypatch, "oracle")
+    if case == "mining_serve":
+        assert fused[0] == ref == oracle
+    else:
+        _assert_close(fused[0], ref)
+        _assert_close(oracle, fused[0])
