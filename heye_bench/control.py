@@ -37,11 +37,7 @@ def main() -> int:
     sys.path[:0] = [str(ROOT)]
     from heye_bench import check, workload
     bench = json.loads((ROOT / "BENCHMARK.json").read_text())
-    cell = {w["name"]: w for w in bench["workloads"]}[args.workload]
-    conf = {c["name"]: c for c in bench["configs"]}[cell["config"]]
-    cfg = json.loads((ROOT / conf["file"]).read_text())
-    traffic = json.loads((ROOT / "heye_bench" / "traffic"
-                          / f"{cell['traffic']}.json").read_text())
+    _, cfg, traffic = workload.cell_files(ROOT, bench, args.workload)
     for seed in args.seeds:
         t = time.perf_counter()
         numbers = control_numbers(cfg, traffic,

@@ -9,7 +9,9 @@ its arrival and noise seeds from the run's seed and ``i``.  The
 window's iterations are never traced: with ``--trace 1`` the per-layer
 metrics of the host's clock and the program's counters are taken over
 them, and one more iteration after the window carries the launch
-recorder and the device trace.
+recorder, the device trace and the program's own span recorder
+(``repro_torch.spans``), whose summary the readers find under
+``reading["program"]``.
 """
 from __future__ import annotations
 
@@ -181,7 +183,8 @@ def run_cell(bench: dict, cell: str, cfg: dict, traffic: dict, seed: int,
                "phase_wall": dict(prog.phase_wall),
                "launches": launches() - launches0,
                "syncs": rt_device.sync_count() - syncs0,
-               "window_s": 0.0, "busy_s": 0.0, "roofline": (0.0, 0.0)}
+               "window_s": 0.0, "busy_s": 0.0, "roofline": (0.0, 0.0),
+               "program": None}
     e2e = mode.end_to_end(prog, window_s)
     e2e["setup_s"] = setup_s
     log(f"set-up {setup_s:.3f} s: " + ", ".join(
@@ -208,11 +211,19 @@ def run_cell(bench: dict, cell: str, cfg: dict, traffic: dict, seed: int,
         if dev.type == "cuda":
             from .trace import Window
             win = Window()
-        tracer = Tracer([rec, win])
+        try:
+            from repro_torch import spans
+            prec = spans.record()
+        except ImportError:     # a tree without the program's recorder
+            prec = None
+        # the program's recorder opens last and closes first
+        tracer = Tracer([rec, win, prec])
         prog.traced(workload.iteration_seeds(seed, len(times)), tracer)
         if tracer.state != "closed":
             raise RuntimeError("the traced window never opened")
         reading["roofline"] = (rec.least_seconds(), 0.0)
+        if prec is not None:
+            reading["program"] = program_reading(prec)
         if win is not None:
             reading.update(window_s=win.window_s, busy_s=win.busy_s(),
                            roofline=(reading["roofline"][0],
@@ -221,14 +232,17 @@ def run_cell(bench: dict, cell: str, cfg: dict, traffic: dict, seed: int,
                 f"stop {win.stop_s:.2f} s, read {win.read_s:.2f} s")
             result["device"]["busy_s"] = reading["busy_s"]
             result["device"]["window_s"] = reading["window_s"]
+            named = list(prog.spans)
+            if prec is not None:
+                named += [(sp.start, sp.end, sp.name) for sp in prec.spans]
             result["breakdown"] = {
                 "device_ops": win.top_ops(),
-                "idle_gaps": win.idle_by_span(prog.spans, "between")}
+                "idle_gaps": win.idle_by_span(named, "between")}
         for m in cell_metrics(bench, cell, "per_layer"):
             v = load_metric(m["name"]).read(reading)
             if v is not None:
                 result["metrics"][m["name"]] = {"value": v, "unit": m["unit"]}
-        del rec, win, tracer
+        del rec, win, tracer, prec
     else:
         for m in cell_metrics(bench, cell, "end_to_end"):
             result["metrics"][m["name"]] = {"value": e2e[m["name"]],
@@ -257,6 +271,29 @@ def run_cell(bench: dict, cell: str, cfg: dict, traffic: dict, seed: int,
         log(f"{name} {c['value']!r} (limit {c['limit']!r})")
     log(f"correct {result['correct']}")
     return result
+
+
+def program_reading(rec) -> dict:
+    """The program's recorder after it closed: its summary, and under
+    ``layers``, per layer (a span name's part before its first dot), the
+    count, seconds, reads and launches of its outermost spans, those with
+    no enclosing span of the same layer, their descendants' included."""
+    out = rec.summary()
+    layers: dict = {}
+    for sp, t in zip(rec.spans, rec.totals()):
+        layer = sp.name.split(".")[0]
+        p = sp.parent
+        while p is not None and p.name.split(".")[0] != layer:
+            p = p.parent
+        if p is None:
+            e = layers.setdefault(layer, dict.fromkeys(
+                ("count", "total_s", "reads", "launches"), 0))
+            e["count"] += 1
+            e["total_s"] += t["seconds"]
+            e["reads"] += t["reads"]
+            e["launches"] += t["launches"]
+    out["layers"] = layers
+    return out
 
 
 def _span_sums(spans: list) -> dict:

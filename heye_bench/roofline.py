@@ -106,6 +106,24 @@ def scan_cost(P: int, Nn: int, rows, meta: bool) -> tuple:
             2 * P + 6 * Nn)
 
 
+def rewalk_cost(seg, R: int) -> tuple:
+    """The fused re-walk over one device's segment: each input read once
+    (the candidates' five columns, the signature's two, the device's
+    eight ledger columns and its segment's start and length, the class
+    table over every (candidate or active, active) pair, mt-beta and the
+    memory cap of each candidate's and active's PU, beta, the plan's six
+    node columns, ``ok`` and ``key`` off the segment, the winner's three
+    columns) and each output written once (the scan state's four columns
+    and the effective three over the segment, the nine values); per
+    candidate and per candidate-active pair ``5 R + 4`` operations."""
+    C, C2, A = seg.Pc.shape[0], seg.eff_cols.shape[0], seg.Pa.shape[0]
+    n, P = seg.nseg, seg.ok.shape[0]
+    nbytes = (40 * C + 16 * C2 + 64 * A + 16 + 2 * (C * A + A * A)
+              + 16 * (C + A) + 8 * R + 48 * seg.plan.n + 9 * (P - n) + 24
+              + 42 * n + 72)
+    return nbytes, (C + C * A) * (5 * R + 4)
+
+
 # kernel wrapper name -> (the traced kernel names' common part, a function
 # of (positional arguments, result) giving (bytes, operations))
 KERNELS = {
@@ -131,6 +149,8 @@ KERNELS = {
         lambda a, r: scan_cost(int(np.asarray(a[6]).reshape(-1, 4)[:, 1].sum()),
                                int(np.asarray(a[6]).reshape(-1, 4)[:, 3].sum()),
                                r, True)),
+    "rewalk_entry": ("rewalk_entry_kernel",
+                     lambda a, r: rewalk_cost(a[0], a[2].shape[0])),
 }
 # the grid form of a scan runs under names of its own
 GRID_KERNELS = ("big_words_kernel", "big_nodes_kernel", "big_blocks_kernel",

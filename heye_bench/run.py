@@ -44,15 +44,12 @@ def main() -> int:
     args = ap.parse_args()
 
     bench = json.loads((ROOT / "BENCHMARK.json").read_text())
-    cells = {w["name"]: w for w in bench["workloads"]}
-    if args.workload not in cells:
+    if args.workload not in {w["name"] for w in bench["workloads"]}:
         print(f"no cell {args.workload!r} in BENCHMARK.json", file=sys.stderr)
         return 2
-    cell = cells[args.workload]
-    conf = {c["name"]: c for c in bench["configs"]}[cell["config"]]
-    cfg = json.loads((ROOT / conf["file"]).read_text())
-    traffic = json.loads((ROOT / "heye_bench" / "traffic"
-                          / f"{cell['traffic']}.json").read_text())
+    sys.path[:0] = [str(ROOT / "src"), str(ROOT)]
+    from heye_bench import workload
+    cell, cfg, traffic = workload.cell_files(ROOT, bench, args.workload)
 
     # every build and kernel cache of the program inside the checkout
     cache = ROOT / "build" / "heye_bench"
@@ -64,7 +61,6 @@ def main() -> int:
         print(f"{args.workload} needs {cell['chips']} CUDA device(s); "
               f"found {torch.cuda.device_count()}", file=sys.stderr)
         return 2
-    sys.path[:0] = [str(ROOT / "src"), str(ROOT)]
     from heye_bench import harness
 
     def log(msg: str) -> None:

@@ -1,8 +1,9 @@
-"""The port's benchmark harness on the CPU, at a tiny fleet: every traffic
-mix through the program and the reference, every per-layer metric's
-arithmetic, the control and the planted faults that the check must
-catch, the frozen kernel byte counts, the names in BENCHMARK.json, and
-the run without a card."""
+"""The port's benchmark harness on the CPU, at each cell's tiny twin (the
+``tiny`` overrides in its configuration and traffic files): every
+traffic mix through the program and the reference, every per-layer
+metric's arithmetic, the control and the planted faults that the check
+must catch, the frozen kernel byte counts, the names in BENCHMARK.json,
+a configuration added by files alone, and the run without a card."""
 from __future__ import annotations
 
 import ast
@@ -28,33 +29,26 @@ from heye_bench import (check, control, harness, roofline,  # noqa: E402
 from heye_bench.reference import scheduler  # noqa: E402
 
 BENCH = json.loads((ROOT / "BENCHMARK.json").read_text())
-# the configurations' tiny twins: the mining fleet at an eighth of the
-# paper's (13 devices, 12 sensors, two readings or two periods) and the VR
-# testbed at 4 frames
-TINY = {
-    "mining-paper": {"deployment": {
-        "edge_counts": {"orin_agx": 3, "xavier_agx": 3, "orin_nano": 2,
-                        "xavier_nx": 2},
-        "server_counts": {"server1": 1, "server2": 1, "server3": 1}},
-        "application": {"sensors": 12, "readings": 2}},
-    "vr-paper": {"application": {"frames": 4}},
-}
 
 
-def tiny(cell: str) -> tuple:
-    w = {c["name"]: c for c in BENCH["workloads"]}[cell]
-    conf = {c["name"]: c for c in BENCH["configs"]}[w["config"]]
-    cfg = json.loads((ROOT / conf["file"]).read_text())
-    for key, v in copy.deepcopy(TINY[w["config"]]).items():
+def twin(cfg: dict, traffic: dict) -> tuple:
+    """A configuration and a traffic mix with their ``tiny`` overrides
+    applied: the configuration's ``deployment`` replaced and its
+    ``application`` updated, the traffic's keys updated."""
+    cfg, traffic = copy.deepcopy(cfg), copy.deepcopy(traffic)
+    for key, v in cfg.pop("tiny").items():
         if key == "application":
             cfg[key].update(v)
         else:
             cfg[key] = v
-    traffic = json.loads((BENCH_DIR / "traffic"
-                          / f"{w['traffic']}.json").read_text())
-    if traffic["mode"] == "serve":
-        traffic["horizon_periods"] = 2
+    traffic.update(traffic.pop("tiny"))
     return cfg, traffic
+
+
+def tiny(cell: str, bench: dict = BENCH, root: Path = ROOT) -> tuple:
+    """The cell's CPU twin, from its files under ``root``."""
+    _, cfg, traffic = workload.cell_files(root, bench, cell)
+    return twin(cfg, traffic)
 
 
 @pytest.fixture(autouse=True)
@@ -65,11 +59,11 @@ def _one_thread():
     torch.set_num_threads(n)
 
 
-def run(cell: str, seed: int = 7, trace: bool = False, cfg=None,
-        traffic=None) -> dict:
-    c, t = tiny(cell)
-    return harness.run_cell(BENCH, cell, cfg or c, traffic or t, seed, 0.0,
-                            trace, "cpu", 0.0, log=lambda m: None)
+def run(cell: str, seed: int = 7, trace: bool = False,
+        bench: dict = BENCH, root: Path = ROOT) -> dict:
+    cfg, traffic = tiny(cell, bench, root)
+    return harness.run_cell(bench, cell, cfg, traffic, seed, 0.0, trace,
+                            "cpu", 0.0, log=lambda m: None)
 
 
 CELLS = [w["name"] for w in BENCH["workloads"]]
@@ -199,17 +193,21 @@ def _alter_finish(monkeypatch):
     from repro_torch.core import session, timeline
     orig = timeline.TimelineEngine.finish_of
     orig_exec = session.SchedulerSession.execute
+    orig_final = session.SchedulerSession.finalize_online
 
     def off(self, uid):
         v = orig(self, uid)
         return v * (1 + 1e-9) if uid == min(self.slot_of) else v
 
-    def off_exec(self):
-        stats = orig_exec(self)
+    def off_stats(stats):
         stats.timeline.finish[min(stats.timeline.finish)] *= 1 + 1e-9
         return stats
     monkeypatch.setattr(timeline.TimelineEngine, "finish_of", off)
-    monkeypatch.setattr(session.SchedulerSession, "execute", off_exec)
+    monkeypatch.setattr(session.SchedulerSession, "execute",
+                        lambda self: off_stats(orig_exec(self)))
+    monkeypatch.setattr(session.SchedulerSession, "finalize_online",
+                        lambda self, *a, **k: off_stats(
+                            orig_final(self, *a, **k)))
 
 
 FAULTS = {"state_unchanged": _break_commit, "half_left_out": _drop_half,
@@ -227,6 +225,175 @@ def test_planted_fault_fails_the_check(cell, fault, monkeypatch):
     assert not res["correct"], res["checks"]
 
 
+CHURN_CELLS = [c for c in CELLS
+               if workload.cell_files(ROOT, BENCH, c)[2]["mode"] == "churn"]
+
+
+@pytest.mark.parametrize("cell", CHURN_CELLS)
+def test_churn_never_reaching_the_program_fails_the_check(cell, monkeypatch):
+    """A churn batch that never reaches the program (``churn`` a no-op):
+    the program maps and executes on nominal uplinks while the reference
+    follows the schedule, and ``correct`` comes out false."""
+    from repro_torch.core import session
+    monkeypatch.setattr(session.SchedulerSession, "churn",
+                        lambda self, *a, **k: None)
+    res = run(cell, seed=13)
+    assert not res["correct"], res["checks"]
+    assert res["checks"]["inputs_differ"]["value"] > 0
+
+
+def test_churn_schedule_recovers_then_degrades():
+    """Each batch first returns the previous batch's degraded uplinks to
+    nominal, then drops a fresh quarter of them to 5-50 % of nominal; the
+    seed moves which uplinks and how far, never how many."""
+    mode = workload.load("modes", "churn")
+    cfg, traffic = tiny("mining-paper.bwchurn")
+    full = json.loads((BENCH_DIR / "traffic" / "bwchurn.json").read_text())
+    nom = mode.nominal(json.loads(
+        (BENCH_DIR / "configs" / "mining-paper.json").read_text()))
+    assert len(nom) == 80 and len(set(nom)) == 1
+    draws = [mode.schedule(full, workload.iteration_seeds(s, 0), nom)
+             for s in (3, 2**40 + 1)]
+    assert draws[0] != draws[1]
+    for sched in draws:
+        assert len(sched) == 8
+        prev: list = []
+        for batch in sched:
+            back = batch[:len(prev)]
+            assert back == [(e, nom[e]) for e in prev]
+            down = batch[len(prev):]
+            assert len(down) == 20 and len({e for e, _ in down}) == 20
+            assert all(0.05 * nom[e] <= bw <= 0.5 * nom[e] for e, bw in down)
+            prev = [e for e, _ in down]
+    assert len(mode.schedule(traffic, [1, 2], mode.nominal(cfg))) == 2
+
+
+def test_every_cell_file_has_a_tiny_twin():
+    """The tests run each cell on its configuration's and traffic mix's
+    ``tiny`` overrides; a file without them is named here."""
+    missing = set()
+    for w in BENCH["workloads"]:
+        conf = {c["name"]: c for c in BENCH["configs"]}[w["config"]]
+        for path in (ROOT / conf["file"],
+                     BENCH_DIR / "traffic" / f"{w['traffic']}.json"):
+            if not isinstance(json.loads(path.read_text()).get("tiny"), dict):
+                missing.add(str(path.relative_to(ROOT)))
+    assert not missing, f"no tiny object in {sorted(missing)}"
+
+
+def test_a_configuration_added_by_files_alone(tmp_path):
+    """A configuration copied under a new name, with a BENCHMARK.json that
+    lists it and a cell on it, runs through the program and the reference
+    on its CPU twin, with no edit to this file."""
+    (tmp_path / "heye_bench" / "configs").mkdir(parents=True)
+    (tmp_path / "heye_bench" / "traffic").mkdir()
+    cfg = json.loads((BENCH_DIR / "configs" / "mining-paper.json")
+                     .read_text())
+    cfg["name"] = "mining-copy"
+    (tmp_path / "heye_bench" / "configs" / "mining-copy.json").write_text(
+        json.dumps(cfg))
+    (tmp_path / "heye_bench" / "traffic" / "batch.json").write_text(
+        (BENCH_DIR / "traffic" / "batch.json").read_text())
+    bench = copy.deepcopy(BENCH)
+    bench["configs"] = [{"name": "mining-copy", "source": cfg["source"],
+                         "file": "heye_bench/configs/mining-copy.json",
+                         "reduced": [], "why": "a copy"}]
+    bench["workloads"] = [{"name": "mining-copy.batch",
+                           "config": "mining-copy", "traffic": "batch",
+                           "chips": 1, "why": "a copy"}]
+    for m in bench["end_to_end"] + bench["per_layer"]:
+        if "workloads" in m:
+            m["workloads"] = ["mining-copy.batch"]
+    (tmp_path / "BENCHMARK.json").write_text(json.dumps(bench))
+    bench = json.loads((tmp_path / "BENCHMARK.json").read_text())
+    got, want = tiny("mining-copy.batch", bench, tmp_path), \
+        tiny("mining-paper.batch")
+    assert got == ({**want[0], "name": "mining-copy"}, want[1])
+    res = run("mining-copy.batch", trace=True, bench=bench, root=tmp_path)
+    assert res["correct"], res["checks"]
+    assert res["attempted"] == 72 and "walk_syncs_per_task.batch" in \
+        res["metrics"]
+
+
+def _summary(walk_reads: int, des_reads: int, tasks: int,
+             requests: int) -> dict:
+    return {"spans": {"walk.map_batch": {"reads": walk_reads},
+                      "des.flush": {"reads": 7}},
+            "layers": {"des": {"reads": des_reads}},
+            "counters": {"walk.tasks": tasks},
+            "work": {"tasks": tasks, "requests": requests}}
+
+
+def test_program_span_metric_arithmetic():
+    """The readers of the program's spans on a hand-made reading: walk
+    reads inside ``walk.map_batch``, DES reads inside the outermost
+    ``des.*`` spans, per ``walk.tasks`` and per decided request; nothing
+    where the tree records no spans or the work is nil.  The churn
+    reader: the ``churn`` span per wave."""
+    r = {"work": 10, "spans": {"churn": 0.04}, "phase_wall": {"waves": 8},
+         "program": _summary(540, 1185, 300, 50)}
+    want = {"walk_syncs_per_task.batch": 1.8,
+            "des_syncs_per_task.bwchurn": 3.95,
+            "walk_syncs_per_request.serve": 10.8,
+            "des_syncs_per_request.serve": 23.7,
+            "churn_ms_per_wave.bwchurn": 5.0}
+    for name, v in want.items():
+        assert harness.load_metric(name).read(r) == pytest.approx(v)
+    for p in (None, _summary(5, 5, 0, 0)):
+        r["program"] = p
+        for name in want:
+            if not name.startswith("churn"):
+                assert harness.load_metric(name).read(r) is None, name
+    r["phase_wall"] = {}
+    assert harness.load_metric("churn_ms_per_wave.x").read(r) is None
+
+
+def test_program_reading_counts_each_layers_reads_once():
+    """A layer's reads are those of its outermost spans, their
+    descendants' included: a ``des.flush`` inside ``des.advance`` is not
+    counted again, one outside it is."""
+    from repro_torch import spans
+    with spans.record() as rec:
+        top = spans.enter("session.execute")
+        adv = spans.enter("des.advance")
+        spans.count_read()
+        fl = spans.enter("des.flush")
+        la = spans.enter("launch.settle_reprice")
+        spans.count_read()
+        spans.count_launch()
+        spans.leave(la)
+        spans.leave(fl)
+        spans.leave(adv)
+        fl = spans.enter("des.flush")
+        spans.count_read()
+        spans.leave(fl)
+        spans.count_read()
+        spans.leave(top)
+        spans.add("walk.tasks", 4)
+    p = harness.program_reading(rec)
+    assert p["layers"]["des"] == {"count": 2, "total_s": pytest.approx(
+        p["spans"]["des.advance"]["total_s"] + rec.totals()[4]["seconds"]),
+        "reads": 3, "launches": 1}
+    assert p["layers"]["session"]["reads"] == 4
+    assert p["layers"]["launch"]["reads"] == 1
+    assert p["spans"]["des.flush"]["reads"] == 2
+    assert harness.load_metric("des_syncs_per_task.x").read(
+        {"program": p}) == pytest.approx(0.75)
+
+
+def test_idle_gaps_go_to_the_innermost_span():
+    from heye_bench.trace import Window
+    w = Window.__new__(Window)
+    w.host0, w.window_s = 0.0, 10.0
+    w.events = [(1.0, 2.0, "k"), (4.0, 5.0, "k"), (8.0, 9.0, "k")]
+    spans = [(7.5, 9.2, "map_pending"), (0.0, 7.0, "execute"),
+             (0.4, 6.0, "des.advance"), (2.5, 3.5, "des.flush")]
+    # gaps (0, 1), (2, 4), (5, 8), (9, 10), read at their middles
+    assert dict(w.idle_by_span(spans, "between")) == pytest.approx(
+        {"des.advance": 1.0, "des.flush": 2.0, "execute": 3.0,
+         "between": 1.0})
+
+
 def test_frozen_byte_counts():
     """The kernel table's bound_ms for B1's row form at N=4223 R=6 and for
     B4 at P=8448 (1408 plan nodes, one feasible scan)."""
@@ -237,6 +404,21 @@ def test_frozen_byte_counts():
     nb, ops = roofline.scan_cost(8448, 1408, rows, False)
     assert roofline.least_seconds(nb, ops) * 1e3 == pytest.approx(
         0.0000429, rel=5e-3)
+
+
+def test_frozen_rewalk_byte_count():
+    """The kernel table's bound_ms for the fused re-walk at a mining
+    re-walk's median segment: C=3 candidates against A=6 actives on a
+    6-PU plan of 2 nodes, R=6: 1312 bytes."""
+    from types import SimpleNamespace
+    z = torch.zeros
+    seg = SimpleNamespace(Pc=z(3), eff_cols=z(3), Pa=z(6), nseg=6, ok=z(6),
+                          plan=SimpleNamespace(n=2))
+    nb, ops = roofline.rewalk_cost(seg, 6)
+    assert (nb, ops) == (1312, 714)
+    assert roofline.least_seconds(nb, ops) * 1e3 == pytest.approx(
+        0.000000392, rel=5e-3)
+    assert roofline.is_port_kernel("void rewalk_entry_kernel<Acc>(RwArgs)")
 
 
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")

@@ -5,7 +5,8 @@ The profiler stamps events in Unix-epoch nanoseconds; the window notes
 ``time.time_ns()`` beside ``time.perf_counter()`` as it opens, which puts
 each device operation on the clock of the harness's spans.  Busy time is
 the union of the device operations' intervals within the window; each
-idle gap is named by the harness's span open on the host at its middle.
+idle gap is named by the innermost span, the harness's or the program's,
+open on the host at its middle.
 """
 from __future__ import annotations
 
@@ -87,9 +88,10 @@ class Window:
                       key=lambda x: -x[1])[:k]
 
     def idle_by_span(self, spans: list, default: str, k: int = 10) -> list:
-        """Idle seconds per host span name (``spans``: (start, end, name)
-        on the host's clock, in start order; outside any span is
-        ``default``), the largest first."""
+        """Idle seconds per host span name, the largest first: each gap
+        goes to the innermost of ``spans`` ((start, end, name) on the
+        host's clock, nested or apart) open at its middle, or to
+        ``default`` outside them all."""
         iv = self.busy()
         start = self.host0
         stop = self.host0 + self.window_s
@@ -101,18 +103,19 @@ class Window:
             prev = max(prev, e)
         if stop > prev:
             gaps.append((prev, stop))
+        order = sorted(spans, key=lambda sp: (sp[0], -sp[1]))
         by = defaultdict(float)
-        j = 0
+        open_, j = [], 0
         for a, b in gaps:
             mid = 0.5 * (a + b)
-            while j < len(spans) and spans[j][1] < mid:
+            while j < len(order) and order[j][0] <= mid:
+                while open_ and open_[-1][1] < order[j][0]:
+                    open_.pop()
+                open_.append(order[j])
                 j += 1
-            name = default
-            for sp in spans[j:j + 3]:
-                if sp[0] <= mid <= sp[1]:
-                    name = sp[2]
-                    break
-            by[name] += b - a
+            while open_ and open_[-1][1] < mid:
+                open_.pop()
+            by[open_[-1][2] if open_ else default] += b - a
         return sorted(([n, v] for n, v in by.items()),
                       key=lambda x: -x[1])[:k]
 

@@ -15,10 +15,14 @@ gives, one file each, so that a new kind is a new file:
   instants at which each source sends;
 * ``metrics/<stem>.py`` — a per-layer metric ``<stem>.<suffix>``: its
   reader.
+
+Each configuration and traffic file also holds its CPU twin, a ``tiny``
+object of overrides that only the tests apply; the runs never read it.
 """
 from __future__ import annotations
 
 import importlib.util
+import json
 from pathlib import Path
 
 import numpy as np
@@ -42,6 +46,17 @@ def load(kind: str, name: str):
         spec.loader.exec_module(mod)
         _LOADED[key] = mod
     return _LOADED[key]
+
+
+def cell_files(root: Path, bench: dict, cell: str) -> tuple:
+    """The cell's entry in ``bench``, and its configuration and traffic
+    mix as read from their files under the checkout ``root``."""
+    w = {c["name"]: c for c in bench["workloads"]}[cell]
+    conf = {c["name"]: c for c in bench["configs"]}[w["config"]]
+    cfg = json.loads((root / conf["file"]).read_text())
+    traffic = json.loads((root / "heye_bench" / "traffic"
+                          / f"{w['traffic']}.json").read_text())
+    return w, cfg, traffic
 
 
 def iteration_seeds(seed: int, index: int) -> list:
