@@ -30,7 +30,7 @@ from typing import Callable, Optional
 
 import numpy as np
 
-from .fleet import Fleet, Task, nearest_shared, profile_ms, MS
+from .fleet import Fleet, Task, nearest_shared
 
 RCLASSES = ("l2", "l3", "llc", "sram", "dram", "hbm", "vmem", "nic")
 BETA = {"l2": 0.0884, "l3": 0.1330, "llc": 0.1107, "sram": 0.1786,
@@ -73,9 +73,9 @@ class Model:
         arr = self._sa.get(kind)
         if arr is None:
             vals = []
-            for p in self.fl.pus:
-                ms = profile_ms(kind, self.fl.devices[p.device].kind, p.short)
-                vals.append(np.nan if ms is None else self.rnd(ms * MS * 1.0))
+            for pu in range(len(self.fl.pus)):
+                s = self.fl.standalone_s(kind, pu)
+                vals.append(np.nan if s is None else self.rnd(s))
             arr = self._sa[kind] = np.array(vals)
         return arr
 
@@ -179,14 +179,14 @@ class Result:
 
 
 class Walker:
-    """Alg. 1 over the fleet's orchestrator tree: the root, one cluster
-    of edges and one of servers, a device orchestrator per device."""
+    """Alg. 1 over the fleet's orchestrator tree: the root, the fleet's
+    clusters in the order of the program's root children, a device
+    orchestrator per device."""
 
     def __init__(self, model: Model, ledger: Ledger) -> None:
         self.m = model
         self.led = ledger
-        fl = model.fl
-        self.clusters = [list(fl.edges), list(fl.servers)]
+        self.clusters = [list(c) for c in model.fl.clusters]
         self.cluster_of = {}
         for c, devs in enumerate(self.clusters):
             for d in devs:

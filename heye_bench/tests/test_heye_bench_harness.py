@@ -8,8 +8,10 @@ from __future__ import annotations
 
 import ast
 import copy
+import importlib.util
 import json
 import math
+import os
 import re
 import subprocess
 import sys
@@ -506,3 +508,186 @@ def test_iteration_seeds_take_large_seeds():
     a = workload.iteration_seeds(2**40 + 3, 0)
     assert a != workload.iteration_seeds(2**40 + 3, 1)
     assert all(0 <= s < 2**32 for s in a)
+
+
+# -- topologies --------------------------------------------------------------
+STREAMS = BENCH_DIR / "tests" / "tpu-streams.json"
+
+
+@pytest.fixture
+def streams(monkeypatch):
+    """The test-side application ``streams`` (``tests/stream_app.py``),
+    registered as ``apps/streams.py`` would be."""
+    spec = importlib.util.spec_from_file_location(
+        "heye_bench.apps.streams", BENCH_DIR / "tests" / "stream_app.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    monkeypatch.setitem(workload._LOADED, ("apps", "streams"), mod)
+    return mod
+
+
+def _tiny_config(name: str) -> dict:
+    path = STREAMS if name == "tpu-streams" else \
+        BENCH_DIR / "configs" / f"{name}.json"
+    return twin(json.loads(path.read_text()), {"tiny": {}})[0]
+
+
+def test_default_topology_is_edge_server():
+    """Without ``deployment.topology`` a configuration is the paper's
+    edge-server testbed: the program's testbed is ``core.build_testbed``
+    of its counts, as before topologies were named."""
+    import repro_torch.core as core
+    for name in ("mining-paper", "vr-paper"):
+        cfg = _tiny_config(name)
+        assert "topology" not in cfg["deployment"]
+        assert workload.topology(cfg) is workload.load("topologies",
+                                                        "edge_server")
+        dep = cfg["deployment"]
+        want = core.build_testbed(edge_counts=dep["edge_counts"],
+                                  server_counts=dep["server_counts"],
+                                  device="cpu")
+        got = workload.build_testbed(core, cfg, "cpu")
+        assert (got.edges, got.servers) == (want.edges, want.servers)
+        assert [p.name for p in got.graph.pus()] == \
+            [p.name for p in want.graph.pus()]
+
+
+@pytest.mark.parametrize("name", ["mining-paper", "vr-paper", "tpu-streams"])
+def test_fleet_matches_the_program_testbed(name):
+    """The reference's fleet and the program's testbed of one deployment:
+    the same PUs, each device's PUs in the order its ORC scans them, the
+    clusters in the order of the root's children, and between every two
+    devices the same links, by name, bandwidth and latency."""
+    import repro_torch.core as core
+    cfg = _tiny_config(name)
+    tb = workload.build_testbed(core, cfg, "cpu")
+    fl = workload.ref_fleet_of(cfg)
+    g = tb.graph
+    assert [p.name for p in fl.pus] == g.compiled().pu_names
+    root = core.build_orchestrators(g, core.heye_traverser(g))
+    devices = {o.group: o for o in root.iter_tree() if o.is_device_orc()}
+    assert [[fl.devices[d].name for d in c] for c in fl.clusters] == \
+        [[o.group for o in c.iter_tree() if o.is_device_orc()]
+         for c in root.children]
+    for d in fl.devices:
+        assert [fl.pus[p].name for p in d.pus] == devices[d.name].leaf_pus
+    comp = g.compiled()
+    n = len(fl.devices)
+    for a in range(n):
+        for b in range(n):
+            if a == b:
+                continue
+            want = comp.route_edges(fl.devices[a].name, fl.devices[b].name)
+            got = fl.route(a, b)
+            assert [fl.link_names[k] for k in got] == [e.name for e in want]
+            assert [tuple(fl.links[k]) for k in got] == \
+                [(e.bandwidth, e.latency) for e in want]
+
+
+def test_tied_routes_are_named_not_guessed():
+    """Between opposite hosts of a pod with an even number of hosts the
+    two arcs of the ring tie: the reference names both, prices the
+    transfer (the same on either), and refuses to say which links it
+    occupies."""
+    cfg = _tiny_config("tpu-streams")
+    cfg["deployment"]["hosts_per_pod"] = 4
+    fl = workload.ref_fleet_of(cfg)
+    assert len(fl.routes(0, 2)) == 2 and len(fl.routes(0, 1)) == 1
+    with pytest.raises(ValueError):
+        fl.route(0, 2)
+    assert fl.transfer_time(0, 2, 1e6) == pytest.approx(
+        2e-6 + 1e6 / 25e9, rel=1e-12)
+    assert fl.route(0, 5) == [fl.devices[0].link, fl.devices[5].link]
+
+
+def _streams_bench(tmp_path) -> dict:
+    """A BENCHMARK.json under ``tmp_path`` with the two-pod configuration
+    and one ``batch`` cell on it, every file copied as a PR would add
+    it."""
+    (tmp_path / "heye_bench" / "configs").mkdir(parents=True)
+    (tmp_path / "heye_bench" / "traffic").mkdir()
+    (tmp_path / "heye_bench" / "configs" / "tpu-streams.json").write_text(
+        STREAMS.read_text())
+    (tmp_path / "heye_bench" / "traffic" / "batch.json").write_text(
+        (BENCH_DIR / "traffic" / "batch.json").read_text())
+    bench = copy.deepcopy(BENCH)
+    bench["configs"] = [{"name": "tpu-streams", "source": "a test",
+                         "file": "heye_bench/configs/tpu-streams.json",
+                         "reduced": [], "why": "a test"}]
+    bench["workloads"] = [{"name": "tpu-streams.batch",
+                           "config": "tpu-streams", "traffic": "batch",
+                           "chips": 1, "why": "a test"}]
+    for kind in ("end_to_end", "per_layer"):
+        bench[kind] = [m for m in bench[kind] if "mining-paper.batch"
+                       in m.get("workloads", ["mining-paper.batch"])]
+        for m in bench[kind]:
+            if "workloads" in m:
+                m["workloads"] = ["tpu-streams.batch"]
+    (tmp_path / "BENCHMARK.json").write_text(json.dumps(bench))
+    return json.loads((tmp_path / "BENCHMARK.json").read_text())
+
+
+def test_a_topology_added_by_files_alone(tmp_path, streams, monkeypatch):
+    """A configuration naming ``tpu_pods``, two pods of 11 hosts of 2
+    chips, every host sending streams: correct on its CPU twin through
+    the program and the reference, with transfers over the ring and
+    across pods; every wave's walks driven per pod (the group-sharded
+    walk's ``stop_root`` drive on both pods) and fanned out to host
+    threads where the host has two or more cores."""
+    from repro_torch.core import orchestrator
+    drives, fans = [], []
+    orig = orchestrator.Orchestrator._drive_wave
+
+    def drive(self, walks, now, ctx, stop_root=False):
+        if stop_root:
+            drives.append({self._shard_root_of(w.orc).group for w in walks})
+        return orig(self, walks, now, ctx, stop_root=stop_root)
+
+    class Pool(orchestrator.ThreadPoolExecutor):
+        def __init__(self, *a, **k):
+            fans.append(k["max_workers"])
+            super().__init__(*a, **k)
+    monkeypatch.setattr(orchestrator.Orchestrator, "_drive_wave", drive)
+    monkeypatch.setattr(orchestrator, "ThreadPoolExecutor", Pool)
+    bench = _streams_bench(tmp_path)
+    res = run("tpu-streams.batch", trace=True, bench=bench, root=tmp_path)
+    assert res["correct"], res["checks"]
+    assert res["attempted"] == 286 and res["failed"] == 0
+    assert "walk_syncs_per_task.batch" in res["metrics"]
+    assert {"pod0"} in drives and {"pod1"} in drives
+    assert all(len(d) == 1 for d in drives)
+    if (os.cpu_count() or 1) >= 2:
+        assert fans and all(n == 2 for n in fans)
+    cfg, traffic = tiny("tpu-streams.batch", bench, tmp_path)
+    rows = workload.load("modes", "session").reference_rows(
+        cfg, traffic, workload.iteration_seeds(7, 0))
+    hosts = [(r[0][1], r[2].rsplit(".", 1)[0]) for r in rows]
+    assert sum(a != b for a, b in hosts) > 0
+    assert sum(a.split(".")[0] != b.split(".")[0] for a, b in hosts) > 0
+
+
+@pytest.mark.parametrize("fault", ["control", "placement_altered"])
+def test_topology_cell_fails_the_check(fault, tmp_path, streams,
+                                       monkeypatch):
+    """On the two-pod twin, the float32 reference in the program's place
+    and a placement moved where it is produced: not correct."""
+    bench = _streams_bench(tmp_path)
+    if fault == "control":
+        cfg, traffic = tiny("tpu-streams.batch", bench, tmp_path)
+        numbers = control.control_numbers(cfg, traffic,
+                                          workload.iteration_seeds(11, 0))
+        assert not check.verdict(numbers), numbers
+    else:
+        FAULTS[fault](monkeypatch)
+        res = run("tpu-streams.batch", seed=13, bench=bench, root=tmp_path)
+        assert not res["correct"], res["checks"]
+
+
+def test_unknown_topology_raises():
+    import repro_torch.core as core
+    cfg = _tiny_config("mining-paper")
+    cfg["deployment"]["topology"] = "no-such-topology"
+    with pytest.raises(ValueError):
+        workload.build_testbed(core, cfg, "cpu")
+    with pytest.raises(ValueError):
+        workload.ref_fleet_of(cfg)

@@ -9,6 +9,10 @@ gives, one file each, so that a new kind is a new file:
 * ``modes/<mode>.py`` — the traffic file's ``mode``: the program's side
   of an iteration, the rows its output is judged by, the reference's
   rows for the same inputs, and the end-to-end metrics;
+* ``topologies/<name>.py`` — the configuration's ``deployment.topology``
+  (``edge_server`` where the key is absent): the program's testbed
+  (``testbed``) and the reference's fleet (``fleet``), built from the
+  same data;
 * ``apps/<kind>.py`` — the configuration's ``application.kind``: its
   tasks for the program and for the reference, built from the same data;
 * ``arrivals/<kind>.py`` — a serving mix's ``arrivals.kind``: the
@@ -26,8 +30,6 @@ import json
 from pathlib import Path
 
 import numpy as np
-
-from .reference import fleet as ref_fleet
 
 HERE = Path(__file__).resolve().parent
 _LOADED: dict = {}
@@ -71,18 +73,19 @@ def application(cfg: dict):
     return load("apps", cfg["application"]["kind"])
 
 
+def topology(cfg: dict):
+    return load("topologies", cfg["deployment"].get("topology",
+                                                    "edge_server"))
+
+
 def build_testbed(core, cfg: dict, device):
     """The program's testbed for the configuration's deployment."""
-    dep = cfg["deployment"]
-    return core.build_testbed(edge_counts=dep["edge_counts"],
-                              server_counts=dep["server_counts"],
-                              device=device)
+    return topology(cfg).testbed(core, cfg["deployment"], device)
 
 
 def ref_fleet_of(cfg: dict):
     """The reference's fleet for the same deployment."""
-    dep = cfg["deployment"]
-    return ref_fleet.build_fleet(dep["edge_counts"], dep["server_counts"])
+    return topology(cfg).fleet(cfg["deployment"])
 
 
 def sync(device) -> None:
