@@ -1209,6 +1209,175 @@ def check_rewalk_entry(dev) -> dict:
         library_ms=None)
 
 
+# the ordered commit's appends on the main path (mining-paper: 104 devices,
+# a device's view of 6 rows at the median, the buffers' first capacity 16,
+# a ledger grown to 4096 rows by 3000 commits)
+APPEND_ND, APPEND_N, APPEND_CAP, APPEND_ROWS = 104, 6, 16, 4096
+
+
+def _random_column(dev, dtype, n: int, rng) -> torch.Tensor:
+    """``n`` seeded entries of ``dtype``: bools, large int64s, float64s
+    with infinities among them."""
+    if dtype == torch.bool:
+        return torch.as_tensor(rng.random(n) < 0.5, device=dev)
+    if dtype == torch.int64:
+        return torch.as_tensor(rng.integers(-5, 1 << 40, n), device=dev)
+    x = rng.uniform(-1.0, 3.0, n)
+    x[rng.random(n) < 0.1] = np.inf
+    return torch.as_tensor(x, device=dev)
+
+
+def _columns_agree(what: str, spec, got, want) -> None:
+    """Every entry of each column equal to the bit (float64 as its bit
+    patterns), the entries the call should not touch included."""
+    for (name, _), a, b in zip(spec, got, want):
+        if not torch.equal(_bits(a) if a.dtype == torch.float64 else a,
+                           _bits(b) if b.dtype == torch.float64 else b):
+            raise AssertionError(f"{what}: column {name} differs from its "
+                                 "plain version's")
+
+
+def check_ledger_append(dev, rng) -> dict:
+    """The ledger row a commit writes (``ledger_append``: eight columns of
+    row i from its arguments, one launch) against its plain version, the
+    eight scalar writes, on the card: every entry of the ledger's columns
+    as bit patterns, at the first, a middle and the last row of a ledger
+    of the main path's size.  Timed at a middle row."""
+    spec = walk_kernel.LEDGER_COLS
+    cols = [_random_column(dev, t, APPEND_ROWS, rng) for _, t in spec]
+    row = (0.1 + 1 / 3, 1.75, float("inf"), 0.3, 1e-300, (1 << 50) + 3, 17)
+    led = walk_kernel.Columns(spec, cols)
+    for i in (0, 2999, APPEND_ROWS - 1):
+        want = [c.clone() for c in cols]
+        walk_kernel.ledger_append(led, i, row)
+        walk_kernel.ledger_append_plain(want, i, row)
+        torch.cuda.synchronize()
+        _columns_agree(f"ledger_append row {i}", spec, cols, want)
+
+    def fn():
+        walk_kernel.ledger_append(led, 2999, row)
+
+    def plain_fn():
+        walk_kernel.ledger_append_plain(cols, 2999, row)
+    return dict(
+        name="ledger_append", route="cuda",
+        source="src/repro_torch/kernels/csrc/ledger_append.cu",
+        replaces="none: the reference writes the row with numpy "
+                 "(src/repro/core/orchestrator.py:180 ActiveLedger.add)",
+        shape=f"one row of 8 columns, {APPEND_ROWS} rows",
+        max_abs_err=0.0, max_rel_err=0.0,
+        tolerance="bit-equal: every entry of the eight columns",
+        ms=time_ms(fn), body_ms=body_ms(fn, "ledger_append_kernel"),
+        plain_ms=time_ms(plain_fn, 50, 5),
+        # seven 8-byte values and the live byte written
+        **bound(57, 0), library_ms=None)
+
+
+def _view_extend_ops(prev: list, led: list, i: int, mem_cap, pidx: int,
+                     rel: float, na, o: int, dev) -> tuple:
+    """The view extension the appends replaced, op for op: a ``torch.cat``
+    a column, ``Ma``'s ``minimum``, the release time's blocking upload,
+    the segment counts' clone and fill, ``Da``'s ``full``."""
+    one = slice(i, i + 1)
+    cols = [torch.cat([prev[k], led[c][one]])
+            for k, c in zip(walk_kernel.VIEW_ROW,
+                            walk_kernel.LEDGER_OF_VIEW_ROW)]
+    ma = torch.cat([prev[6], torch.minimum(led[4][one],
+                                           mem_cap[pidx:pidx + 1])])
+    rel_col = torch.cat([prev[8], rt_device.f64([rel], dev)])
+    na = na.clone()
+    na[o] = prev[0].shape[0] + 1
+    da = torch.full((prev[0].shape[0] + 1,), o, dtype=torch.int64,
+                    device=dev)
+    return (*cols, ma, rel_col, na, da)
+
+
+def check_view_append(dev, rng) -> dict:
+    """The slot a device's ledger view gains at a commit (``view_append``:
+    ledger row i's columns, ``Ma``'s min, the release time and the
+    ordinal into slot n of the view's ten buffers, the segment counts
+    into a fresh array, one launch) against its plain version on the
+    card: every entry of the ten buffers and of the counts as bit
+    patterns, at the main path's shapes (``APPEND_*``: slot 6 of 16, 104
+    devices), at the buffers' first and last slot, with no ordinal, with
+    a NaN usage, and where the view moves to new buffers (the same launch
+    copies its rows).  Timed in place and at a move of 16 rows, beside
+    the op sequence it replaced."""
+    spec, lspec = walk_kernel.VIEW_COLS, walk_kernel.LEDGER_COLS
+    led_cols = [_random_column(dev, t, APPEND_ROWS, rng) for _, t in lspec]
+    led_cols[4][7] = float("nan")
+    led = walk_kernel.Columns(lspec, led_cols)
+    mem_cap = torch.as_tensor(rng.uniform(0.3, 1.0, 528), device=dev)
+    nd, cap = APPEND_ND, APPEND_CAP
+    na_src = torch.as_tensor(rng.integers(0, 50, nd), device=dev)
+    # (slot n, rows copied, buffer rows, ordinal, ledger row)
+    cases = [(APPEND_N, 0, cap, 41, 2999), (0, 0, cap, 0, 0),
+             (cap - 1, 0, cap, nd - 1, APPEND_ROWS - 1),
+             (APPEND_N, 0, cap, -1, 12), (APPEND_N, 0, cap, 5, 7),
+             (cap, cap, 2 * cap + 2, 41, 2999)]
+    for n, ncopy, size, o, i in cases:
+        src = [_random_column(dev, t, max(ncopy, 1), rng) for _, t in spec]
+        got = [_random_column(dev, t, size, rng) for _, t in spec]
+        want = [c.clone() for c in got]
+        na_got = torch.full_like(na_src, -7)
+        na_want = na_got.clone()
+        args = (i, mem_cap, 17 + n, n, 0.25 + 1e-17 * i, max(o, 0), na_src)
+        walk_kernel.view_append(walk_kernel.Columns(spec, got),
+                                src if ncopy else None, ncopy, led, *args,
+                                na_got, o)
+        walk_kernel.view_append_plain(want, src if ncopy else None, ncopy,
+                                      led_cols, *args, na_want, o)
+        torch.cuda.synchronize()
+        what = f"view_append slot {n} of {size}, {ncopy} copied, o={o}"
+        _columns_agree(what, spec, got, want)
+        if not torch.equal(na_got, na_want):
+            raise AssertionError(f"{what}: the segment counts differ")
+    n, o, i, pidx = APPEND_N, 41, 2999, 17
+    bufs = walk_kernel.Columns(spec, [_random_column(dev, t, cap, rng)
+                                      for _, t in spec])
+    na_dst = torch.empty_like(na_src)
+    prev = [c[:n] for c in bufs.cols]
+    moved = walk_kernel.Columns(spec, [_random_column(dev, t, 2 * cap + 2,
+                                                      rng) for _, t in spec])
+    full = [c[:cap] for c in bufs.cols]
+
+    def fn():
+        walk_kernel.view_append(bufs, None, 0, led, i, mem_cap, pidx, n,
+                                0.5, o, na_src, na_dst, o)
+
+    def move_fn():
+        walk_kernel.view_append(moved, full, cap, led, i, mem_cap, pidx,
+                                cap, 0.5, o, na_src, na_dst, o)
+
+    def plain_fn():
+        walk_kernel.view_append_plain(bufs.cols, None, 0, led_cols, i,
+                                      mem_cap, pidx, n, 0.5, o, na_src,
+                                      na_dst, o)
+
+    def ops_fn():
+        _view_extend_ops(prev, led_cols, i, mem_cap, pidx, 0.5, na_src, o,
+                         dev)
+    # read: the ledger row's seven columns and mem_cap[pidx], the counts;
+    # written: the ten slot entries and the counts
+    nbytes = 64 + 80 + 16 * nd
+    return dict(
+        name="view_append", route="cuda",
+        source="src/repro_torch/kernels/csrc/ledger_append.cu",
+        replaces="none: the reference extends a view with numpy "
+                 "(src/repro/core/orchestrator.py:895 _extend_view)",
+        shape=f"slot {n} of {cap}, nd={nd}, in place",
+        cases_compared=len(cases), max_abs_err=0.0, max_rel_err=0.0,
+        tolerance="bit-equal: every entry of the ten buffers and the counts",
+        ms=time_ms(fn), body_ms=body_ms(fn, "view_append_kernel"),
+        plain_ms=time_ms(plain_fn, 50, 5),
+        replaced_ops_ms=time_ms(ops_fn, 50, 5),
+        **bound(nbytes, 1), library_ms=None,
+        other_shapes={f"move of {cap} rows": dict(
+            ms=time_ms(move_fn), body_ms=body_ms(move_fn,
+                                                 "view_append_kernel"),
+            **bound(nbytes + 160 * cap, 1))})
+
+
 # the model path's shapes: recurrentgemma-9b's local attention layers and
 # RG-LRU blocks at prefill(B=2, S=4096)
 PATH_B, PATH_S = 2, 4096
@@ -1549,7 +1718,8 @@ def bound(nbytes: int, flops: int, peak: float = FP64_FLOPS) -> dict:
 # ---------------------------------------------------------------------------
 SCHED_KERNELS = ("slowdown_pool", "slowdown_same_device", "settle_reprice",
                  "settle_complete", "transfer_reprice", "transfer_complete",
-                 "scan_reduce", "scan_reduce_batch", "rewalk_entry")
+                 "scan_reduce", "scan_reduce_batch", "rewalk_entry",
+                 "ledger_append", "view_append")
 # kernels held against their plain versions that no path runs any more:
 # the engine's transfer sites run the fused transfer_reprice and
 # transfer_complete in their place
@@ -3842,7 +4012,8 @@ def main() -> None:
                check_rate_advance(dev, rng),
                *check_settle(dev, rng), check_segment_min(dev, rng),
                *check_transfer(dev, rng), *check_scan_reduce(dev, rng),
-               check_rewalk_entry(dev)]
+               check_rewalk_entry(dev), check_ledger_append(dev, rng),
+               check_view_append(dev, rng)]
     del tables, wide_tables
     for k in kernels:
         if not (k["max_rel_err"] <= REL_TOL):

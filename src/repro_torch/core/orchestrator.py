@@ -74,10 +74,12 @@ from .. import spans
 from ..device import (BOOL, FLOAT, INT, DeviceLike, bytes_key, f64, host_item,
                       host_list, host_numpy, i64, resolve_device)
 from ..spans import OPEN as _SPANS
-from ..kernels.walk_kernel import (BLOCK_MAX_P, RewalkSegment,
-                                   ScanPlanArrays, constraint_terms,
-                                   effective_segment, scan_reduce,
-                                   scan_reduce_batch, segment_columns)
+from ..kernels.walk_kernel import (BLOCK_MAX_P, LEDGER_COLS, VIEW_COLS,
+                                   Columns, RewalkSegment, ScanPlanArrays,
+                                   constraint_terms, effective_segment,
+                                   ledger_append, scan_reduce,
+                                   scan_reduce_batch, segment_columns,
+                                   view_append)
 from .hwgraph import HWGraph
 from .task import Task
 from .traverser import TaskPrediction, Traverser
@@ -143,19 +145,13 @@ class ActiveLedger:
     device).  Columns grow by reallocation on the device.
     """
 
-    _FCOLS = ("_est", "_fac", "_dl", "_upu", "_umem")
-    _ICOLS = ("_uid", "_pu_idx")
-
     def __init__(self, device: DeviceLike = None) -> None:
         self.device = resolve_device(device)
         self._n = 0
         self._tasks: list[Optional[Task]] = []
         self._pus: list[Optional[str]] = []
-        for col in self._FCOLS:
-            setattr(self, col, torch.empty(0, dtype=FLOAT, device=self.device))
-        for col in self._ICOLS:
-            setattr(self, col, torch.empty(0, dtype=INT, device=self.device))
-        self._live = torch.empty(0, dtype=BOOL, device=self.device)
+        self._set_columns([torch.empty(0, dtype=t, device=self.device)
+                           for _, t in LEDGER_COLS])
         self._live_l: list[bool] = []              # host mirror of _live
         self._pu_idx_comp = None                   # snapshot the column is for
         self._dead = 0
@@ -177,20 +173,25 @@ class ActiveLedger:
     def __len__(self) -> int:
         return self._n - self._dead
 
+    def _set_columns(self, cols: list[torch.Tensor]) -> None:
+        """Replace the columns (``_est`` ... ``_live``, in
+        :data:`LEDGER_COLS` order) and the checked set ``_cols`` that the
+        append kernels write through.  Every column swap goes through
+        here, so no kernel writes into a column the ledger let go."""
+        for (name, _), col in zip(LEDGER_COLS, cols):
+            setattr(self, "_" + name, col)
+        self._cols = Columns(LEDGER_COLS, cols)
+
     def _grow(self) -> None:
         cap = max(16, 2 * self._est.shape[0])
         n = self._n
-        for col in self._FCOLS:
-            arr = torch.empty(cap, dtype=FLOAT, device=self.device)
-            arr[:n] = getattr(self, col)[:n]
-            setattr(self, col, arr)
-        for col in self._ICOLS:
-            arr = torch.empty(cap, dtype=INT, device=self.device)
-            arr[:n] = getattr(self, col)[:n]
-            setattr(self, col, arr)
-        live = torch.zeros(cap, dtype=BOOL, device=self.device)
-        live[:n] = self._live[:n]
-        self._live = live
+        cols = []
+        for name, dtype in LEDGER_COLS:
+            arr = (torch.zeros if dtype is BOOL else torch.empty)(
+                cap, dtype=dtype, device=self.device)
+            arr[:n] = getattr(self, "_" + name)[:n]
+            cols.append(arr)
+        self._set_columns(cols)
 
     def add(self, task: Task, pu: str, pred: TaskPrediction,
             now: float) -> ActiveEntry:
@@ -201,15 +202,13 @@ class ActiveLedger:
         est = now + pred.total
         self._tasks.append(task)
         self._pus.append(pu)
-        self._est[i] = est
-        self._fac[i] = pred.factor
-        self._dl[i] = task.deadline if task.deadline is not None else _INF
-        self._upu[i] = task.usage.get("pu", 1.0)
-        self._umem[i] = task.usage.get("mem", 1.0)
-        self._uid[i] = task.uid
-        self._pu_idx[i] = (self._pu_idx_comp.get(pu, -1)
-                           if self._pu_idx_comp is not None else -1)
-        self._live[i] = True
+        ledger_append(
+            self._cols, i,
+            (est, pred.factor,
+             task.deadline if task.deadline is not None else _INF,
+             task.usage.get("pu", 1.0), task.usage.get("mem", 1.0),
+             task.uid, (self._pu_idx_comp.get(pu, -1)
+                        if self._pu_idx_comp is not None else -1)))
         self._live_l.append(True)
         self._count[pu] = self._count.get(pu, 0) + 1
         self.version += 1
@@ -268,9 +267,10 @@ class ActiveLedger:
         keep_t = i64(keep, self.device)
         self._tasks = [self._tasks[i] for i in keep]
         self._pus = [self._pus[i] for i in keep]
-        for col in self._FCOLS + self._ICOLS:
-            setattr(self, col, getattr(self, col)[keep_t].clone())
-        self._live = torch.ones(len(keep), dtype=BOOL, device=self.device)
+        self._set_columns(
+            [getattr(self, "_" + name)[keep_t].clone()
+             for name, _ in LEDGER_COLS[:-1]]
+            + [torch.ones(len(keep), dtype=BOOL, device=self.device)])
         self._live_l = [True] * len(keep)
         self._n = len(keep)
         self._dead = 0
@@ -746,6 +746,20 @@ class _Walk:
         self.res: Optional["MapResult"] = None
 
 
+class _ViewBuffer:
+    """One device's ledger-view columns (:data:`VIEW_COLS` order) as
+    buffers of ``cap`` rows that the device's extended views are prefixes
+    of; ``head`` is the view whose rows fill them so far."""
+
+    __slots__ = ("cols", "head")
+
+    def __init__(self, cap: int, device: torch.device) -> None:
+        self.cols = Columns(VIEW_COLS, [torch.empty(cap, dtype=t,
+                                                    device=device)
+                                        for _, t in VIEW_COLS])
+        self.head: Optional[_LedgerView] = None
+
+
 def _fifo_put(cache: OrderedDict, key, value, cap: int) -> None:
     """Insert into a bounded FIFO cache.  ``popitem`` drops the oldest
     entry in one call, so the group threads of the sharded walk may
@@ -775,6 +789,8 @@ class _BatchContext:
         self._standalone: dict = {}
         self._comm: dict = {}
         self._views: dict = {}
+        # device -> the _ViewBuffer its extended views are prefixes of
+        self._vbufs: dict = {}
         self._static: dict = {}
         self._sigs: dict = {}
         self._cores: dict = {}
@@ -907,15 +923,28 @@ class _BatchContext:
             v = self._extend_view(hit[2], dev)
         if v is None:
             v = led.device_view(self.comp, dev)
+            if _SPANS:
+                spans.add("walk.view_gathers")
+        elif _SPANS:
+            spans.add("walk.view_appends")
         self._views[dev] = (epoch, ver, v)
         return v
 
     def _extend_view(self, prev: _LedgerView,
                      dev: str) -> Optional[_LedgerView]:
+        """``prev`` with the device's newest ledger row appended, in one
+        launch of :func:`~repro_torch.kernels.walk_kernel.view_append`
+        into the device's column buffers, which the views are prefixes
+        of.  Only the view that filled the buffers last is extended in
+        place; any other ``prev``, or a full buffer, moves to new buffers
+        (the same launch copies its rows), so no view handed out ever
+        changes.  The row's release time is read now, as
+        :meth:`ActiveLedger.device_view` reads it."""
         led = self.ledger.shard_for(dev)
         comp = self.comp
         rows = led._device_rows(comp).get(dev)
-        if rows is None or len(rows) != len(prev.rows) + 1:
+        n = len(prev.rows)
+        if rows is None or len(rows) != n + 1:
             return None
         led._fill_pu_idx(comp)
         i = rows[-1]
@@ -923,30 +952,27 @@ class _BatchContext:
         pidx = comp.pu_index.get(pu, -1)
         if pidx < 0:
             return None
-        one = slice(i, i + 1)
+        t = led._tasks[i]
+        o = comp.dev_ord.get(dev)
+        buf = self._vbufs.get(dev)
+        src = None
+        if buf is None or buf.head is not prev or n == buf.cols.n:
+            buf = self._vbufs[dev] = _ViewBuffer(max(16, 2 * (n + 1)),
+                                                 self.device)
+            src = tuple(getattr(prev, c) for c, _ in VIEW_COLS)
         v = _LedgerView()
+        v.na = torch.empty_like(prev.na)
+        view_append(buf.cols, src, 0 if src is None else n, led._cols,
+                    i, comp.mem_cap, pidx, n, t.release_time,
+                    0 if o is None else o, prev.na, v.na,
+                    -1 if o is None else o)
+        for (name, _), col in zip(VIEW_COLS, buf.cols.cols):
+            setattr(v, name, col[:n + 1])
         v.rows = prev.rows + [i]
         v.pu_names = prev.pu_names + [pu]
-        v.P = torch.cat([prev.P, led._pu_idx[one]])
-        v.est = torch.cat([prev.est, led._est[one]])
-        v.fac = torch.cat([prev.fac, led._fac[one]])
-        v.dl = torch.cat([prev.dl, led._dl[one]])
-        v.upu = torch.cat([prev.upu, led._upu[one]])
-        v.umem = torch.cat([prev.umem, led._umem[one]])
-        v.Ma = torch.cat([prev.Ma, torch.minimum(
-            led._umem[one], comp.mem_cap[pidx:pidx + 1])])
-        v.uid = torch.cat([prev.uid, led._uid[one]])
-        t = led._tasks[i]
         v.tasks = prev.tasks + [t]
-        v.rel = torch.cat([prev.rel, f64([t.release_time], self.device)])
-        o = comp.dev_ord.get(dev)
-        v.na = prev.na.clone()
         v.astart = prev.astart
-        if o is not None:
-            v.na[o] = len(rows)
-            v.Da = torch.full((len(rows),), o, dtype=INT, device=self.device)
-        else:
-            v.Da = torch.zeros(len(rows), dtype=INT, device=self.device)
+        buf.head = v
         return v
 
     def task_sig(self, task: Task) -> tuple:

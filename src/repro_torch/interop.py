@@ -169,15 +169,15 @@ def ledger_from_numpy(columns: dict, device: DeviceLike = None,
     n = len(tasks)
     if len(pus) != n:
         raise ValueError("tasks and pus must have one length")
-    for col, name, dtype in (("_est", "est", FLOAT), ("_fac", "fac", FLOAT),
-                             ("_dl", "dl", FLOAT), ("_upu", "upu", FLOAT),
-                             ("_umem", "umem", FLOAT), ("_uid", "uid", INT)):
+    cols = []
+    for name, dtype in (("est", FLOAT), ("fac", FLOAT), ("dl", FLOAT),
+                        ("upu", FLOAT), ("umem", FLOAT), ("uid", INT)):
         arr = np.ascontiguousarray(columns[name])
         if arr.shape != (n,):
             raise ValueError(f"column {name} must have shape ({n},)")
-        setattr(led, col, torch.as_tensor(arr, device=dev).to(dtype))
-    led._pu_idx = torch.full((n,), -1, dtype=INT, device=dev)
-    led._live = torch.ones(n, dtype=BOOL, device=dev)
+        cols.append(torch.as_tensor(arr, device=dev).to(dtype))
+    led._set_columns(cols + [torch.full((n,), -1, dtype=INT, device=dev),
+                             torch.ones(n, dtype=BOOL, device=dev)])
     led._live_l = [True] * n
     led._tasks = list(tasks)
     led._pus = pus

@@ -85,6 +85,8 @@ _SIGNATURES = {
     "heye_scan_reduce_big_bytes": [_I64, _I64],
     "heye_rewalk_entry": [_PTR, _I64, _PTR],
     "heye_rewalk_entry_wide_len": [_INT],
+    "heye_ledger_append": [_PTR, _I64, _PTR],
+    "heye_view_append": [_PTR, _I64, _PTR],
     "heye_lru_scan": [_PTR, _PTR, _PTR, _I64, _I64, _I64, _PTR],
     "heye_flash_attention": [_PTR, _PTR, _PTR, _PTR, _INT, _INT, _INT, _INT,
                              _INT, _INT, _INT, _INT, _F32, _F32, _PTR],

@@ -49,6 +49,11 @@ two-step path it replaces, op for op: :func:`constraint_terms`,
 :func:`segment_columns` and :func:`effective_segment` are the pieces the
 orchestrator's two-step path runs too.
 
+Two more entry points write the ordered commit's state in place, one
+launch each (``csrc/ledger_append.cu``): :func:`ledger_append`, the
+ledger row a commit adds, and :func:`view_append`, the slot a device's
+ledger view gains by that row, in column buffers that grow by doubling.
+
 The wrappers take the plain versions for CPU tensors and launch the
 kernel for CUDA tensors (or raise).
 """
@@ -68,8 +73,9 @@ from .slowdown_kernel import (SameDeviceItem, _check_tables,
                               device_summary, slowdown_same_device)
 
 # launches per entry point: a single scan, a stack of scans, a re-walk's
-# fused entry scan
-launches = {"scan_reduce": 0, "scan_reduce_batch": 0, "rewalk_entry": 0}
+# fused entry scan, a ledger row, a ledger view's slot
+launches = {"scan_reduce": 0, "scan_reduce_batch": 0, "rewalk_entry": 0,
+            "ledger_append": 0, "view_append": 0}
 
 # scans of at most this many PUs take one warp (a lane per PU), larger
 # ones a block of their own, whose bit words of `ok` fill 32 KB of shared
@@ -685,3 +691,187 @@ def rewalk_entry(seg: RewalkSegment, mt_vec: torch.Tensor,
         if sp:
             spans.leave(sp)
     return host_list(out)
+
+
+# ---------------------------------------------------------------------------
+# the ordered commit's in-place appends (csrc/ledger_append.cu)
+# ---------------------------------------------------------------------------
+# a ledger row's columns, in the order ledger_append writes them; live last
+LEDGER_COLS = (("est", _F64), ("fac", _F64), ("dl", _F64), ("upu", _F64),
+               ("umem", _F64), ("uid", _I64), ("pu_idx", _I64),
+               ("live", _B))
+# a device view's columns, in the order view_append writes them
+VIEW_COLS = (("P", _I64), ("est", _F64), ("fac", _F64), ("dl", _F64),
+             ("upu", _F64), ("umem", _F64), ("Ma", _F64), ("uid", _I64),
+             ("rel", _F64), ("Da", _I64))
+# column positions by name (the kernels' structs hold the same order)
+_LI = {n: k for k, (n, _) in enumerate(LEDGER_COLS)}
+_VI = {n: k for k, (n, _) in enumerate(VIEW_COLS)}
+# the view columns a new slot copies from the ledger row (all but Ma, rel
+# and Da), and the ledger columns they come from
+VIEW_ROW = tuple(_VI[n] for n in ("P", "est", "fac", "dl", "upu", "umem",
+                                  "uid"))
+LEDGER_OF_VIEW_ROW = tuple(_LI["pu_idx" if VIEW_COLS[k][0] == "P"
+                               else VIEW_COLS[k][0]] for k in VIEW_ROW)
+
+# the kernels' argument rows (LaArgs, VaArgs), field by field
+LA_FIELDS = tuple((n, "q") for n, _ in LEDGER_COLS) + (
+    ("i", "q"), ("v_est", "d"), ("v_fac", "d"), ("v_dl", "d"),
+    ("v_upu", "d"), ("v_umem", "d"), ("v_uid", "q"), ("v_pidx", "q"))
+VA_FIELDS = (tuple((n, "q") for n, _ in VIEW_COLS)
+             + tuple(("s" + n, "q") for n, _ in VIEW_COLS)
+             + (("ncopy", "q"),)
+             + tuple(("l" + VIEW_COLS[k][0], "q") for k in VIEW_ROW)
+             + (("i", "q"), ("mem_cap", "q"), ("pidx", "q"), ("n", "q"),
+                ("v_rel", "d"), ("v_da", "q"), ("na_src", "q"),
+                ("na_dst", "q"), ("nd", "q"), ("o", "q")))
+_LA_ROW = struct.Struct("<" + "".join(k for _, k in LA_FIELDS))
+_VA_ROW = struct.Struct("<" + "".join(k for _, k in VA_FIELDS))
+
+
+class Columns:
+    """Columns of one length that the append kernels write, checked once
+    here and not at every launch: ``spec`` is :data:`LEDGER_COLS` or
+    :data:`VIEW_COLS`, each column a 1-D contiguous tensor of its type on
+    one device.  The owner builds a new set whenever it replaces a
+    column."""
+
+    __slots__ = ("spec", "cols", "n", "device", "ptrs", "row_ptrs")
+
+    def __init__(self, spec: tuple, cols: Sequence[torch.Tensor]) -> None:
+        if len(cols) != len(spec):
+            raise ValueError(f"{len(spec)} columns expected, got {len(cols)}")
+        dev = cols[0].device
+        build.check_tensors(dev, *((n, c, t, 1)
+                                   for (n, t), c in zip(spec, cols)))
+        n = cols[0].shape[0]
+        if any(c.shape[0] != n for c in cols):
+            raise ValueError("the columns disagree in length")
+        self.spec, self.cols, self.n, self.device = spec, tuple(cols), n, dev
+        self.ptrs = self.row_ptrs = None
+        if dev.type == "cuda":
+            self.ptrs = tuple(c.data_ptr() for c in cols)
+            if spec is LEDGER_COLS:
+                # in the order of a view slot's row
+                self.row_ptrs = tuple(self.ptrs[k]
+                                      for k in LEDGER_OF_VIEW_ROW)
+
+
+def _check_index(name: str, i: int, n: int) -> None:
+    if not 0 <= i < n:
+        raise IndexError(f"{name} {i} lies outside columns of {n} entries")
+
+
+def ledger_append_plain(cols: Sequence[torch.Tensor], i: int,
+                        row: Sequence) -> None:
+    """Plain version of :func:`ledger_append`: one scalar write a column."""
+    for c, x in zip(cols, row):
+        c[i] = x
+    cols[_LI["live"]][i] = True
+
+
+def ledger_append(led: Columns, i: int, row: Sequence) -> None:
+    """Row ``i`` of an active ledger's columns, written in place in ONE
+    launch: ``led`` holds the eight columns of :data:`LEDGER_COLS`,
+    ``row`` the first seven's values (floats, then the uid and the
+    compiled PU index); the row's ``live`` entry becomes True."""
+    sp = spans.enter("launch.ledger_append") if _SPANS else None
+    try:
+        if led.spec is not LEDGER_COLS or len(row) != 7:
+            raise ValueError("a ledger row is seven values into the eight "
+                             "columns of LEDGER_COLS")
+        _check_index("row", i, led.n)
+        dev = led.device
+        if dev.type == "cpu":
+            ledger_append_plain(led.cols, i, row)
+        elif dev.type != "cuda":
+            raise ValueError(f"unsupported device {dev}")
+        else:
+            lib = build.load()
+            args = _LA_ROW.pack(
+                *led.ptrs, i, float(row[0]), float(row[1]), float(row[2]),
+                float(row[3]), float(row[4]), int(row[5]), int(row[6]))
+            err = lib.heye_ledger_append(args, len(args),
+                                         build.raw_stream(dev.index))
+            build.check_launch(err, "ledger_append")
+            build.count_launch(launches, "ledger_append")
+    finally:
+        if sp:
+            spans.leave(sp)
+
+
+def view_append_plain(dst: Sequence[torch.Tensor],
+                      src: Optional[Sequence[torch.Tensor]], ncopy: int,
+                      led: Sequence[torch.Tensor], i: int,
+                      mem_cap: torch.Tensor, pidx: int, n: int, rel: float,
+                      da: int, na_src: torch.Tensor, na_dst: torch.Tensor,
+                      o: int) -> None:
+    """Plain version of :func:`view_append` (``led``: the ledger's eight
+    columns)."""
+    if ncopy:
+        for d, s in zip(dst, src):
+            d[:ncopy] = s[:ncopy]
+    for k, c in zip(VIEW_ROW, LEDGER_OF_VIEW_ROW):
+        dst[k][n] = led[c][i]
+    dst[_VI["Ma"]][n] = torch.minimum(led[_LI["umem"]][i], mem_cap[pidx])
+    dst[_VI["rel"]][n] = rel
+    dst[_VI["Da"]][n] = da
+    na_dst.copy_(na_src)
+    if o >= 0:
+        na_dst[o] = n + 1
+
+
+def view_append(dst: Columns, src: Optional[Sequence[torch.Tensor]],
+                ncopy: int, led: Columns, i: int, mem_cap: torch.Tensor,
+                pidx: int, n: int, rel: float, da: int,
+                na_src: torch.Tensor, na_dst: torch.Tensor, o: int) -> None:
+    """Slot ``n`` of a device view's column buffers (``dst``, the ten of
+    :data:`VIEW_COLS`), written in place in ONE launch: ledger row ``i``'s
+    columns (``led``, :data:`LEDGER_COLS`), ``Ma`` = ``min(umem[i],
+    mem_cap[pidx])``, the release time ``rel`` and the device ordinal
+    ``da``.  The same launch first copies rows ``[0, ncopy)`` of the
+    previous view's ten columns ``src`` into the buffers (the caller's
+    ``ncopy`` is 0, or ``n`` where the view moves to new buffers).
+    ``na_dst`` becomes ``na_src`` with ``[o] = n + 1`` (``o < 0``:
+    unchanged)."""
+    sp = spans.enter("launch.view_append") if _SPANS else None
+    try:
+        dev = dst.device
+        if dst.spec is not VIEW_COLS or led.spec is not LEDGER_COLS \
+                or led.device != dev:
+            raise ValueError("a view's buffers (VIEW_COLS) and a ledger's "
+                             "columns (LEDGER_COLS), on one device")
+        _check_index("slot", n, dst.n)
+        _check_index("row", i, led.n)
+        if not 0 <= ncopy <= n:
+            raise ValueError("the copy reaches past the written slot")
+        if ncopy:
+            Columns(VIEW_COLS, [c[:ncopy] for c in src])
+        build.check_tensors(dev, ("mem_cap", mem_cap, _F64, 1),
+                            ("na_src", na_src, _I64, 1),
+                            ("na_dst", na_dst, _I64, 1))
+        _check_index("pidx", pidx, mem_cap.shape[0])
+        nd = na_src.shape[0]
+        if na_dst.shape[0] != nd or o >= nd:
+            raise ValueError("the segment counts disagree in length, or the "
+                             "ordinal lies outside them")
+        if dev.type == "cpu":
+            view_append_plain(dst.cols, src, ncopy, led.cols, i, mem_cap,
+                              pidx, n, rel, da, na_src, na_dst, o)
+        elif dev.type != "cuda":
+            raise ValueError(f"unsupported device {dev}")
+        else:
+            lib = build.load()
+            sptr = (c.data_ptr() for c in src) if ncopy else (0,) * 10
+            args = _VA_ROW.pack(
+                *dst.ptrs, *sptr, ncopy, *led.row_ptrs, i,
+                mem_cap.data_ptr(), pidx, n, float(rel), da,
+                na_src.data_ptr(), na_dst.data_ptr(), nd,
+                o if o >= 0 else -1)
+            err = lib.heye_view_append(args, len(args),
+                                       build.raw_stream(dev.index))
+            build.check_launch(err, "view_append")
+            build.count_launch(launches, "view_append")
+    finally:
+        if sp:
+            spans.leave(sp)

@@ -37,6 +37,7 @@ from collections import Counter
 # the open recorder, if any: span sites test this list's truth
 OPEN: list = []
 _OPEN_LOCK = threading.Lock()
+_ADD_LOCK = threading.Lock()
 
 
 class Span:
@@ -216,11 +217,14 @@ def leave(sp, t: float = None) -> None:
 
 
 def add(counter: str, n: int = 1) -> None:
-    """Add ``n`` to a counter of the open recorder."""
+    """Add ``n`` to a counter of the open recorder (exact when the walk's
+    group threads add at once)."""
     try:
-        OPEN[0].counters[counter] += n
+        rec = OPEN[0]
     except IndexError:
-        pass
+        return
+    with _ADD_LOCK:
+        rec.counters[counter] += n
 
 
 def decided(rid: int) -> None:
