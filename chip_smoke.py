@@ -35,22 +35,20 @@ Then it drives the port's paths through their public entry points:
   every scheduler kernel must have been launched (after ``serve_full``
   the same session runs once more under torch.profiler, for its
   device-op count), then B1's row form on its own path, the traverser's
-  what-if query; the full-width map walks group-sharded by default (its
-  form is reported), equals the CPU's and, with
-  ``REPRO_SHARDED_WALK=0``, the fused walk's bit for bit; a mixed-origin
-  wave (a task from every device) takes the sharded driver's threaded
-  branch, against the fused walk and the CPU;
-* ``walk_oracle``: the object walk on the card (``REPRO_FUSED_WALK=0``)
-  against the fused walk at mult=8 and on the paper's VR testbed; the
-  ``first_fit`` objective, the ground-truth traverser as the policy's
-  traverser, a noisy slowdown model and a tuple-surface one (B1's row
-  form), each card vs CPU;
+  what-if query; the full-width map walks over the root's one ledger
+  (the per-group drives of its waves are reported) and equals the CPU's;
+  a mixed-origin wave (a task from every device) takes the per-group
+  drive's threaded branch, against the CPU;
+* ``walk_oracle``: the object walk on the card at mult=8 and on the
+  paper's VR testbed — the ``first_fit`` objective, the ground-truth
+  traverser as the policy's traverser, a noisy slowdown model and a
+  tuple-surface one (B1's row form), each card vs CPU;
 * ``serve_x64``: the online path — ``ServeLoop`` over one
   session-resident timeline with admission control, the reference's
   ``benchmarks/serve.py::_serve_once(64)`` (the mining fleet at mult=64,
   4224 PUs; Poisson ``svm`` and diurnal ``mlp`` tenants, ~1.1k requests),
   card vs CPU request for request, over the session-resident walk
-  context; then the card once more with ``REPRO_SERVE_FASTPATH=0``;
+  context;
 * ``serve_churn``: the same loop at mult=8 under a seeded wireless churn
   schedule (a ``Churn`` wave every horizon/8) and an edge's death and
   revival, card vs CPU, every batch absorbed as one snapshot delta;
@@ -1893,23 +1891,6 @@ def _spread(xs: list) -> dict:
                 p50=float(np.median(xs)), max=int(max(xs)))
 
 
-class env_switch:
-    """Set one of the port's walk switches for a block, then restore it."""
-
-    def __init__(self, name: str, value: str) -> None:
-        self.name, self.value = name, value
-
-    def __enter__(self) -> None:
-        self.old = os.environ.get(self.name)
-        os.environ[self.name] = self.value
-
-    def __exit__(self, *exc) -> None:
-        if self.old is None:
-            os.environ.pop(self.name, None)
-        else:
-            os.environ[self.name] = self.old
-
-
 def map_rows(results: dict, cfg) -> list:
     """Every mapping decision of a session in cfg order: (pu, standalone,
     factor, comm, queries, hops, overhead)."""
@@ -1940,26 +1921,25 @@ def map_session(mult: int, device, seed: int) -> tuple[list, float]:
 
 
 class _WalkForm:
-    """Records which form the walk took, by wrapping (outside the port)
-    the orchestrator's sharded wave driver, its per-bucket drive and its
-    thread pool: per sharded wave, the walks of each drive (a group's,
-    or the whole wave's when every walk starts in one group), and the
-    pools made."""
+    """Records the walk's per-group drives, by wrapping (outside the
+    port) the orchestrator's phase-1 wave walk, its drive and its thread
+    pool: per wave, the walks of each drive and whether it was a group's
+    (``stop_root``), and the pools made."""
 
     def __init__(self) -> None:
         self.waves: list[list] = []
         self.pools: list[int] = []
-        self.sharded = orc_mod.Orchestrator._walk_wave_sharded
+        self.wave = orc_mod.Orchestrator._walk_wave
         self.drive = orc_mod.Orchestrator._drive_wave
         self.pool = orc_mod.ThreadPoolExecutor
 
     def __enter__(self) -> "_WalkForm":
-        log, sharded, drive, pool_cls = (self, self.sharded, self.drive,
-                                         self.pool)
+        log, walk_wave, drive, pool_cls = (self, self.wave, self.drive,
+                                           self.pool)
 
         def wave(orc, *a, **k):
             log.waves.append([])
-            return sharded(orc, *a, **k)
+            return walk_wave(orc, *a, **k)
 
         def logged(orc, order, now, ctx, stop_root=False):
             if log.waves:
@@ -1971,29 +1951,25 @@ class _WalkForm:
                 log.pools.append(k.get("max_workers", 0))
                 super().__init__(*a, **k)
 
-        orc_mod.Orchestrator._walk_wave_sharded = wave
+        orc_mod.Orchestrator._walk_wave = wave
         orc_mod.Orchestrator._drive_wave = logged
         orc_mod.ThreadPoolExecutor = Pool
         return self
 
     def __exit__(self, *exc) -> None:
-        orc_mod.Orchestrator._walk_wave_sharded = self.sharded
+        orc_mod.Orchestrator._walk_wave = self.wave
         orc_mod.Orchestrator._drive_wave = self.drive
         orc_mod.ThreadPoolExecutor = self.pool
 
     def line(self, root) -> dict:
-        led = root.ledger
-        sharded = isinstance(led, core.ShardedLedger)
-        per_group = any(g for w in self.waves for _, g in w)
+        group_waves = sum(1 for w in self.waves if any(g for _, g in w))
         return dict(
             form=("threaded" if self.pools else
-                  "serial" if per_group else
-                  "one group a wave" if self.waves else "fused"),
-            sharded_ledger=sharded,
-            shards=len(led.shards) if sharded else 1,
-            shard_pus=([len(s) for s in root._sharded_hw.shards]
-                       if sharded else None),
-            sharded_waves=len(self.waves),
+                  "per group" if group_waves else "one drive a wave"),
+            one_ledger=(type(root.ledger) is core.ActiveLedger
+                        and all(o.ledger is root.ledger
+                                for o in root.iter_tree())),
+            waves=len(self.waves), group_waves=group_waves,
             # the first waves' drives: (walks, a group's drive or not)
             wave_drives=self.waves[:4], thread_pools=self.pools)
 
@@ -2002,7 +1978,7 @@ def mixed_wave(mult: int, device) -> tuple[list, float, dict]:
     """One wave of one task from every device of the mining fleet at
     ``mult`` (edges and servers, kinds svm / mlp / knn / dnn in turn,
     each its own deadline): its walks start in both root groups, so at
-    full width the sharded driver fans them out over host threads.
+    full width the per-group drive fans them out over host threads.
     Returns (decisions in task order, map seconds, walk form)."""
     ec, sc = mining_counts(mult)
     tb = core.build_testbed(edge_counts=ec, server_counts=sc, device=device)
@@ -2023,37 +1999,17 @@ def mixed_wave(mult: int, device) -> tuple[list, float, dict]:
     return rows, dt, form.line(root)
 
 
-def _time_sharding(slices: list):
-    """Wrap ``CompiledHWGraph.sharded`` (outside the port) so each slicing
-    records its seconds and the bytes its shards hold."""
-    real = core.CompiledHWGraph.sharded
-
-    def timed(comp, groups, validate=True):
-        t0 = time.perf_counter()
-        sh = real(comp, groups, validate)
-        if comp.device.type == "cuda":
-            torch.cuda.synchronize()
-        slices.append(dict(
-            seconds=time.perf_counter() - t0, pus=len(comp.pu_names),
-            shard_bytes=sum(t.numel() * t.element_size() for g_ in sh.shards
-                            for t in (g_.pu_idx, g_.pu_alive, g_.mem_cap,
-                                      g_.max_tenancy, g_.ncr_res,
-                                      g_.ncr_rclass, g_.pu_dev_ord))))
-        return sh
-    return real, timed
-
-
-def session_full(seed: int) -> tuple[dict, dict, dict]:
-    """The session at full width, walked in its default form (sharded at
-    the root's two groups): placements complete, every scheduler kernel
-    launched, the size of each phase-1 wave's batched entry reduce and of
-    each pool and same-device stack that reached B1 (read by wrapping the
-    calls, outside the port), the walk's form and the snapshot slicing's
-    seconds and bytes; then the row form of B1 on its own path, the
-    traverser's what-if query (:func:`what_if`); then the same session's
-    map on the CPU (placements equal) and on the card with
-    ``REPRO_SHARDED_WALK=0`` (every decision bit-identical), both timed.
-    Its device-op count comes later, from :func:`session_traced`."""
+def session_full(seed: int) -> tuple[dict, dict]:
+    """The session at full width: placements complete, every scheduler
+    kernel launched, the size of each phase-1 wave's batched entry reduce
+    and of each pool and same-device stack that reached B1 (read by
+    wrapping the calls, outside the port), the walk's per-group drives
+    over the root's one ledger; then the row form of B1 on its own path,
+    the traverser's what-if query (:func:`what_if`); then the same
+    session's map on the CPU (placements equal, timed), and a wave from
+    every device (:func:`mixed_wave`: the threaded branch) against the
+    CPU.  Its device-op count comes later, from
+    :func:`session_traced`."""
     mult = FULL_MULT
     base = _fresh_peak()
     reset_counts()
@@ -2064,8 +2020,6 @@ def session_full(seed: int) -> tuple[dict, dict, dict]:
     pools: list[int] = []
     same_items: list[int] = []
     same_pairs: list[int] = []
-    slices: list[dict] = []
-    real_sharded, timed_sharded = _time_sharding(slices)
 
     def counted(*args):
         stacks.append(len(args[6]))
@@ -2084,7 +2038,6 @@ def session_full(seed: int) -> tuple[dict, dict, dict]:
     orc_mod.scan_reduce_batch = counted
     sd_mod.slowdown_pool = counted_pool
     sd_mod.slowdown_same_device = counted_same
-    core.CompiledHWGraph.sharded = timed_sharded
     try:
         with _WalkForm() as form:
             st, cfg, g, sess, secs = run_session(mult, None, seed)
@@ -2092,7 +2045,6 @@ def session_full(seed: int) -> tuple[dict, dict, dict]:
         orc_mod.scan_reduce_batch = walk_call
         sd_mod.slowdown_pool = pool_call
         sd_mod.slowdown_same_device = same_call
-        core.CompiledHWGraph.sharded = real_sharded
     counts = read_counts()
     syncs = rt_device.sync_count()
     peak = torch.cuda.max_memory_allocated()
@@ -2112,47 +2064,35 @@ def session_full(seed: int) -> tuple[dict, dict, dict]:
             raise AssertionError(f"x{mult}: kernel {name} was never launched "
                                  "on the main path")
     walk_form = form.line(sess.policy)
-    if not walk_form["sharded_ledger"] or not walk_form["sharded_waves"] \
-            or len(slices) != 1:
-        raise AssertionError(f"x{mult}: the default walk did not shard: "
-                             f"{walk_form}, {len(slices)} slicings")
+    if not walk_form["one_ledger"] or not walk_form["waves"]:
+        raise AssertionError(f"x{mult}: the walk did not run its one "
+                             f"wave walk over one ledger: {walk_form}")
     pct = st.latency_percentiles(cfg, (50.0, 99.0))
     comp = g.compiled()
     wif = what_if(g, cfg, st)
     counts["slowdown_factors"] = wif["launches"]
-    # the same session's map on the CPU, then fused on the card
+    # the same session's map on the CPU
     rows = map_rows(sess.results, cfg)
     cpu_rows, cpu_map_s = map_session(mult, "cpu", seed)
     if [r[0] for r in cpu_rows] != [r[0] for r in rows]:
         bad = [i for i, (a, b) in enumerate(zip(cpu_rows, rows))
                if a[0] != b[0]]
-        raise AssertionError(f"x{mult}: sharded card and CPU placements "
-                             f"differ at {bad[:5]}")
-    reset_counts()
-    with env_switch("REPRO_SHARDED_WALK", "0"), _WalkForm() as fform:
-        fused_rows, fused_map_s = map_session(mult, None, seed)
-    fcounts = read_counts()
-    if fform.waves or fused_rows != rows:
-        bad = [i for i, (a, b) in enumerate(zip(fused_rows, rows)) if a != b]
-        raise AssertionError(f"x{mult}: the fused walk's decisions differ "
-                             f"from the sharded walk's at {bad[:5]}")
-    # walks from both groups: the threaded branch, against the fused walk
-    # and the CPU
+        raise AssertionError(f"x{mult}: card and CPU placements differ at "
+                             f"{bad[:5]}")
+    # walks from both groups: the threaded branch, against the CPU
     mrows, m_s, mform = mixed_wave(mult, None)
-    with env_switch("REPRO_SHARDED_WALK", "0"):
-        mfused, mf_s, _ = mixed_wave(mult, None)
     mcpu, mc_s, _ = mixed_wave(mult, "cpu")
-    if mform["form"] != "threaded" or mrows != mfused \
+    if mform["form"] != "threaded" or not mform["one_ledger"] \
             or [r[0] for r in mrows] != [r[0] for r in mcpu]:
         raise AssertionError(f"x{mult}: the mixed-origin wave walked "
-                             f"{mform['form']}, or its decisions differ "
-                             "from the fused walk's or the CPU's")
+                             f"{mform['form']}, or its placements differ "
+                             "from the CPU's")
     return dict(mult=mult, device=str(g.device), pus=len(comp.pu_names),
                 tasks=len(cfg), mapped=len(st.mapping),
                 unmapped=len(st.unmapped), **secs,
                 p50_latency_s=pct[50.0], p99_latency_s=pct[99.0],
                 qos_failures=st.qos_failures(cfg), launches=counts,
-                walk_form=walk_form, sharding=slices[0],
+                walk_form=walk_form,
                 entry_wave_scans=stacks, pool_members=_spread(pools),
                 same_device_items=_spread(same_items),
                 same_device_pairs=_spread(same_pairs),
@@ -2160,14 +2100,10 @@ def session_full(seed: int) -> tuple[dict, dict, dict]:
                 peak_device_bytes=peak, what_if=wif,
                 cpu_map_pending_s=cpu_map_s,
                 cpu_placements_identical=True,
-                fused=dict(map_pending_s=fused_map_s,
-                           decisions_bit_identical=True,
-                           launches=fcounts),
                 mixed_wave=dict(tasks=len(mrows), walk_form=mform,
-                                map_s=m_s, fused_map_s=mf_s, cpu_map_s=mc_s,
-                                fused_bit_identical=True,
+                                map_s=m_s, cpu_map_s=mc_s,
                                 cpu_placements_identical=True)
-                ), counts, fcounts
+                ), counts
 
 
 def what_if(g, cfg, st) -> dict:
@@ -2287,19 +2223,17 @@ def oracle_map(kind: str, device, seed: int, policy: str = "heye",
     return map_rows(res, cfg), dt, (rng.random() if rng else None)
 
 
-def _decisions_agree(what: str, got: list, want: list,
-                     exact: bool) -> float:
-    """Placements, queries and hops identical; standalone, factor and
-    comm identical (``exact``) or within T_TOL relative; overhead within
-    T_TOL relative.  Returns the largest relative overhead difference."""
+def _decisions_agree(what: str, got: list, want: list) -> float:
+    """Placements, queries and hops identical; standalone, factor, comm
+    and overhead within T_TOL relative.  Returns the largest relative
+    overhead difference."""
     if len(got) != len(want):
         raise AssertionError(f"{what}: {len(got)} vs {len(want)} tasks")
     worst = 0.0
     for i, (a, b) in enumerate(zip(got, want)):
         same = (a[0], a[4], a[5]) == (b[0], b[4], b[5])
         for k in (1, 2, 3):
-            same = same and (a[k] == b[k] if exact else
-                             abs(a[k] - b[k]) <= T_TOL * max(abs(b[k]), 1e-12))
+            same = same and abs(a[k] - b[k]) <= T_TOL * max(abs(b[k]), 1e-12)
         d = abs(a[6] - b[6]) / max(abs(b[6]), 1e-12)
         if not same or not d <= T_TOL:
             raise AssertionError(f"{what}: task {i} differs: {a} vs {b}")
@@ -2309,28 +2243,22 @@ def _decisions_agree(what: str, got: list, want: list,
 
 def walk_oracle(seed: int) -> tuple[dict, dict]:
     """The object walk on the card at the paper's mining fleet (mult=8)
-    and VR testbed: against the fused walk (``REPRO_FUSED_WALK=0``:
-    decisions exact, overhead 1e-9), the ``first_fit`` objective card vs
-    CPU, the ground-truth traverser as the policy's traverser card vs CPU,
-    a noisy slowdown model card vs CPU (the generator left in the same
-    state), and a tuple-surface model card vs CPU and against the fused
-    walk — the path of B1's row form, whose launches must show."""
+    and VR testbed: the ``first_fit`` objective card vs CPU (its queries
+    beside the fused walk's), the ground-truth traverser as the policy's
+    traverser card vs CPU, a noisy slowdown model card vs CPU (the
+    generator left in the same state), and a tuple-surface model card vs
+    CPU and against the fused walk — the path of B1's row form, whose
+    launches must show."""
     reset_counts()
     out: dict = {}
     for kind in ("mining", "vr"):
         fused, fused_s, _ = oracle_map(kind, None, seed)
-        with env_switch("REPRO_FUSED_WALK", "0"):
-            obj, obj_s, _ = oracle_map(kind, None, seed)
-        d_obj = _decisions_agree(f"walk_oracle {kind}: object vs fused walk",
-                                 obj, fused, exact=True)
         ff, ff_s, _ = oracle_map(kind, None, seed, objective="first_fit")
         ff_c, ff_cs, _ = oracle_map(kind, "cpu", seed, objective="first_fit")
         d_ff = _decisions_agree(f"walk_oracle {kind}: first_fit card vs CPU",
-                                ff, ff_c, exact=False)
+                                ff, ff_c)
         out[kind] = dict(
-            tasks=len(fused), fused_map_s=fused_s, object_map_s=obj_s,
-            object_vs_fused=dict(decisions_exact=True,
-                                 max_overhead_rel_diff=d_obj),
+            tasks=len(fused), fused_map_s=fused_s,
             first_fit=dict(map_s=ff_s, cpu_map_s=ff_cs,
                            max_overhead_rel_diff_cuda_vs_cpu=d_ff,
                            queries=sum(r[4] for r in ff),
@@ -2339,8 +2267,7 @@ def walk_oracle(seed: int) -> tuple[dict, dict]:
     for policy in ("truth", "noisy", "tuple"):
         got, g_s, g_next = oracle_map("mining", None, seed, policy=policy)
         want, c_s, c_next = oracle_map("mining", "cpu", seed, policy=policy)
-        d = _decisions_agree(f"walk_oracle {policy}: card vs CPU", got, want,
-                             exact=False)
+        d = _decisions_agree(f"walk_oracle {policy}: card vs CPU", got, want)
         if g_next != c_next:
             raise AssertionError(f"walk_oracle {policy}: the generator's "
                                  "streams parted card vs CPU")
@@ -2350,8 +2277,7 @@ def walk_oracle(seed: int) -> tuple[dict, dict]:
             if fused is None:
                 fused, _, _ = oracle_map("mining", None, seed)
             line["max_overhead_rel_diff_vs_fused"] = _decisions_agree(
-                "walk_oracle tuple vs the fused walk", got, fused,
-                exact=False)
+                "walk_oracle tuple vs the fused walk", got, fused)
         out[f"mining_{policy}"] = line
     counts = read_counts()
     # the mining walks' re-walks take the fused entry scan; VR's escalate
@@ -2495,15 +2421,13 @@ def _check_serve_launches(what: str, st, counts: dict) -> None:
             raise AssertionError(f"{what}: kernel {name} was never launched")
 
 
-def serve_x64() -> tuple[dict, dict, dict]:
+def serve_x64() -> tuple[dict, dict]:
     """benchmarks/serve.py::_serve_once(64) on the port: the card run over
     the session-resident walk context (its launches, syncs, serving
     metrics, contexts built and rebased, peak device bytes) against the
-    same loop on the CPU, then the card run once more with
-    ``REPRO_SERVE_FASTPATH=0`` (a cold walk per wave): verdicts,
-    placements and finish times equal.  The arrivals and the ground
-    truth take the reference driver's own seeds (11, 12, 0), not
-    ``--seed``."""
+    same loop on the CPU: verdicts, placements and finish times equal.
+    The arrivals and the ground truth take the reference script's own
+    seeds (11, 12, 0), not ``--seed``."""
     what = f"serve_x{SERVE_MULT}"
     base = _fresh_peak()
     reset_counts()
@@ -2518,30 +2442,11 @@ def serve_x64() -> tuple[dict, dict, dict]:
     if ctxs["context_builds"] != 1 or _contexts(cl) != ctxs:
         raise AssertionError(f"{what}: the resident context was rebuilt: "
                              f"card {ctxs}, CPU {_contexts(cl)}")
-    reset_counts()
-    with env_switch("REPRO_SERVE_FASTPATH", "0"):
-        kl, ks, _ = _serve_loop(SERVE_MULT, None)
-    kcounts = read_counts()
-    ksyncs = rt_device.sync_count()
-    dk = _serve_card_vs_cpu(f"{what} resident vs cold", gl, gs, kl, ks)
-    if kl.session.policy._resident_ctx is not None:
-        raise AssertionError(f"{what}: REPRO_SERVE_FASTPATH=0 kept a "
-                             "resident context")
-    n = len(gs.requests)
     out = _serve_line(gs, g, counts, syncs, dt, cs)
     out.update(mult=SERVE_MULT, recompile_count=g.recompile_count,
                delta_count=g.delta_count, **ctxs,
-               device_bytes_at_start=base, peak_device_bytes=peak,
-               cold=dict(wall_s=ks.wall_s, wall_rps=ks.wall_rps,
-                         phase_wall=ks.phase_wall,
-                         max_finish_diff_resident_vs_cold=dk,
-                         same_verdicts_and_placements=True,
-                         **_contexts(kl), launches=kcounts,
-                         launches_per_request={k: v / n for k, v in
-                                               kcounts.items() if v},
-                         device_to_host_syncs=ksyncs,
-                         syncs_per_request=ksyncs / n))
-    return out, counts, kcounts
+               device_bytes_at_start=base, peak_device_bytes=peak)
+    return out, counts
 
 
 class _ChurnLog:
@@ -4046,11 +3951,11 @@ def main() -> None:
     emit("session_vr", vr)
     done("vr")
     stop("vr")
-    full, counts, fcounts = session_full(args.seed)
+    full, counts = session_full(args.seed)
     emit(f"session_x{FULL_MULT}", full)
     done(f"x{FULL_MULT}")
     stop("x128")
-    sv, scounts, kcounts = serve_x64()
+    sv, scounts = serve_x64()
     emit(f"serve_x{SERVE_MULT}", sv)
     done(f"serve_x{SERVE_MULT}")
     stop("serve_x64")
@@ -4113,11 +4018,9 @@ def main() -> None:
         if k["name"] not in MODEL_KERNELS:
             k["launches_by_path"] = {
                 f"x{FULL_MULT}": counts[k["name"]],
-                f"x{FULL_MULT}_fused": fcounts[k["name"]],
                 "walk_oracle": ocounts[k["name"]],
                 "vr": vcounts[k["name"]],
                 f"serve_x{SERVE_MULT}": scounts[k["name"]],
-                f"serve_x{SERVE_MULT}_cold": kcounts[k["name"]],
                 "serve_churn": ccounts[k["name"]],
                 f"bwchurn_x{BWCHURN_MULT}": bcounts[k["name"]]}
         if k["name"] in OFF_PATH_KERNELS:

@@ -16,11 +16,11 @@ Public surface of the port (same names as the reference package's
   build_testbed / build_tpu_fleet                — topology (Fig. 4, TPU fleet)
   Runtime / policies                             — experiment harness (§5)
 """
-from .compiled import CompiledHWGraph, ShardedHWGraph
+from .compiled import CompiledHWGraph
 from .hwgraph import (Churn, EdgeAttr, HWGraph, Node, NodeKind, Predictable,
                       ProcessingUnit, Unit)
 from .orchestrator import (ActiveLedger, MapResult, OrcConfig, Orchestrator,
-                           ShardedLedger, build_orchestrators)
+                           build_orchestrators)
 from .predict import CallableModel, PerfModel, ProfiledModel, RooflineModel
 from .serving import (ClosedLoopClients, DiurnalArrivals, PoissonArrivals,
                       ServeLoop, ServeRequest, ServeStats, TenantSpec,

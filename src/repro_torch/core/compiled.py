@@ -43,12 +43,9 @@ timeline's frozen routes.  ``apply_delta`` returns ``None`` when the
 effects exceed what can be patched (a resource dying under still-alive
 PUs), and the graph then rebuilds.
 
-``CompiledHWGraph.sharded(groups)`` slices a snapshot into block-diagonal
-per-ORC-group views (:class:`ShardedHWGraph`, one :class:`GroupShard`
-per group: the group's PUs remapped to a dense local index, its NCR
-block and its per-PU columns on the device), validated by one reduction
-over the cross-group NCR entries and cached per snapshot; a delta clone
-drops the cache.
+Compute paths never cross device boundaries, so PUs of different
+devices share no compute-path resource: the walk's per-group drive
+reads only its group's columns of this one snapshot.
 """
 from __future__ import annotations
 
@@ -662,8 +659,6 @@ class CompiledHWGraph:
         c.version = self.version + 1
         # the batched-builder ctx bakes in aliveness; re-derive post-delta
         c.__dict__.pop("_fast_route_ctx", None)
-        # per-group shard views slice aliveness/NCR state; re-slice lazily
-        c.__dict__.pop("_sharded", None)
         return c
 
     def _delta_bandwidth(self, edge_names: Sequence[str],
@@ -1014,135 +1009,3 @@ class CompiledHWGraph:
         return (f"CompiledHWGraph({P} PUs, {len(self.resource_names)} resources, "
                 f"{len(self.rclass_names)} rclasses, "
                 f"{len(self.routable_names)} routable, v{self.version})")
-
-    # ------------------------------------------------------------------
-    # per-ORC-group shard views (the sharded orchestration snapshot)
-    # ------------------------------------------------------------------
-    def sharded(self, groups: dict, validate: bool = True,
-                ) -> "ShardedHWGraph":
-        """Slice this snapshot into block-diagonal per-group views.
-
-        ``groups`` maps a shard name (an ORC device-group subtree, e.g. a
-        root ORC child) to the device-group names it owns.  The result is
-        cached per (snapshot, partition) — ``_clone`` drops the cache, so
-        post-delta snapshots re-slice lazily."""
-        key = tuple(sorted((k, tuple(v)) for k, v in groups.items()))
-        hit = self.__dict__.get("_sharded")
-        if hit is not None and hit[0] == key:
-            return hit[1]
-        sh = ShardedHWGraph(self, groups, validate=validate)
-        self._sharded = (key, sh)
-        return sh
-
-
-class GroupShard:
-    """Block-diagonal view of one ORC device group: the group's PU rows
-    remapped into a dense local index space, its NCR block, and slices of
-    the per-PU state columns (device tensors).  ``pu_idx`` maps local
-    ordinals back to the parent snapshot's global PU ordinals (ascending,
-    so slicing preserves global order); ``pu_idx_l`` is its host mirror."""
-
-    __slots__ = ("name", "devices", "pu_idx", "pu_idx_l", "pu_names",
-                 "local_index", "pu_alive", "mem_cap", "max_tenancy",
-                 "ncr_res", "ncr_rclass", "pu_dev_ord")
-
-    def __init__(self, comp: CompiledHWGraph, name: str,
-                 devices: Sequence[str]) -> None:
-        self.name = name
-        self.devices = tuple(devices)
-        ords = {comp.dev_ord[d] for d in self.devices if d in comp.dev_ord}
-        # PU membership from the host mirror of the device ordinals
-        self.pu_idx_l = [i for i, o in enumerate(comp.pu_dev_ord_l)
-                         if o in ords]
-        sel = torch.as_tensor(np.asarray(self.pu_idx_l, dtype=np.int64),
-                              device=comp.device)
-        self.pu_idx = sel
-        self.pu_names = [comp.pu_names[i] for i in self.pu_idx_l]
-        self.local_index = {n: k for k, n in enumerate(self.pu_names)}
-        self.pu_alive = comp.pu_alive[sel]
-        self.mem_cap = comp.mem_cap[sel]
-        self.max_tenancy = comp.max_tenancy[sel]
-        self.ncr_res = comp.ncr_res.index_select(0, sel).index_select(1, sel)
-        self.ncr_rclass = comp.ncr_rclass.index_select(0, sel).index_select(
-            1, sel)
-        self.pu_dev_ord = comp.pu_dev_ord[sel]
-
-    def __len__(self) -> int:
-        return len(self.pu_names)
-
-    def __repr__(self) -> str:
-        return (f"GroupShard({self.name}: {len(self.pu_names)} PUs, "
-                f"{len(self.devices)} devices)")
-
-
-class ShardedHWGraph:
-    """``CompiledHWGraph`` sliced into per-ORC-group :class:`GroupShard`
-    block-diagonal views.
-
-    The slices are sound because compute paths never cross device (and a
-    fortiori group) boundaries: every cross-group NCR entry is ``-1`` by
-    construction, which ``validate=True`` asserts.  The route table is
-    shared copy-on-write with the parent snapshot (``routes`` is the
-    parent's layered ``_RouteTable``; ``apply_delta`` swaps tables on a
-    clone, and the clone re-slices).  Cross-group work (the root ORC's
-    boundary scan) keeps using the parent snapshot's full matrices."""
-
-    def __init__(self, comp: CompiledHWGraph, groups: dict,
-                 validate: bool = True) -> None:
-        self.comp = comp
-        self.routes = comp._rt           # shared COW route layer
-        self.shards: list[GroupShard] = [
-            GroupShard(comp, name, devs) for name, devs in groups.items()]
-        self.shard_index = {s.name: i for i, s in enumerate(self.shards)}
-        self.shard_of_device: dict[str, str] = {}
-        claimed = [False] * len(comp.pu_names)
-        for s in self.shards:
-            if any(claimed[i] for i in s.pu_idx_l):
-                raise ValueError(
-                    f"shard {s.name!r} overlaps an earlier shard")
-            for i in s.pu_idx_l:
-                claimed[i] = True
-            for d in s.devices:
-                self.shard_of_device[d] = s.name
-        if validate:
-            self._validate_block_diagonal()
-
-    def _validate_block_diagonal(self) -> None:
-        """The boundary-reconciliation invariant: PUs of different groups
-        share no compute-path resource, so every cross-shard NCR entry is
-        -1 and per-shard constraint checks compose exactly.  One
-        reduction over the whole matrix and one read; the offending pair
-        is looked up only when it fails."""
-        comp = self.comp
-        sid = [-1] * len(comp.pu_names)
-        for k, s in enumerate(self.shards):
-            for i in s.pu_idx_l:
-                sid[i] = k
-        sid_t = torch.as_tensor(np.asarray(sid, dtype=np.int64),
-                                device=comp.device)
-        cross = ((sid_t[:, None] != sid_t[None, :]) & (sid_t[:, None] >= 0)
-                 & (sid_t[None, :] >= 0))
-        bad = cross & (comp.ncr_res != -1)
-        if not host_item(bad.any()):
-            return
-        i, j = host_list(torch.nonzero(bad)[0])
-        a, b = self.shards[sid[i]], self.shards[sid[j]]
-        raise ValueError(
-            f"groups {a.name!r} and {b.name!r} share a compute-path "
-            "resource: the partition is not block-diagonal")
-
-    def shard(self, name: str) -> GroupShard:
-        return self.shards[self.shard_index[name]]
-
-    def shard_of(self, device: str) -> Optional[str]:
-        """Owning shard name of a device group (None when unclaimed)."""
-        return self.shard_of_device.get(device)
-
-    @property
-    def n_shards(self) -> int:
-        return len(self.shards)
-
-    def summary(self) -> str:
-        parts = ", ".join(f"{s.name}:{len(s)}" for s in self.shards)
-        return (f"ShardedHWGraph(v{self.comp.version}, "
-                f"{len(self.shards)} shards [{parts}])")

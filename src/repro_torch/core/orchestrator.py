@@ -16,41 +16,37 @@ Alg. 1 —
   task's origin to a remote PU is folded into the constraint check, and every
   remote hop is charged to the *scheduling overhead* ledger (paper Fig. 14).
 
-— in one of three walk forms, chosen by the same three switches (and
-defaults) as the reference package:
+— in one of two walk forms, chosen by what ``map_batch`` observes:
 
-* the **fused wave-batched walk** (``REPRO_FUSED_WALK``, default on):
-  every ORC subtree is a scan plan (device tensors), each escalation
-  depth's constraint checks batch into one factor-kernel call, a wave's
-  entry scans are reduced together in one launch of the batched
-  scan-reduce kernel, and every later scan (re-walks, escalations) is
-  one launch of it at a stack of one — but the ordered commit's re-walk
-  of a task whose entry plan covers one device, stale for that device
-  alone, which re-checks the device, patches the scan and reduces it in
-  one launch of the fused re-walk kernel and one host read
-  (``_entry_fused``);
-* its **group-sharded** driver (``REPRO_SHARDED_WALK``, default on, at a
-  root ORC with two or more children): the snapshot is sliced into
-  block-diagonal per-group views (``CompiledHWGraph.sharded``), the
-  ledger into per-group shards (``ShardedLedger``), and each group's
-  phase-1 walks run on their own (host threads on a big enough wave),
-  reconciling only at the root ORC boundary;
 * the **object walk** (Alg. 1's recursion as written: ``_map_once``,
-  ``_traverse_children``, ``_ask_parent``): the parity oracle
-  (``REPRO_FUSED_WALK=0``), and the only walk of the ``first_fit``
-  objective and of noisy slowdown models (their rng stream follows the
-  scalar order).
+  ``_traverse_children``, ``_ask_parent``), over a walk context per
+  multi-task batch: the walk of the ``first_fit`` objective (its early
+  return), of noisy slowdown models (their rng stream follows the
+  scalar order) and of models without the same-device surface
+  (``factors_same_device_multi``), which score candidate by candidate;
+* the **fused wave-batched walk** for every other case: every ORC
+  subtree is a scan plan (device tensors), each escalation depth's
+  constraint checks batch into one factor-kernel call, a wave's entry
+  scans are reduced together in one launch of the batched scan-reduce
+  kernel, and every later scan (re-walks, escalations) is one launch of
+  it at a stack of one — but the ordered commit's re-walk of a task
+  whose entry plan covers one device, stale for that device alone,
+  which re-checks the device, patches the scan and reduces it in one
+  launch of the fused re-walk kernel and one host read
+  (``_entry_fused``).  At a root ORC with two or more children, a wave
+  whose walks enter below two or more of them is driven per group up
+  to the root level (host threads on a big enough wave), then
+  escalates through the root's cross-group scan (``_walk_wave``).
 
-Serving waves reuse one **session-resident** walk context
-(``REPRO_SERVE_FASTPATH``, default on): scan states, splices, views and
-the identity factor cache survive across ``map_batch`` calls, and a
-bandwidth-only snapshot delta rebases the context instead of dropping
-it.  ``=0`` builds a context per multi-task batch and walks single-task
-waves with the object walk.  Mapping is optimistic-concurrency: every
-task is first scored against the ledger as it stood at the start of the
-batch, then committed in task order; a task is re-scored only when an
-earlier commit landed on a device its search actually scored, which
-keeps ``map_batch`` identical to N sequential one-task batches.
+Every ORC of a tree shares the one :class:`ActiveLedger` it was built
+with.  The fused walk runs over one **session-resident** walk context:
+scan states, splices, views and the identity factor cache survive
+across ``map_batch`` calls, and a bandwidth-only snapshot delta rebases
+the context instead of dropping it.  Mapping is optimistic-concurrency:
+every task is first scored against the ledger as it stood at the start
+of the batch, then committed in task order; a task is re-scored only
+when an earlier commit landed on a device its search actually scored,
+which keeps ``map_batch`` identical to N sequential one-task batches.
 
 Host and device: the ORC tree, the plans' name lists, the walk caches
 and the ledger's dict indexes are host Python; the ledger columns, the
@@ -328,11 +324,6 @@ class ActiveLedger:
     def count(self, pu: str) -> int:
         return self._count.get(pu, 0)
 
-    def shard_for(self, dev: str) -> "ActiveLedger":
-        """The ledger shard owning device ``dev`` — a monolithic ledger
-        is its own (only) shard."""
-        return self
-
     # -- array views -------------------------------------------------------
     def _fill_pu_idx(self, comp) -> None:
         """(Re)fill the compiled-index column for this snapshot — ``add``
@@ -446,190 +437,6 @@ class ActiveLedger:
                 for i in self._device_rows(comp).get(dev, ())]
 
     def pairs_on_device(self, graph: HWGraph, pu_name: str) -> list[tuple[Task, str]]:
-        return [(e.task, e.pu) for e in self.on_device(graph, pu_name)]
-
-
-class _ShardDevVersions:
-    """Dict-shaped dispatch of per-device version stamps to the owning
-    ledger shard (the surface scan states read via ``dev_version.get``)."""
-
-    __slots__ = ("_led",)
-
-    def __init__(self, led: "ShardedLedger") -> None:
-        self._led = led
-
-    def get(self, dev: str, default: int = 0) -> int:
-        return self._led.shard_for(dev).dev_version.get(dev, default)
-
-
-class ShardedLedger:
-    """Per-ORC-group :class:`ActiveLedger` shards behind the monolithic
-    ledger surface.
-
-    Each shard owns exactly the rows of its group's devices (commits
-    dispatch by the committed PU's enclosing device), so per-device reads
-    hit one shard, and independent groups' walks can fan out over host
-    threads without sharing ledger state.  The thin cross-group
-    reconciler is :meth:`live_view`: the shards' device segments
-    interleaved back into global device-ordinal order (stable), which
-    equals the monolithic ledger's global view.  Every shard lives on the
-    ledger's device; one mutation journal (``mut_log``) and one PU ->
-    device map are shared by all of them."""
-
-    def __init__(self, comp, sharded_hw, device: DeviceLike = None) -> None:
-        self.hw = sharded_hw
-        self.device = comp.device if device is None else resolve_device(
-            device)
-        self.shards: list[ActiveLedger] = [ActiveLedger(self.device)
-                                           for _ in sharded_hw.shards]
-        self._pu_dev: dict[str, str] = {}      # shared by every shard
-        self._by_dev: dict[str, ActiveLedger] = {}
-        self._by_pu: dict[str, ActiveLedger] = {}
-        self._default = self.shards[0]
-        for gs, led in zip(sharded_hw.shards, self.shards):
-            led._pu_dev = self._pu_dev
-            for d in gs.devices:
-                self._by_dev[d] = led
-            for p in gs.pu_names:
-                self._by_pu[p] = led
-        self._pu_dev.update(comp._pu_device_name)
-        self._dev_versions = _ShardDevVersions(self)
-        self._merged: Optional[tuple] = None
-        # one shared mutation journal across shards: attributed mutations
-        # must stay globally ordered for scan-state refreshes
-        self.mut_log: list[str] = []
-        for led in self.shards:
-            led.mut_log = self.mut_log
-
-    # -- shard dispatch ----------------------------------------------------
-    def shard_for(self, dev: str) -> ActiveLedger:
-        return self._by_dev.get(dev, self._default)
-
-    def _shard_for_pu(self, pu: str) -> ActiveLedger:
-        led = self._by_pu.get(pu)
-        if led is None:
-            dev = self._pu_dev.get(pu)
-            led = self._by_dev.get(dev, self._default) if dev is not None \
-                else self._default
-        return led
-
-    # -- monolithic surface ------------------------------------------------
-    def __len__(self) -> int:
-        return sum(len(s) for s in self.shards)
-
-    @property
-    def version(self) -> int:
-        return sum(s.version for s in self.shards)
-
-    @property
-    def dev_epoch(self) -> int:
-        return sum(s.dev_epoch for s in self.shards)
-
-    @property
-    def dev_version(self) -> _ShardDevVersions:
-        return self._dev_versions
-
-    @property
-    def _live_view(self) -> Optional[tuple]:
-        return self._merged
-
-    @_live_view.setter
-    def _live_view(self, value) -> None:
-        # map_batch drops the cross-batch global view (release times may
-        # have been charged since); propagate to every shard's cache
-        self._merged = value
-        if value is None:
-            for s in self.shards:
-                s._live_view = None
-
-    def add(self, task: Task, pu: str, pred: TaskPrediction,
-            now: float) -> ActiveEntry:
-        return self._shard_for_pu(pu).add(task, pu, pred, now)
-
-    def prune(self, now: float) -> None:
-        for s in self.shards:
-            s.prune(now)
-
-    def remove(self, task: Task) -> None:
-        for s in self.shards:
-            s.remove(task)
-
-    def retire(self, uids) -> int:
-        uids = list(uids)
-        return sum(s.retire(uids) for s in self.shards)
-
-    def count(self, pu: str) -> int:
-        return self._shard_for_pu(pu).count(pu)
-
-    def touch(self, dev: str) -> None:
-        self.shard_for(dev).touch(dev)
-        self._merged = None
-
-    def occupied_devices(self, comp) -> set:
-        out: set = set()
-        for s in self.shards:
-            out |= s.occupied_devices(comp)
-        return out
-
-    def _fill_pu_idx(self, comp) -> None:
-        for s in self.shards:
-            s._fill_pu_idx(comp)
-
-    def device_view(self, comp, dev: str) -> _LedgerView:
-        return self.shard_for(dev).device_view(comp, dev)
-
-    def live_view(self, comp) -> _LedgerView:
-        """The cross-group reconciler: every shard's live rows interleaved
-        back into global device-ordinal order.  Within one device ordinal
-        all rows come from the one shard owning that device, already in
-        insertion order, so a stable sort over the concatenation equals
-        the monolithic global view.  The order is computed on the host
-        mirrors (names -> ordinals), so the merge needs no device read."""
-        cached = self._merged
-        if cached is not None and cached[0] is comp \
-                and cached[1] == self.version:
-            return cached[2]
-        views = [s.live_view(comp) for s in self.shards]
-        dl = comp.pu_dev_ord_l
-        pidx = comp.pu_index
-        names = [n for w in views for n in w.pu_names]
-        dev_of = [dl[pidx[n]] for n in names]
-        order = sorted(range(len(names)), key=dev_of.__getitem__)
-        o = i64(order, self.device)
-        v = _LedgerView()
-        for col in ("P", "est", "fac", "dl", "rel", "upu", "umem", "Ma",
-                    "uid"):
-            setattr(v, col, torch.cat([getattr(w, col) for w in views])[o])
-        rows = [r for w in views for r in w.rows]
-        tasks = [t for w in views for t in w.tasks]
-        v.rows = [rows[k] for k in order]
-        v.pu_names = [names[k] for k in order]
-        v.tasks = [tasks[k] for k in order]
-        v.Da = i64([dev_of[k] for k in order], self.device)
-        na = [0] * len(comp.dev_ord_names)
-        for k in dev_of:
-            na[k] += 1
-        v.na = i64(na, self.device)
-        v.astart = torch.cumsum(v.na, 0) - v.na
-        self._merged = (comp, self.version, v)
-        return v
-
-    # -- object-view compatibility accessors -------------------------------
-    @property
-    def by_pu(self) -> dict[str, list[ActiveEntry]]:
-        out: dict[str, list[ActiveEntry]] = {}
-        for s in self.shards:
-            for pu, entries in s.by_pu.items():
-                out.setdefault(pu, []).extend(entries)
-        return out
-
-    def on_device(self, graph: HWGraph, pu_name: str) -> list[ActiveEntry]:
-        comp = graph.compiled()
-        dev = comp.device_name(pu_name)
-        return self.shard_for(dev).on_device(graph, pu_name)
-
-    def pairs_on_device(self, graph: HWGraph,
-                        pu_name: str) -> list[tuple[Task, str]]:
         return [(e.task, e.pu) for e in self.on_device(graph, pu_name)]
 
 
@@ -762,7 +569,7 @@ class _ViewBuffer:
 
 def _fifo_put(cache: OrderedDict, key, value, cap: int) -> None:
     """Insert into a bounded FIFO cache.  ``popitem`` drops the oldest
-    entry in one call, so the group threads of the sharded walk may
+    entry in one call, so the group threads of the per-group drive may
     insert and evict at once (two of them may evict one entry each)."""
     cache[key] = value
     if len(cache) > cap:
@@ -909,7 +716,7 @@ class _BatchContext:
         return hit[0]
 
     def view(self, dev: str) -> _LedgerView:
-        led = self.ledger.shard_for(dev)
+        led = self.ledger
         epoch = led.dev_epoch
         ver = led.dev_version.get(dev, 0)
         hit = self._views.get(dev)
@@ -940,7 +747,7 @@ class _BatchContext:
         (the same launch copies its rows), so no view handed out ever
         changes.  The row's release time is read now, as
         :meth:`ActiveLedger.device_view` reads it."""
-        led = self.ledger.shard_for(dev)
+        led = self.ledger
         comp = self.comp
         rows = led._device_rows(comp).get(dev)
         n = len(prev.rows)
@@ -1026,7 +833,6 @@ class Orchestrator:
         self._hop_cache: Optional[tuple] = None
         self._plan_cache: Optional[tuple] = None   # (comp, _ScanPlan)
         self._child_cache: Optional[tuple] = None  # (comp, _ChildPlan)
-        self._sharded_hw = None                    # ShardedHWGraph (root)
         # session-resident batch context (the serving fast path): survives
         # map_batch calls so steady-state waves pay only dirty-device work
         self._resident_ctx: Optional[_BatchContext] = None
@@ -1065,48 +871,14 @@ class Orchestrator:
     def prepare(self, comp=None) -> "Orchestrator":
         """Prebuild the compiled scan/child plans of the whole ORC tree
         against ``comp`` (default: the graph's current snapshot) — pure
-        one-time lowering work, kept out of the first mapping wave — and,
-        where group sharding applies, shard the snapshot and the ledger."""
+        one-time lowering work, kept out of the first mapping wave."""
         if comp is None:
             comp = self.graph.compiled()
         for orc in self.iter_tree():
             orc._scan_plan(comp)
             if orc.children:
                 orc._child_plan(comp)
-        if self._sharding_enabled():
-            self._install_sharding(comp)
         return self
-
-    # -- group sharding ------------------------------------------------------
-    def _sharding_enabled(self) -> bool:
-        """Group sharding applies at a root ORC with >=2 group subtrees
-        and is switched off by ``REPRO_SHARDED_WALK=0`` (the fused walk over
-        the monolithic ledger, its parity baseline)."""
-        return (self.parent is None and len(self.children) > 1
-                and os.environ.get("REPRO_SHARDED_WALK", "1") != "0")
-
-    def _install_sharding(self, comp) -> None:
-        """Shard the snapshot and ledger per root-child ORC group: one
-        :class:`ShardedHWGraph` shard per root child (its subtree's device
-        groups), validated block-diagonal, and a :class:`ShardedLedger`
-        over that partition (on the ledger's device) swapped into the
-        whole tree.  A non-empty or already-sharded ledger, or a partition
-        that fails validation, leaves the monolithic setup untouched.
-        Slicing happens here only: afterwards device names alone route the
-        ledger, and no delta re-slices."""
-        if type(self.ledger) is not ActiveLedger or len(self.ledger):
-            return
-        groups = {c.group: [o.group for o in c.iter_tree()
-                            if o.is_device_orc()]
-                  for c in self.children}
-        try:
-            shg = comp.sharded(groups)
-        except ValueError:
-            return                    # not block-diagonal: stay monolithic
-        led = ShardedLedger(comp, shg, self.ledger.device)
-        for orc in self.iter_tree():
-            orc.ledger = led
-        self._sharded_hw = shg
 
     @property
     def factor_cache_hits(self) -> int:
@@ -1144,17 +916,14 @@ class Orchestrator:
         comp = self.graph.compiled()
         sd = self.traverser.slowdown
         noisy = bool(getattr(sd, "_noisy", lambda: False)())
-        # the fused walk is the deterministic batch path: noisy models need
-        # the scalar rng stream order and first_fit the early-return walk,
-        # both of which the object walk keeps
-        fusable = (not noisy and self.config.objective != "first_fit"
-                   and hasattr(sd, "factors_same_device_multi")
-                   and os.environ.get("REPRO_FUSED_WALK", "1") != "0")
-        if fusable and os.environ.get("REPRO_SERVE_FASTPATH", "1") != "0":
-            # serving fast path: a session-resident context keeps the
-            # walk state across waves, and single-task waves run the fused
-            # walk too.  REPRO_SERVE_FASTPATH=0 builds a context per batch
-            # (and walks single-task waves with the object walk)
+        # the fused walk is the deterministic batch path, over the
+        # session-resident context: noisy models need the scalar rng
+        # stream order, first_fit the early-return walk and a model
+        # without the same-device surface its per-candidate factors, all
+        # of which the object walk keeps (over a context per batch)
+        fast = (not noisy and self.config.objective != "first_fit"
+                and hasattr(sd, "factors_same_device_multi"))
+        if fast:
             ctx = self._session_context(comp)
         else:
             ctx = None
@@ -1162,16 +931,12 @@ class Orchestrator:
                 ctx = _BatchContext(self.graph, comp, self.traverser,
                                     self.ledger)
                 self.context_builds += 1
-        fast = fusable and ctx is not None
         # phase 1: optimistic walks against the frozen ledger, deduped by
         # task signature (identical tasks walk once; commits are replayed
         # per task in phase 2)
         tentative: list[tuple["Orchestrator", Optional[MapResult], set]] = []
         if fast:
-            if self._sharding_enabled():
-                walks = self._walk_wave_sharded(tasks, now, ctx, route)
-            else:
-                walks = self._walk_wave(tasks, now, ctx, route)
+            walks = self._walk_wave(tasks, now, ctx, route)
             n_walks = len(walks)
             for t in tasks:
                 orc = self._entry_orc(t) if route else self
@@ -1276,7 +1041,7 @@ class Orchestrator:
         if ctx is None:
             if len(led.mut_log) > 50_000 and self._resident_ctx is not None:
                 # no live context references the journal any more; reset
-                # it in place (the shards alias the same list)
+                # it in place
                 del led.mut_log[:]
             ctx = _BatchContext(self.graph, comp, self.traverser, led)
             self._resident_ctx = ctx
@@ -1608,11 +1373,16 @@ class Orchestrator:
             sl = slice(offset, offset + n)
             ok, sa, f, cm, key = ok[sl], sa[sl], f[sl], cm[sl], key[sl]
         if self.config.objective == "min_load":
-            cnt = self.ledger.count
-            key = f64([cnt(p) for p in plan.pus], ok.device)
+            key = self._load_keys(plan.pus, ok.device)
         return self._scan_result(host_list(scan_reduce(
             ok, key, sa, f, cm, plan.arrays, self.config.local_query_cost)),
             plan)
+
+    def _load_keys(self, pus: list[str], device) -> torch.Tensor:
+        """The ``min_load`` selection key over ``pus``: each PU's live
+        ledger row count."""
+        cnt = self.ledger.count
+        return f64([cnt(p) for p in pus], device)
 
     @staticmethod
     def _scan_result(row: list, plan) -> Optional[MapResult]:
@@ -1683,8 +1453,7 @@ class Orchestrator:
         sel = ok_d.clone()
         sel[lo_c:hi_c] = False
         if self.config.objective == "min_load":
-            cnt = self.ledger.count
-            keys = f64([cnt(p) for p in cp.pus], sel.device)
+            keys = self._load_keys(cp.pus, sel.device)
         else:
             keys = key_d
         masked = torch.where(sel, keys, torch.full_like(keys, _INF))
@@ -1871,9 +1640,9 @@ class Orchestrator:
         kernel call and each depth's route rows into one batched
         Dijkstra.  With ``stop_root=True`` walks park *below* the root
         level (``cur.parent.parent is None``) instead of asking it — the
-        group-sharded driver escalates intra-group levels per group and
-        keeps the root scan (the only cross-group one) for the serial
-        boundary reconciliation."""
+        per-group drive escalates intra-group levels per group and keeps
+        the root scan (the only cross-group one) for the serial
+        escalation after it."""
         sp = spans.enter("walk.escalate") if _SPANS else None
         comp = ctx.comp
         while active:
@@ -1963,70 +1732,40 @@ class Orchestrator:
     def _walk_wave(self, tasks: list, now: float, ctx: "_BatchContext",
                    route: bool) -> dict:
         """Phase 1: walk every distinct task signature against the frozen
-        ledger, advancing all walks in lockstep."""
-        walks, order = self._dedup_walks(tasks, route)
-        self._drive_wave(order, now, ctx)
-        if self.config.allow_best_effort:
-            for w in order:
-                if w.res is None:
-                    w.res = w.orc._best_effort(w.task, now, ctx, w.scored)
-        return walks
+        ledger, advancing all walks in lockstep.
 
-    def _shard_root_of(self, orc: "Orchestrator",
-                       ) -> Optional["Orchestrator"]:
-        """The root-child subtree (= group shard) an ORC belongs to, or
-        None for the root itself (serial bucket)."""
-        while orc.parent is not None and orc.parent.parent is not None:
-            orc = orc.parent
-        return orc if orc.parent is not None else None
-
-    def _walk_wave_sharded(self, tasks: list, now: float,
-                           ctx: "_BatchContext", route: bool) -> dict:
-        """Group-sharded phase 1: partition the deduped walks by root
-        child (= ORC device group), drive each group's walks up to (but
-        excluding) the root escalation level — on host threads when the
-        host has two or more cores and the wave is big enough — then
-        reconcile at the group boundary, the root's child-plan scan (the
-        only one whose NCR rows cross groups), serially.
-
-        Equal to :meth:`_walk_wave` because phase 1 is pure against the
-        frozen ledger and every scan an intra-group walk touches reads
-        only its own group's PU columns: the partition of walks is a
-        partition of all reads.  A group thread's error propagates (the
+        At a root ORC with two or more children whose wave holds walks
+        entering below two or more of them, the walks are driven per
+        group (root child) up to, but excluding, the root escalation
+        level — on host threads where the host has two or more cores and
+        the wave is big enough — and those that exhaust their group then
+        escalate through the root's cross-group scan together, serially.
+        This equals one drive of the whole wave: phase 1 is pure against
+        the frozen ledger, and every scan below the root reads only its
+        own group's PU columns.  A group thread's error propagates (the
         executor's ``map`` re-raises it here)."""
-        comp = ctx.comp
         walks, order = self._dedup_walks(tasks, route)
         buckets: dict = {}
         serial: list[_Walk] = []
-        for w in order:
-            root = self._shard_root_of(w.orc)
-            if root is None:
-                serial.append(w)
-            else:
-                buckets.setdefault(id(root), []).append(w)
+        if self.parent is None and len(self.children) > 1:
+            for w in order:
+                root = self._shard_root_of(w.orc)
+                if root is None:
+                    serial.append(w)
+                else:
+                    buckets.setdefault(id(root), []).append(w)
         groups = list(buckets.values())
         if len(groups) < 2:
             self._drive_wave(order, now, ctx)
         else:
             # host-thread fan-out only where it can win: >=2 cores and a
-            # wave big enough to amortize the pool and the route pre-warm
+            # wave big enough to amortize the pool and the pre-warm
             nthreads = min(len(groups), os.cpu_count() or 1)
             if nthreads < 2 or len(order) < 64 * len(groups):
                 for ws in groups:
                     self._drive_wave(ws, now, ctx, stop_root=True)
             else:
-                # warm every route row a group thread could need up front:
-                # one batched Dijkstra instead of contended lazy builds
-                warm: set = set()
-                for w in order:
-                    if w.task.origin is not None:
-                        warm.add(w.task.origin)
-                    warm.update(w.task.attrs.get("src_devices") or ())
-                    cur = w.orc
-                    while cur is not None:
-                        warm.add(cur.group)
-                        cur = cur.parent
-                comp.ensure_routes(warm)
+                self._warm_for_threads(order, ctx)
                 # each group's spans nest under this thread's open span
                 parent = spans.current() if _SPANS else None
                 with ThreadPoolExecutor(max_workers=nthreads) as ex:
@@ -2036,8 +1775,8 @@ class Orchestrator:
                         groups))
             if serial:
                 self._drive_wave(serial, now, ctx)
-            # boundary reconciliation: walks that exhausted their group
-            # escalate through the root's cross-group scan, serially
+            # walks that exhausted their group escalate through the root's
+            # cross-group scan, serially
             pend = [w for w in order
                     if w.res is None and w.cur.parent is not None]
             self._escalate_walks(pend, now, ctx)
@@ -2046,6 +1785,39 @@ class Orchestrator:
                 if w.res is None:
                     w.res = w.orc._best_effort(w.task, now, ctx, w.scored)
         return walks
+
+    def _warm_for_threads(self, order: list["_Walk"],
+                          ctx: "_BatchContext") -> None:
+        """Fill, before the group threads start, every lazy cache they
+        would otherwise fill at once: the route rows of every walk's
+        origin, sources and ORC chain (one batched Dijkstra instead of
+        contended lazy builds), and the ledger's compiled-index column,
+        per-device row lists and global view (which a walk escalating
+        within its group reads), so the threads only read the one ledger
+        they share."""
+        comp = ctx.comp
+        warm: set = set()
+        for w in order:
+            if w.task.origin is not None:
+                warm.add(w.task.origin)
+            warm.update(w.task.attrs.get("src_devices") or ())
+            cur = w.orc
+            while cur is not None:
+                warm.add(cur.group)
+                cur = cur.parent
+        comp.ensure_routes(warm)
+        led = self.ledger
+        led._fill_pu_idx(comp)
+        led._device_rows(comp)
+        led.live_view(comp)
+
+    def _shard_root_of(self, orc: "Orchestrator",
+                       ) -> Optional["Orchestrator"]:
+        """The root child whose subtree (ORC group) an ORC belongs to, or
+        None for the root itself (the serial bucket)."""
+        while orc.parent is not None and orc.parent.parent is not None:
+            orc = orc.parent
+        return orc if orc.parent is not None else None
 
     @staticmethod
     def _task_signature(orc: "Orchestrator", t: Task) -> tuple:

@@ -35,7 +35,7 @@ BOOL = torch.bool
 DeviceLike = Union[None, str, torch.device]
 
 _syncs = 0
-# reads may come from several host threads at once (the group-sharded walk)
+# reads may come from several host threads at once (the per-group drive)
 _sync_lock = threading.Lock()
 
 

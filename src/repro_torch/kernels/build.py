@@ -44,7 +44,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _LIB: Optional[ctypes.CDLL] = None
 _INFO: dict = {}
-# the walk drives group shards from host threads: the first launch may come
+# the walk drives ORC groups from host threads: the first launch may come
 # from two threads at once, and every launch bumps a shared counter
 _LOAD_LOCK = threading.Lock()
 _COUNT_LOCK = threading.Lock()

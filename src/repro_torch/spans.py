@@ -19,7 +19,7 @@ device trace are put on), the index of its parent, and the host reads
 (``device._count_sync``) and kernel launches (``build.count_launch``)
 made while it was the innermost open span of its thread.  The stack of
 open spans is per thread; a host thread that works for a span of another
-thread (the group-sharded walk's) runs under it with :func:`under`.
+thread (the walk's per-group drive) runs under it with :func:`under`.
 Counters (``walk.tasks`` ...) and the admission verdicts of ``serve.wave``
 spans are kept beside the spans.
 

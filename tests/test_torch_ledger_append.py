@@ -11,6 +11,7 @@ happened.  The reference's ledger and ``_BatchContext._extend_view``
 (``repro.core.orchestrator``), fed the same commits, give the same views
 to the bit.  The card holds the kernels to these plain versions
 (``tests/test_torch_kernels_card.py``)."""
+import itertools
 import math
 
 import numpy as np
@@ -23,6 +24,7 @@ import repro.core.task as Rtask
 import repro.core.traverser as Rtrav
 import repro_torch.core as T
 import repro_torch.core.orchestrator as Torc
+import repro_torch.core.task as Ttask
 from repro_torch import spans
 from repro_torch.core.task import Task
 from repro_torch.core.traverser import TaskPrediction
@@ -46,20 +48,41 @@ FLEET = dict(edge_counts={"orin_agx": 2, "xavier_nx": 1},
              server_counts={"server1": 1})
 
 
-def _setup(sharded: bool = False, pkg=T, orc=Torc, **kw):
-    """A small fleet's snapshot, a ledger (the root's sharded one, or a
-    single one) and a walk context over it, built by the port (``T``) or
-    the reference (``R``, with ``orc=Rorc``)."""
-    g = pkg.build_testbed(**FLEET, **kw).graph
+def _wave(pkg, tb) -> list:
+    """One task from the first edge and one from the server: walks that
+    enter below both root children, so the wave is driven per group."""
+    Rtask._task_counter = itertools.count(930_000)
+    Ttask._task_counter = itertools.count(930_000)
+    return [pkg.make_task("svm", origin=o, deadline=0.5)
+            for o in (tb.edges[0], tb.servers[0])]
+
+
+def _setup(split: bool = False, pkg=T, orc=Torc, **kw):
+    """A small fleet's snapshot, a ledger and a walk context over it,
+    built by the port (``T``) or the reference (``R``, with
+    ``orc=Rorc``).  With ``split`` the ledger is the root's after a wave
+    driven per root group (the port's one ledger, the reference's
+    default sharded one) and the device is the first the wave left
+    empty; else a fresh ledger and the first PU's device."""
+    tb = pkg.build_testbed(**FLEET, **kw)
+    g = tb.graph
     comp = g.compiled()
-    if sharded:
-        led = pkg.build_orchestrators(g, pkg.heye_traverser(g)).prepare(
-            comp).ledger
-        assert isinstance(led, orc.ShardedLedger)
+    if split:
+        root = pkg.build_orchestrators(g, pkg.heye_traverser(g)).prepare(
+            comp)
+        assert len(root.children) == 2
+        root.map_batch(_wave(pkg, tb), 0.0, route=True)
+        led = root.ledger
+        assert type(led) is (orc.ActiveLedger if pkg is T
+                             else orc.ShardedLedger)
+        assert all(o.ledger is led for o in root.iter_tree())
+        full = led.occupied_devices(comp)
+        assert len(full) == 2
+        dev = next(d for d in comp.dev_ord_names if d not in full)
     else:
         led = orc.ActiveLedger(**kw)
+        dev = comp.device_name(comp.pu_names[0])
     ctx = orc._BatchContext(g, comp, pkg.heye_traverser(g), led)
-    dev = comp.device_name(comp.pu_names[0])
     pus = [p for p in comp.pu_names if comp.device_name(p) == dev]
     return comp, led, ctx, dev, pus
 
@@ -91,8 +114,10 @@ def _assert_view(v, want) -> None:
     assert v.tasks == want.tasks
 
 
-def _assert_reference_view(v, rv) -> None:
-    """The port's view ``v`` equals the reference's ``rv`` to the bit."""
+def _assert_reference_view(v, rv, led, rled) -> None:
+    """The port's view ``v`` equals the reference's ``rv`` to the bit;
+    their rows are the same tasks' rows of ``led`` and ``rled`` (the
+    reference's ledger, or the shard of it that holds the device)."""
     for c in VIEW:
         want = np.asarray(getattr(rv, c))
         got = getattr(v, c).numpy()
@@ -100,7 +125,9 @@ def _assert_reference_view(v, rv) -> None:
         if want.dtype == np.float64:
             got, want = got.view(np.int64), want.view(np.int64)
         assert np.array_equal(got, want), c
-    assert v.rows == list(rv.rows) and v.pu_names == rv.pu_names
+    assert [led._tasks[i].uid for i in v.rows] == \
+        [rled._tasks[i].uid for i in rv.rows]
+    assert v.pu_names == rv.pu_names
     assert [t.uid for t in v.tasks] == [t.uid for t in rv.tasks]
 
 
@@ -110,10 +137,13 @@ def test_appended_views_equal_the_gathered_view(sharded):
     view: every view is an append (the buffers move at 16 and 34 rows),
     equal to the ledger's gathered view and to the view the reference's
     ``_extend_view`` builds from the same commits, to the bit, and none
-    of the views handed out changes afterwards."""
+    of the views handed out changes afterwards.  ``sharded``: the
+    ledgers are a split root's after a wave driven per group, the port's
+    one ledger against the reference's default sharded one."""
     comp, led, ctx, dev, pus = _setup(sharded, device="cpu")
     _, rled, rctx, rdev, rpus = _setup(sharded, R, Rorc)
     assert (rdev, rpus) == (dev, pus)
+    rshard = rled.shard_for(dev) if sharded else rled
     rng = np.random.default_rng(5)
     kept = []
     with spans.record() as rec:
@@ -129,7 +159,9 @@ def test_appended_views_equal_the_gathered_view(sharded):
             v = ctx.view(dev)
             assert ctx.view(dev) is v            # unchanged version: a hit
             _assert_view(v, led.device_view(comp, dev))
-            _assert_reference_view(v, rctx.view(dev))
+            _assert_reference_view(v, rctx.view(dev), led, rshard)
+            if not sharded:                  # one ledger each: one numbering
+                assert v.rows == list(rctx.view(dev).rows)
             kept.append((v, {c: getattr(v, c).clone() for c in VIEW}))
     counters = rec.summary()["counters"]
     assert counters["walk.view_appends"] == 40

@@ -446,10 +446,11 @@ def assert_serve_equal(rl, want, tl, got):
 @pytest.mark.parametrize("fastpath", ["default", "off"])
 @pytest.mark.parametrize("slack", [4.0, 0.35])
 def test_serve_loop_summary_matches_reference(monkeypatch, slack, fastpath):
-    """Both walk paths — the session-resident context (the default) and
-    the cold per-wave walk (``REPRO_SERVE_FASTPATH=0``, the object walk
-    for one-task waves) — give the reference's run on the same path; by
-    default the root builds one resident context and reuses it."""
+    """The port's one walk path, the session-resident context, gives the
+    reference's run on both of its paths: its resident context (the
+    default) and its cold per-wave walk (``REPRO_SERVE_FASTPATH=0``, the
+    object walk for one-task waves), which the port does not read.  The
+    port's root builds one resident context and reuses it."""
     if fastpath == "off":
         monkeypatch.setenv("REPRO_SERVE_FASTPATH", "0")
     rl, want = serve_run(R, RA, slack=slack)
@@ -458,11 +459,10 @@ def test_serve_loop_summary_matches_reference(monkeypatch, slack, fastpath):
     if slack == 0.35:
         assert any(r.verdict == "rejected" for r in got.requests)
     root = tl.session.policy
-    if fastpath == "default":
-        assert root._resident_ctx is not None
-        assert root.context_builds == 1 and len(got.wave_sizes) > 1
-    else:
-        assert root._resident_ctx is None
+    assert root._resident_ctx is not None
+    assert root.context_builds == 1 and len(got.wave_sizes) > 1
+    if fastpath == "off":
+        assert rl.session.policy._resident_ctx is None
 
 
 def test_serve_loop_with_mid_run_churn_matches_reference():

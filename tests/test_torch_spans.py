@@ -269,9 +269,10 @@ def test_wave_verdicts_cover_the_harness_admission_timer():
 
 
 def test_threaded_walk_nests_under_map_batch(monkeypatch):
-    """The group-sharded walk's host threads: their spans hang under the
-    ``walk.map_batch`` span of the thread that opened them, and a launch
-    counted in a group thread lands in that thread's span."""
+    """The per-group drive's host threads, over the one ledger: their
+    spans hang under the ``walk.map_batch`` span of the thread that
+    opened them, and a launch counted in a group thread lands in that
+    thread's span."""
     monkeypatch.setattr("os.cpu_count", lambda: 4)
     made = []
     real_pool = Torc.ThreadPoolExecutor

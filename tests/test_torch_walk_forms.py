@@ -1,17 +1,20 @@
-"""The port's three walk forms against the reference package, driven by
-the same switches: the group-sharded fused walk (``REPRO_SHARDED_WALK``),
-the fused walk (``REPRO_FUSED_WALK``) and the object walk (its ``=0``
-oracle, and the only walk of ``first_fit`` and of noisy slowdown models),
-over a session-resident walk context (``REPRO_SERVE_FASTPATH``).  One
-``monkeypatch.setenv`` drives both packages.
+"""The port's walk against the reference package's three walk forms.
 
-Contracts: port against reference in the same form — placements,
-standalone, factor, comm, queries and hops identical, overhead within
-1e-9; within the port, sharded against fused bit-identical, fused against
-the object walk identical decisions with overhead within 1e-9.  Plus the
-sharded snapshot and ledger surfaces, the resident context's reuse rules,
-the threaded branch of the sharded driver, and exact counters under
-concurrent increments."""
+The reference picks its form by three switches: the group-sharded fused
+walk (``REPRO_SHARDED_WALK``), the fused walk over one ledger
+(``REPRO_FUSED_WALK``) and the object walk (its ``=0`` oracle), over a
+session-resident walk context (``REPRO_SERVE_FASTPATH``).  The port has
+none of them: it walks the fused walk over one ledger shared by every
+ORC, driven per root group where a wave's walks enter below two or more
+root children, and the object walk only for ``first_fit``, noisy
+slowdown models and models without the same-device surface.
+
+Contracts: the port at its defaults against every reference form —
+placements, standalone, factor, comm, queries and hops identical,
+overhead within 1e-9; the switches set to ``0`` change nothing in the
+port.  Plus the one ledger at a split root, the resident context's reuse
+rules, the threaded branch of the per-group drive, and exact counters
+under concurrent increments."""
 import itertools
 import threading
 
@@ -30,6 +33,7 @@ import repro_torch.core.task as Ttask
 import repro_torch.core.workloads as Twl
 import repro_torch.serve.admission as TA
 from repro_torch import device as Tdevice
+from repro_torch import spans
 from repro_torch.kernels import build as Tbuild
 from torch_port_util import TOL, mining_counts
 
@@ -38,13 +42,28 @@ _PARITY_EDGES = {"orin_agx": 2, "xavier_agx": 1, "orin_nano": 2,
                  "xavier_nx": 1}
 _PARITY_SERVERS = {"server1": 1, "server2": 1}
 _MODES = ("sharded", "fused", "oracle")
+_SWITCHES = ("REPRO_FUSED_WALK", "REPRO_SHARDED_WALK", "REPRO_SERVE_FASTPATH")
 
 
 def _env(monkeypatch, mode: str, fastpath: str = "1") -> None:
+    """The reference's walk form ``mode``; the port reads none of it."""
     monkeypatch.setenv("REPRO_FUSED_WALK", "0" if mode == "oracle" else "1")
     monkeypatch.setenv("REPRO_SHARDED_WALK",
                        "1" if mode == "sharded" else "0")
     monkeypatch.setenv("REPRO_SERVE_FASTPATH", fastpath)
+
+
+def _defaults(monkeypatch) -> None:
+    for name in _SWITCHES:
+        monkeypatch.delenv(name, raising=False)
+
+
+def _form(pkg, monkeypatch, mode, fastpath: str = "1") -> None:
+    """The reference in form ``mode``; the port at its defaults."""
+    if pkg is T:
+        _defaults(monkeypatch)
+    else:
+        _env(monkeypatch, mode, fastpath)
 
 
 def _tb(pkg, counts=None):
@@ -64,9 +83,14 @@ def _rows(res: dict) -> list:
 def _run(pkg, monkeypatch, mode, workload, churn=None, counts=None,
          fastpath="1", config=None):
     """Map ``workload(pkg, tb)``'s batches through a fresh session of
-    ``pkg`` in one walk form, with optional ``churn(tb, i)`` between
-    batches.  Returns (result rows per batch in uid order, root)."""
-    _env(monkeypatch, mode, fastpath)
+    ``pkg`` (the reference in walk form ``mode``, the port at its
+    defaults), with optional ``churn(tb, i)`` between batches.  Returns
+    (result rows per batch in uid order, root)."""
+    _form(pkg, monkeypatch, mode, fastpath)
+    return _session(pkg, workload, churn, counts, config)
+
+
+def _session(pkg, workload, churn=None, counts=None, config=None):
     tb = _tb(pkg, counts)
     g = tb.graph
     root = pkg.build_orchestrators(
@@ -104,21 +128,21 @@ def _assert_decisions(got, want):
                 assert g_[k] == pytest.approx(w_[k], rel=TOL, abs=1e-12)
 
 
+def _one_ledger(root) -> None:
+    """Every ORC of the tree shares the one ``ActiveLedger``."""
+    assert type(root.ledger) is T.ActiveLedger
+    assert all(o.ledger is root.ledger for o in root.iter_tree())
+
+
 def _all_forms(monkeypatch, workload, churn=None, counts=None, **kw):
-    """Every form in both packages: each port form against the same
-    reference form, sharded == fused bit for bit within the port, and the
-    object walk's decisions equal to the fused walk's."""
-    out = {}
+    """The port once, at its defaults, against each of the reference's
+    three forms; returns the port's (rows, root)."""
+    got, root = _run(T, monkeypatch, None, workload, churn, counts, **kw)
+    _one_ledger(root)
     for mode in _MODES:
         ref, _ = _run(R, monkeypatch, mode, workload, churn, counts, **kw)
-        got, root = _run(T, monkeypatch, mode, workload, churn, counts, **kw)
         _assert_close(got, ref)
-        out[mode] = (got, root)
-    assert out["sharded"][0] == out["fused"][0]
-    _assert_close(out["oracle"][0], out["fused"][0])
-    assert isinstance(out["sharded"][1].ledger, T.ShardedLedger)
-    assert type(out["fused"][1].ledger) is T.ActiveLedger
-    return out
+    return got, root
 
 
 # ---------------------------------------------------------------------------
@@ -144,6 +168,18 @@ def _render(n):
                              for _ in range(n)]]
 
 
+def _two_groups(pkg, tb, readings=2):
+    """Mining readings from the edges and, in the same wave, svm and mlp
+    tasks from every server: walks enter below both root children, so
+    the wave is driven per group; repeated tasks re-walk in the commit."""
+    cfg = pkg.mining_workload(tb, n_sensors=12, n_readings=readings)
+    for i, srv in enumerate(tb.servers):
+        for k in range(4):
+            cfg.add(pkg.make_task(("svm", "mlp")[k % 2], origin=srv,
+                                  deadline=0.5))
+    return [cfg]
+
+
 def _dead_and_slow(dead):
     def churn(tb, i):
         if i == 0:
@@ -153,12 +189,26 @@ def _dead_and_slow(dead):
     return churn
 
 
+def _group_drives(monkeypatch) -> list:
+    """Record the root groups of every per-group drive (``stop_root``)."""
+    drives = []
+    real = Torc.Orchestrator._drive_wave
+
+    def drive(self, walks, now, ctx, stop_root=False):
+        if stop_root:
+            drives.append({self._shard_root_of(w.orc).group for w in walks})
+        return real(self, walks, now, ctx, stop_root=stop_root)
+
+    monkeypatch.setattr(Torc.Orchestrator, "_drive_wave", drive)
+    return drives
+
+
 @pytest.mark.parametrize("case", ["mining", "vr", "mining_x2", "vr_x2"])
 def test_walk_forms_match_reference(monkeypatch, case):
     """Fig. 13 mining (deadline-driven escalation, two readings) and Fig.
-    7 VR (pinned stages, src_devices provenance) in all three forms, on
-    the parity fleet and on the mining fleet at mult=2 (the reference's
-    mult=64 sharded cases, cut to size)."""
+    7 VR (pinned stages, src_devices provenance) against all three
+    reference forms, on the parity fleet and on the mining fleet at
+    mult=2 (the reference's mult=64 sharded cases, cut to size)."""
     wl, counts = {
         "mining": (_mining(18, readings=2), None),
         "vr": (_vr(3), None),
@@ -170,17 +220,17 @@ def test_walk_forms_match_reference(monkeypatch, case):
 
 def test_walk_forms_parity_across_churn(monkeypatch):
     """mark_dead + set_bandwidth between batches: the delta'd snapshot
-    bumps epochs, so every cache of every form must refresh; the sharded
-    ledger keeps routing by device name over the new clone."""
+    bumps epochs, so every cache must refresh; the one ledger keeps
+    routing by device name over the new clone."""
     dead: dict = {}
-    out = _all_forms(monkeypatch, _mining(12, batches=2),
-                     churn=_dead_and_slow(dead))
-    assert all(row[0] != dead["pu"] for row in out["sharded"][0][1])
+    got, _ = _all_forms(monkeypatch, _mining(12, batches=2),
+                        churn=_dead_and_slow(dead))
+    assert all(row[0] != dead["pu"] for row in got[1])
 
 
 def test_set_bandwidth_invalidates_comm_in_every_form(monkeypatch):
     """An identical escalating task before and after a bandwidth collapse
-    sees the new comm cost in every form."""
+    sees the new comm cost, in the port and in every reference form."""
     def wl(pkg, tb):
         mk = lambda: [pkg.make_task("render", origin=_nano(tb),
                                     deadline=0.030, input_bytes=4e3)]
@@ -190,166 +240,128 @@ def test_set_bandwidth_invalidates_comm_in_every_form(monkeypatch):
         if i == 0:
             tb.graph.set_bandwidth(f"link_{_nano(tb)}", 1e6)
 
-    out = _all_forms(monkeypatch, wl, churn=churn)
-    before, after = out["fused"][0][0][0], out["fused"][0][1][0]
+    got, _ = _all_forms(monkeypatch, wl, churn=churn)
+    before, after = got[0][0], got[1][0]
     assert after[3] != before[3]
 
 
 def test_sharded_cross_group_escalation(monkeypatch):
     """A deadline only servers meet forces the walk out of the edge group
-    through the root's cross-group scan (the serial boundary
-    reconciliation), bit-identical to the fused walk."""
-    out = _all_forms(monkeypatch, _render(3))
-    rows = out["sharded"][0][0]
+    through the root's cross-group scan, as in every reference form."""
+    got, _ = _all_forms(monkeypatch, _render(3))
+    rows = got[0]
     assert all(r[0].split(".")[0].startswith("server") for r in rows)
     assert all(r[5] > 0 for r in rows)
 
 
 # ---------------------------------------------------------------------------
-# the sharded snapshot and session state
+# the walk switches are the reference's alone
+# ---------------------------------------------------------------------------
+def _switch_workload(pkg, tb):
+    """A wave driven per root group, then single-task waves at advancing
+    instants through the resident context."""
+    return _two_groups(pkg, tb) + [
+        [pkg.make_task(k, origin=tb.edges[i % len(tb.edges)], deadline=0.5,
+                       release_time=0.004 * i)]
+        for i, k in enumerate(["svm", "mlp", "dnn", "render"])]
+
+
+def _port_run():
+    """The port's rows, ``walk.*`` counters and context counts over
+    ``_switch_workload``."""
+    with spans.record() as rec:
+        got, root = _session(T, _switch_workload)
+    _one_ledger(root)
+    walk = {k: v for k, v in rec.summary()["counters"].items()
+            if k.startswith("walk.")}
+    return got, walk, (root.context_builds, root.context_rebases)
+
+
+@pytest.mark.parametrize("name", _SWITCHES)
+def test_walk_switches_do_not_reach_the_port(monkeypatch, name):
+    """Each of the reference's walk switches set to ``0``: the port's
+    MapResults, its ``walk.*`` counters, its per-group drives and its
+    context builds and rebases equal its own at the defaults, and its
+    MapResults equal the reference's under that same setting."""
+    _defaults(monkeypatch)
+    drives = _group_drives(monkeypatch)
+    want = _port_run()
+    n = len(drives)
+    assert n and all(len(d) == 1 for d in drives)
+    assert want[1]["walk.walks"] > 0 and want[2][0] == 1
+    monkeypatch.setenv(name, "0")
+    got = _port_run()
+    assert got == want and drives[n:] == drives[:n]
+    ref, _ = _session(R, _switch_workload)
+    _assert_close(got[0], ref)
+
+
+# ---------------------------------------------------------------------------
+# the one ledger at a split root
 # ---------------------------------------------------------------------------
 def test_sharded_session_state(monkeypatch):
-    """The sharded session installs a ShardedLedger over the root-child
-    groups on the ledger's device; totals and counters aggregate across
-    shards; every ledger method the session, the serving loop and the DES
-    call works through the facade."""
-    _env(monkeypatch, "sharded")
+    """At a root with two children the session keeps the one ledger it
+    was built with, on the graph's device, shared by every ORC; a wave
+    driven per group leaves it whole (it equals a ledger fed the same
+    commits, view for view); every ledger method the session, the
+    serving loop and the DES call works on it."""
+    _defaults(monkeypatch)
+    drives = _group_drives(monkeypatch)
     tb = _tb(T)
     g = tb.graph
     root = T.build_orchestrators(g, T.heye_traverser(g))
-    sess = T.SchedulerSession(g, root)
     led = root.ledger
-    assert isinstance(led, T.ShardedLedger)
-    assert len(led.shards) == len(root.children) >= 2
-    assert all(s.device.type == "cpu" for s in led.shards)
-    assert all(o.ledger is led for o in root.iter_tree())
-    assert all(s.mut_log is led.mut_log for s in led.shards)
-    assert isinstance(root._sharded_hw, T.ShardedHWGraph)
-    cfg = T.mining_workload(tb, n_sensors=8, n_readings=1)
+    sess = T.SchedulerSession(g, root)
+    assert root.ledger is led and len(root.children) >= 2
+    _one_ledger(root)
+    assert led.device.type == "cpu"
+    cfg = _two_groups(T, tb, readings=1)[0]
     sess.submit(cfg)
     res = sess.map_pending()
+    assert {frozenset(d) for d in drives} == {
+        frozenset({c.group}) for c in root.children}
     assert res and all(r is not None for r in res.values())
-    assert len(led) == sum(len(s) for s in led.shards) == len(res)
+    assert root.ledger is led and len(led) == len(res)
     assert root.factor_cache_hits + root.factor_cache_misses > 0
     assert g.recompile_count <= 1
-    # the merged view equals a monolithic ledger holding the same rows
     comp = g.compiled()
-    mono = T.ActiveLedger("cpu")
-    mono._pu_dev.update(comp._pu_device_name)
+    one = T.ActiveLedger("cpu")
+    one._pu_dev.update(comp._pu_device_name)
     for t in cfg:
         r = res[t.uid]
-        mono.add(t, r.pu, r.prediction, 0.0)
-    a, b = led.live_view(comp), mono.live_view(comp)
+        one.add(t, r.pu, r.prediction, 0.0)
+    a, b = led.live_view(comp), one.live_view(comp)
     assert a.pu_names == b.pu_names and a.tasks == b.tasks
-    for col in ("P", "est", "fac", "dl", "rel", "upu", "umem", "Ma", "uid",
-                "Da", "na", "astart"):
+    cols = ("P", "est", "fac", "dl", "rel", "upu", "umem", "Ma", "uid",
+            "Da", "na", "astart")
+    for col in cols:
         assert getattr(a, col).tolist() == getattr(b, col).tolist(), col
+    for dev in comp.dev_ord_names:
+        x, y = led.device_view(comp, dev), one.device_view(comp, dev)
+        assert x.tasks == y.tasks
+        for col in cols:
+            assert getattr(x, col).tolist() == getattr(y, col).tolist(), col
     pu = res[cfg.tasks[0].uid].pu
-    assert led.count(pu) == mono.count(pu)
-    assert led.occupied_devices(comp) == mono.occupied_devices(comp)
+    servers = {r.pu.split(".")[0] for r in res.values()} & set(tb.servers)
+    assert servers                       # rows in both groups
+    assert led.count(pu) == one.count(pu)
+    assert led.occupied_devices(comp) == one.occupied_devices(comp)
     assert {k: len(v) for k, v in led.by_pu.items()} == \
-        {k: len(v) for k, v in mono.by_pu.items()}
+        {k: len(v) for k, v in one.by_pu.items()}
     assert [e.task for e in led.on_device(g, pu)] == \
-        [e.task for e in mono.on_device(g, pu)]
-    # retire / remove / prune through the facade
+        [e.task for e in one.on_device(g, pu)]
+    assert led.pairs_on_device(g, pu) == one.pairs_on_device(g, pu)
+    # retire / remove / touch / prune
     assert led.retire([t.uid for t in cfg.tasks[:3]]) == 3
     led.remove(cfg.tasks[3])
     assert len(led) == len(res) - 4
+    v0 = led.version
     led.touch(comp.device_name(pu))
+    assert led.version == v0 + 1
     led.prune(1e9)
     assert len(led) == 0
     stats = sess.execute()
     assert sess.engine_opens <= 1 and stats is not None
-
-
-def test_sharded_hwgraph_slicing():
-    """ShardedHWGraph: PU index remap, per-group NCR blocks, block-diagonal
-    validation, device -> shard lookup, the per-snapshot cache dropped by
-    a delta clone, and the rejected partitions."""
-    tb = _tb(T)
-    comp = tb.graph.compiled()
-    groups = {"edge_cluster": list(tb.edges),
-              "server_cluster": list(tb.servers)}
-    sh = comp.sharded(groups)
-    assert isinstance(sh, T.ShardedHWGraph)
-    assert sh.n_shards == 2
-    assert comp.sharded(groups) is sh          # cached per partition
-    assert sh.routes is comp._rt
-    names = set()
-    for shard in sh.shards:
-        assert shard.pu_idx.tolist() == shard.pu_idx_l
-        assert [comp.pu_names[i] for i in shard.pu_idx_l] == shard.pu_names
-        assert all(shard.local_index[n] == j
-                   for j, n in enumerate(shard.pu_names))
-        sel = shard.pu_idx
-        assert shard.ncr_res.tolist() == comp.ncr_res[sel][:, sel].tolist()
-        assert shard.ncr_rclass.tolist() == \
-            comp.ncr_rclass[sel][:, sel].tolist()
-        assert shard.pu_alive.tolist() == comp.pu_alive[sel].tolist()
-        names.update(shard.pu_names)
-        for d in shard.devices:
-            assert sh.shard_of(d) == shard.name
-    assert names == set(comp.pu_names)
-    a, b = sh.shards
-    assert (comp.ncr_res[a.pu_idx][:, b.pu_idx] == -1).all()
-    # the reference slices the same partition the same way
-    rtb = _tb(R)
-    rcomp = rtb.graph.compiled()
-    rsh = rcomp.sharded({"edge_cluster": list(rtb.edges),
-                         "server_cluster": list(rtb.servers)})
-    for x, y in zip(sh.shards, rsh.shards):
-        assert x.pu_names == y.pu_names
-        assert x.ncr_res.tolist() == y.ncr_res.tolist()
-    # a delta clone drops the cache and re-slices lazily
-    tb.graph.set_bandwidth(f"link_{tb.edges[0]}", 2e6)
-    comp2 = tb.graph.compiled()
-    assert comp2 is not comp and comp2.sharded(groups) is not sh
-    # overlapping groups and a group split of one device are rejected
-    e = tb.edges[0]
-    with pytest.raises(ValueError):
-        comp.sharded({"g1": [e], "g2": [e, *tb.servers]})
-    pus = [comp.pu_index[p] for p in comp.pu_names if p.startswith(e + ".")]
-    shared = [(i, j) for i in pus for j in pus
-              if i != j and int(comp.ncr_res[i, j]) != -1]
-    assert shared
-    i0, j0 = shared[0]
-    # a partition at PU granularity: device e's PUs on two sides of a
-    # shared resource (the validator sees the cross-block entry)
-    sh_bad = T.ShardedHWGraph.__new__(T.ShardedHWGraph)
-    sh_bad.comp = comp
-    sh_bad.shards = [type("S", (), dict(name="g1", pu_idx_l=[i0]))(),
-                     type("S", (), dict(name="g2", pu_idx_l=[j0]))()]
-    with pytest.raises(ValueError, match="block-diagonal"):
-        sh_bad._validate_block_diagonal()
-
-
-def test_prepare_installs_sharding_once_and_only_at_a_split_root(
-        monkeypatch):
-    """prepare() shards at a root with two or more children unless
-    REPRO_SHARDED_WALK=0; an already-used ledger is left monolithic, and
-    a delta never re-slices the installed partition."""
-    _env(monkeypatch, "sharded")
-    tb = _tb(T)
-    g = tb.graph
-    root = T.build_orchestrators(g, T.heye_traverser(g))
-    root.prepare()
-    led = root.ledger
-    assert isinstance(led, T.ShardedLedger)
-    root.prepare()                       # already sharded: untouched
-    assert root.ledger is led
-    g.set_bandwidth(f"link_{tb.edges[0]}", 2e6)
-    root.map_batch([T.make_task("svm", origin=tb.edges[0], deadline=0.5)],
-                   0.0, route=True)
-    assert root.ledger is led and led.hw.comp is not g.compiled()
-    monkeypatch.setenv("REPRO_SHARDED_WALK", "0")
-    root2 = T.build_orchestrators(g, T.heye_traverser(g)).prepare()
-    assert type(root2.ledger) is T.ActiveLedger
-    monkeypatch.setenv("REPRO_SHARDED_WALK", "1")
-    root3 = T.build_orchestrators(g, T.heye_traverser(g))
-    root3.map_batch([T.make_task("svm", origin=tb.edges[0], deadline=0.5)],
-                    0.0, route=True)
-    root3.prepare()                      # a non-empty ledger stays whole
-    assert type(root3.ledger) is T.ActiveLedger
 
 
 # ---------------------------------------------------------------------------
@@ -364,23 +376,21 @@ def _stream(pkg, tb):
 
 @pytest.mark.parametrize("mode", ["sharded", "fused"])
 def test_resident_context_matches_cold_walk(monkeypatch, mode):
-    """A stream of single-task waves at advancing instants through one
-    resident context matches the cold walk (the object walk for
-    single-task waves) — in the port, and against the reference."""
+    """A stream of single-task waves at advancing instants through the
+    port's one resident context matches the reference's cold walk (the
+    object walk for single-task waves, ``REPRO_SERVE_FASTPATH=0``) and
+    its resident one, in the reference's form ``mode``."""
     fast, root = _run(T, monkeypatch, mode, _stream)
-    cold, root_c = _run(T, monkeypatch, mode, _stream, fastpath="0")
-    _assert_close(fast, cold)
-    _assert_close(fast, _run(R, monkeypatch, mode, _stream)[0])
-    _assert_close(cold, _run(R, monkeypatch, mode, _stream,
+    _assert_close(fast, _run(R, monkeypatch, mode, _stream,
                              fastpath="0")[0])
+    _assert_close(fast, _run(R, monkeypatch, mode, _stream)[0])
     assert root.context_builds == 1 and root.context_rebases == 0
-    assert root_c.context_builds == 0 and root_c._resident_ctx is None
 
 
 def test_resident_context_parity_across_bandwidth_churn(monkeypatch):
     """Bandwidth-only deltas between waves rebase the resident context
-    (one build, then a rebase per delta); decisions match the cold walk
-    and the reference."""
+    (one build, then a rebase per delta); decisions match the
+    reference's cold walk and its resident one in both fused forms."""
     def wl(pkg, tb):
         return [[pkg.make_task("svm", origin=tb.edges[0], deadline=0.5,
                                release_time=0.01 * i),
@@ -391,19 +401,20 @@ def test_resident_context_parity_across_bandwidth_churn(monkeypatch):
     def churn(tb, i):
         tb.graph.set_bandwidth(f"link_{tb.edges[1]}", 3e6 + 1e6 * i)
 
+    fast, root = _run(T, monkeypatch, None, wl, churn=churn)
+    assert root.context_builds == 1 and root.context_rebases == 3
     for mode in ("sharded", "fused"):
-        fast, root = _run(T, monkeypatch, mode, wl, churn=churn)
-        cold, _ = _run(T, monkeypatch, mode, wl, churn=churn, fastpath="0")
-        _assert_close(fast, cold)
+        _assert_close(fast, _run(R, monkeypatch, mode, wl, churn=churn,
+                                 fastpath="0")[0])
         _assert_close(fast, _run(R, monkeypatch, mode, wl, churn=churn)[0])
-        assert root.context_builds == 1 and root.context_rebases == 3
 
 
 def test_resident_context_identity_and_oracle_off(monkeypatch):
     """The root keeps one context across map_batch calls, rebases it onto
     a bandwidth-only successor, drops it on a death and on add_child;
-    REPRO_SERVE_FASTPATH=0 keeps no resident state."""
-    _env(monkeypatch, "fused")
+    with ``REPRO_SERVE_FASTPATH=0`` the port still keeps it, and places
+    as the reference's cold walk does."""
+    _defaults(monkeypatch)
     tb = T.build_testbed(edge_counts={"orin_agx": 1, "orin_nano": 1},
                          server_counts={"server1": 1}, device="cpu")
     g = tb.graph
@@ -425,15 +436,28 @@ def test_resident_context_identity_and_oracle_off(monkeypatch):
     root.add_child(T.Orchestrator(g, "extra", root.traverser, root.ledger))
     assert root._resident_ctx is None
     monkeypatch.setenv("REPRO_SERVE_FASTPATH", "0")
-    root2 = T.build_orchestrators(g, T.heye_traverser(g))
-    root2.map_batch([svm(tb.edges[0])], now=0.0, route=True)
-    assert root2._resident_ctx is None
+    got = {}
+    for pkg in (R, T):
+        tb = pkg.build_testbed(edge_counts={"orin_agx": 1, "orin_nano": 1},
+                               server_counts={"server1": 1},
+                               **({"device": "cpu"} if pkg is T else {}))
+        g = tb.graph
+        root2 = pkg.build_orchestrators(g, pkg.heye_traverser(g))
+        got[pkg] = [_rows({0: r}) for r in root2.map_batch(
+            [pkg.make_task("svm", origin=tb.edges[0], deadline=0.5)],
+            now=0.0, route=True)]
+        if pkg is T:
+            assert root2._resident_ctx is not None
+            assert root2.context_builds == 1
+        else:
+            assert root2._resident_ctx is None
+    _assert_close(got[T], got[R])
 
 
 def test_resident_context_drops_long_journal_and_memos(monkeypatch):
     """The journal past 50 000 entries drops the context and is reset in
-    place (shards alias it); the id-keyed memos drop past 8192."""
-    _env(monkeypatch, "sharded")
+    place; the id-keyed memos drop past 8192."""
+    _defaults(monkeypatch)
     tb = _tb(T)
     g = tb.graph
     root = T.build_orchestrators(g, T.heye_traverser(g)).prepare()
@@ -450,7 +474,7 @@ def test_resident_context_drops_long_journal_and_memos(monkeypatch):
                    0.002, route=True)
     assert root._resident_ctx is not ctx and root.context_builds == 2
     assert root.ledger.mut_log is log and len(log) < 10
-    assert all(s.mut_log is log for s in root.ledger.shards)
+    assert ctx.commit_log is log
 
 
 # ---------------------------------------------------------------------------
@@ -596,9 +620,10 @@ def _wide_wave(pkg, tb):
 
 def test_threaded_sharded_walk_matches_serial_and_reference(monkeypatch):
     """A wave of 160 distinct signatures over two groups takes the
-    threaded branch (os.cpu_count patched where the host has one core):
-    bit-identical to the fused walk, equal to the reference, and the
-    group threads' counter bumps stay exact."""
+    threaded branch of the per-group drive over the one ledger
+    (os.cpu_count patched where the host has one core): bit-identical to
+    the serial drive, equal to the reference's sharded and fused forms,
+    and the group threads' counter bumps stay exact."""
     monkeypatch.setattr("os.cpu_count", lambda: 4)
     made = []
     real_pool = Torc.ThreadPoolExecutor
@@ -624,19 +649,20 @@ def test_threaded_sharded_walk_matches_serial_and_reference(monkeypatch):
     monkeypatch.setattr(Torc, "scan_reduce_batch", counted_batch)
     monkeypatch.setattr(T.DecoupledSlowdown, "factors_same_device_multi",
                         counted_multi)
-    threaded, _ = _run(T, monkeypatch, "sharded", _wide_wave)
+    threaded, root = _run(T, monkeypatch, None, _wide_wave)
     assert made == [2]
+    _one_ledger(root)
     n_threaded = dict(counts)
     for k in counts:
         counts[k] = 0
     monkeypatch.setattr("os.cpu_count", lambda: 1)
-    serial, _ = _run(T, monkeypatch, "sharded", _wide_wave)
+    serial, _ = _run(T, monkeypatch, None, _wide_wave)
     assert made == [2]                       # no pool on one core
     assert counts == n_threaded and counts["scan_reduce_batch"] >= 2
-    fused, _ = _run(T, monkeypatch, "fused", _wide_wave)
-    assert threaded == serial == fused
+    assert threaded == serial
     monkeypatch.setattr("os.cpu_count", lambda: 4)
-    _assert_close(threaded, _run(R, monkeypatch, "sharded", _wide_wave)[0])
+    for mode in ("sharded", "fused"):
+        _assert_close(threaded, _run(R, monkeypatch, mode, _wide_wave)[0])
 
 
 def test_counters_exact_under_concurrent_increments(monkeypatch):
@@ -720,7 +746,7 @@ def _serving(pkg, monkeypatch, mode):
     a ServeLoop: each request its own wave through the resident context,
     its second and third task re-walked, the clock moving between
     waves."""
-    _env(monkeypatch, mode)
+    _form(pkg, monkeypatch, mode)
     wl = (Rwl if pkg is R else Twl)
     adm = (RA if pkg is R else TA)
     tb = _tb(pkg)
@@ -764,7 +790,7 @@ def _direct(pkg, monkeypatch, mode, at_cluster: bool):
     """Mining readings mapped by ``map_batch`` with ``route=False``: at
     the root, or at the first cluster ORC (its own tasks): the entry
     plan covers several devices."""
-    _env(monkeypatch, mode)
+    _form(pkg, monkeypatch, mode)
     tb = _tb(pkg)
     g = tb.graph
     root = pkg.build_orchestrators(g, pkg.heye_traverser(g))
@@ -789,14 +815,29 @@ def _contention_blind(pkg, monkeypatch, mode):
     return _run(pkg, monkeypatch, mode, _mining(18, readings=2))
 
 
+def _two_groups_drive(pkg, monkeypatch, mode):
+    """``_two_groups`` through a session; the port's wave is driven per
+    root group."""
+    if pkg is not T:
+        return _run(pkg, monkeypatch, mode, _two_groups)
+    real = Torc.Orchestrator._drive_wave
+    drives = _group_drives(monkeypatch)
+    try:
+        out = _run(pkg, monkeypatch, mode, _two_groups)
+    finally:
+        monkeypatch.setattr(Torc.Orchestrator, "_drive_wave", real)
+    assert len(drives) >= 2 and all(len(d) == 1 for d in drives)
+    return out
+
+
 FUSED_CASES = {
-    # case: (how it runs in a walk form, its form, whether the fused route
-    # must engage, must one entry find no winner)
+    # case: (how it runs (the reference in its form), the reference's
+    # form, whether the fused route must engage, must one entry find no
+    # winner)
     "mining_batch": (lambda pkg, mp, m: _run(pkg, mp, m,
                                              _mining(18, readings=2)),
                      "fused", True, False),
-    "mining_batch_sharded": (lambda pkg, mp, m: _run(
-        pkg, mp, m, _mining(18, readings=2)), "sharded", True, False),
+    "two_groups_batch": (_two_groups_drive, "sharded", True, False),
     "mining_serve": (_serving, "sharded", True, False),
     "vr": (lambda pkg, mp, m: _run(pkg, mp, m, _vr(3)), "sharded", None,
            False),
@@ -846,8 +887,9 @@ def test_fused_rewalk_matches_the_two_step_path(monkeypatch, case):
     overhead, queries, hops) as the two-step path, bit for bit, the same
     scan-state columns, stamps, expiry, journal positions and
     effective-column entries left behind, and decisions equal to Alg. 1
-    run task by task (the port's object walk, ``REPRO_FUSED_WALK=0``) and
-    to the reference's.  It engages on no other shape: the ``min_load``
+    run task by task (the reference's object walk,
+    ``REPRO_FUSED_WALK=0``) and to the reference's form of the case.  It
+    engages on no other shape: the ``min_load``
     objective, entry plans over several devices (``route=False``, at the
     root or a cluster ORC), a slowdown model without the route."""
     drive, mode, engages, empty = FUSED_CASES[case]
@@ -879,7 +921,7 @@ def test_fused_rewalk_matches_the_two_step_path(monkeypatch, case):
     if empty:
         assert fused[3]["empty"] > 0
     ref, _ = drive(R, monkeypatch, mode)
-    oracle, _ = drive(T, monkeypatch, "oracle")
+    oracle, _ = drive(R, monkeypatch, "oracle")
     if case == "mining_serve":
         assert fused[0] == ref == oracle
     else:
